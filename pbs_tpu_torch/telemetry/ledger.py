@@ -1,0 +1,152 @@
+"""Seqlock-versioned per-job telemetry ledger (pure-Python tier).
+
+The port of ``pbs_tpu.telemetry.ledger``: the scheduler (writer)
+publishes each context's counter sums into a flat buffer of fixed
+little-endian u64 slots; readers take lock-free snapshots under the
+seqlock retry contract of the reference's perfctr readout
+(``drivers/perfctr/x86.c:228-312``). The byte layout is the JAX
+package's, so a slot written here reads the same there.
+
+This slice carries the Python write path only: its ``_begin``/``_end``
+are plain read-modify-writes with no fences, safe for the in-process
+single writer the partition runs. The native C tier with real atomics
+(cross-process writers) and the file-backed mapping for external
+monitors are not ported yet (ROADMAP).
+
+Slot layout (all u64, SLOT_WORDS words per execution-context slot):
+
+    [0]      version    — seqlock: odd while a write is in progress
+    [1]      tsc_start  — clock at last resume (0 when suspended)
+    [2:20]   sums[18]   — accumulated counter values
+    [20:38]  start[18]  — live-merge base (value at resume)
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from pbs_tpu_torch.telemetry.counters import NUM_COUNTERS
+
+HEADER_WORDS = 2
+SLOT_WORDS = HEADER_WORDS + 2 * NUM_COUNTERS  # 38
+SLOT_BYTES = SLOT_WORDS * 8
+
+_V = 0  # version word
+_T = 1  # tsc_start word
+_SUMS = HEADER_WORDS
+_START = HEADER_WORDS + NUM_COUNTERS
+
+
+class Ledger:
+    """A contiguous array of seqlock counter slots, one per context.
+
+    ``buf`` may be any writable buffer (bytearray, shared memory); the
+    default allocates process-local memory.
+    """
+
+    def __init__(self, num_slots: int, buf=None):
+        self.num_slots = num_slots
+        nbytes = num_slots * SLOT_BYTES
+        if buf is None:
+            buf = bytearray(nbytes)
+        mv = memoryview(buf)
+        if mv.nbytes < nbytes:
+            raise ValueError(f"buffer too small: {mv.nbytes} < {nbytes}")
+        self._arr = np.frombuffer(mv, dtype="<u8", count=num_slots * SLOT_WORDS)
+        self._arr = self._arr.reshape(num_slots, SLOT_WORDS)
+
+    # -- writer side (scheduler/executor only) ---------------------------
+
+    def _begin(self, slot: int) -> None:
+        self._arr[slot, _V] += 1  # odd: write in progress
+
+    def _end(self, slot: int) -> None:
+        self._arr[slot, _V] += 1  # even: stable
+
+    def resume(self, slot: int, now_ns: int, live: np.ndarray | None = None) -> None:
+        """Mark slot running; record the live-counter base for a later
+        merge (``pmu_restore_regs`` -> ``perfctr_cpu_resume``)."""
+        self._begin(slot)
+        if live is not None:
+            self._arr[slot, _START:_START + NUM_COUNTERS] = live
+        # tsc_start doubles as the running flag; a clock legitimately
+        # reading 0 (VirtualClock at t=0) must still read as running.
+        self._arr[slot, _T] = now_ns or 1
+        self._end(slot)
+
+    def suspend(self, slot: int, deltas: np.ndarray) -> None:
+        """Accumulate deltas and mark slot suspended
+        (``pmu_save_regs`` -> ``perfctr_cpu_vsuspend``)."""
+        self._begin(slot)
+        self._arr[slot, _SUMS:_SUMS + NUM_COUNTERS] += deltas.astype("<u8")
+        self._arr[slot, _T] = 0
+        self._end(slot)
+
+    def add(self, slot: int, counter: int, delta: int) -> None:
+        """Accumulate a single counter without changing run state."""
+        self._begin(slot)
+        self._arr[slot, _SUMS + counter] += np.uint64(delta)
+        self._end(slot)
+
+    def add_many(self, slot: int, deltas: np.ndarray) -> None:
+        self._begin(slot)
+        self._arr[slot, _SUMS:_SUMS + NUM_COUNTERS] += deltas.astype("<u8")
+        self._end(slot)
+
+    def reset(self, slot: int) -> None:
+        """Zero a slot for a fresh context (``pmu_init_vcpu``)."""
+        self._begin(slot)
+        self._arr[slot, _T] = 0
+        self._arr[slot, _SUMS:] = 0
+        self._end(slot)
+
+    # -- reader side (lock-free) -----------------------------------------
+
+    def snapshot(self, slot: int, max_retries: int = 64) -> np.ndarray:
+        """Lock-free consistent read of a slot's counter sums: read the
+        version, copy the sums, re-read the version; retry if a write
+        was in progress (odd) or intervened (changed)."""
+        for _ in range(max_retries):
+            v0 = int(self._arr[slot, _V])
+            if v0 & 1:
+                continue
+            sums = self._arr[slot, _SUMS:_SUMS + NUM_COUNTERS].copy()
+            v1 = int(self._arr[slot, _V])
+            if v0 == v1:
+                return sums
+        raise RuntimeError(f"ledger slot {slot}: snapshot retries exhausted")
+
+    def snapshot_many(self, slots, max_retries: int = 64) -> np.ndarray:
+        """Vectorized :meth:`snapshot` over a slot set; returns
+        ``(len(slots), NUM_COUNTERS)`` u64 sums. The seqlock contract is
+        checked per retry round across all requested slots."""
+        idx = np.asarray(list(slots), dtype=np.intp)
+        if idx.size == 0:
+            return np.empty((0, NUM_COUNTERS), dtype="<u8")
+        if ((idx < 0) | (idx >= self.num_slots)).any():
+            # numpy fancy indexing would silently WRAP a negative slot
+            # to another slot's counters.
+            raise IndexError(
+                f"ledger slots {list(map(int, idx))}: slot out of "
+                f"range [0, {self.num_slots})")
+        for _ in range(max_retries):
+            v0 = self._arr[idx, _V].copy()
+            if (v0 & 1).any():
+                continue
+            sums = self._arr[idx, _SUMS:_SUMS + NUM_COUNTERS]
+            v1 = self._arr[idx, _V]
+            if (v0 == v1).all():
+                return sums
+        raise RuntimeError(
+            f"ledger slots {list(map(int, idx))}: snapshot_many retries "
+            "exhausted")
+
+    def is_running(self, slot: int) -> bool:
+        return int(self._arr[slot, _T]) != 0
+
+    def tsc_start(self, slot: int) -> int:
+        return int(self._arr[slot, _T])
+
+    def raw(self) -> np.ndarray:
+        """Whole-buffer view."""
+        return self._arr
