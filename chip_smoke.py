@@ -15,11 +15,22 @@ Phases, each fatal on failure:
              kernel, an instrumented-matmul tenant on 4096^3 bf16), checking
              ledger words, kernel FLOP counters, launch counts and the
              adapted slices.
+3t. train  — the flagship training step as a micro-stepped Job: a second
+             Partition holds the training tenant (remat "dots", attention
+             through the flash kernels, 3 micro-batches of (2, 1024) tokens
+             per AdamW step, 2 steps) beside the KV-cache serving tenant,
+             checking retired steps, ledger tokens, yields at chunk
+             boundaries, losses, parameter movement and that every
+             backward went through kernels 2.2 and 2.3.
 4. numerics — the scoring forward through the flash kernel against the dense
-             attention path on the same weights, and the KV-cache prefill
-             against the full forward.
+             attention path on the same weights, the KV-cache prefill
+             against the full forward, and one micro-batch's training loss
+             and gradients through the flash kernels against the dense
+             attention path.
 5. times   — each kernel, its plain version and one PyTorch library call
-             computing the same function, at the main path's shapes.
+             computing the same function, at the main paths' shapes; one
+             profiled training micro-step (device time by kernel, idle
+             share).
 
 Prints the card's name and power limit, then one ``{"kernels": [...]}`` line,
 then, last, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -42,12 +53,19 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 128, 32
 SCORE_BATCH, SCORE_SEQ = 4, 1024
 MM_N, MM_BLOCK = 4096, 256
 STEPS = {"serve": 4, "score": 6, "mm": 8}
+# The training tenant: micro-batch (2, 1024), 3 micro-batches per AdamW
+# step (a global batch of 6 x 1024), 2 steps.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS, TRAIN_LR = 2, 1024, 3, 2, 3e-4
 H100_PEAK_BF16_FLOPS = 989e12  # dense, data sheet
 H100_PEAK_HBM_BW = 3.35e12
 
 KERNELS = {
     "flash_fwd": dict(source="pbs_tpu_torch/ops/csrc/flash_fwd.cu",
                       replaces="pbs_tpu/ops/attention.py:70"),
+    "flash_bwd_dq": dict(source="pbs_tpu_torch/ops/csrc/flash_bwd.cu",
+                         replaces="pbs_tpu/ops/attention.py:164"),
+    "flash_bwd_dkv": dict(source="pbs_tpu_torch/ops/csrc/flash_bwd.cu",
+                          replaces="pbs_tpu/ops/attention.py:209"),
     "instrumented_matmul": dict(
         source="pbs_tpu_torch/ops/csrc/instrumented_matmul.cu",
         replaces="pbs_tpu/ops/matmul.py:43"),
@@ -98,6 +116,51 @@ def flash_against_plain(torch, q, k, v, causal, out_f32=False):
     ok = (bool((diff <= FLASH_ATOL + r * ref.abs()).all())
           and bool(torch.isfinite(o).all()) and err_l <= FLASH_ATOL)
     return ok, float(diff.max()), err_l, f"{FLASH_ATOL:g} + {r:g}|ref|"
+
+
+# The backward kernels also accumulate in fp32 and round once, so each
+# gradient is held against the plain backward's fp32 result on the same
+# inputs: |g - ref| <= BWD_REL[dtype] * max|ref| + r * |ref|, r = 2^-8
+# for a bf16 gradient (half a bf16 ulp) and 0 for an fp32 one. Beside
+# each check the smallest BWD_REL that would have passed is printed. On an
+# H100 that was <= 1.1e-7 (bf16, where the 2^-8 term carries the rounding)
+# and <= 1.7e-6 (fp32, summation order over up to 2048 keys); 1e-5 keeps
+# room for other seeds and lengths and is 100x tighter than a wrong
+# kernel's error.
+BWD_REL = {"bfloat16": 1e-5, "float32": 1e-5}
+
+
+def bwd_against_plain(torch, gen, q, k, v, causal, with_dlse):
+    """Run kernels 2.2 and 2.3 through the backward wrapper on q, k, v,
+    the forward kernel's (o, lse) and a random do (and dlse when
+    ``with_dlse``: the lse variant's fp32 o, fp32 do, random lse
+    cotangent), and the plain backward in fp32 on the same inputs.
+    Returns (ok, max abs err, the smallest BWD_REL that passes, the
+    limit)."""
+    from pbs_tpu_torch.ops.attention import (flash_attention_bwd,
+                                             flash_attention_bwd_plain,
+                                             flash_attention_cuda)
+
+    o, lse = flash_attention_cuda(q, k, v, causal, out_f32=with_dlse)
+    do = torch.randn(o.shape, device="cuda", generator=gen).to(o.dtype)
+    dlse = (torch.randn(lse.shape, device="cuda", generator=gen)
+            if with_dlse else None)
+    got = flash_attention_bwd(q, k, v, o, lse, do, dlse, causal)
+    ref = flash_attention_bwd_plain(q.float(), k.float(), v.float(), o, lse,
+                                    do.float(), dlse, causal)
+    ok, err, need = True, 0.0, 0.0
+    name = str(q.dtype)[6:]
+    r = BF16_HALF_ULP if q.dtype == torch.bfloat16 else 0.0
+    for g, want in zip(got, ref):
+        diff = (g.float() - want).abs()
+        scale = float(want.abs().max())
+        ok = (ok and g.dtype == q.dtype and bool(torch.isfinite(g).all())
+              and bool((diff <= BWD_REL[name] * scale
+                        + r * want.abs()).all()))
+        err = max(err, float(diff.max()))
+        need = max(need, float((diff - r * want.abs()).clamp_min(0).max())
+                   / scale)
+    return ok, err, need, f"{BWD_REL[name]:g} max|ref| + {r:g}|ref|"
 
 
 def time_ms(torch, fn, iters: int) -> float:
@@ -154,6 +217,22 @@ def check_kernels(torch, gen) -> None:
                       f"{err_o:.2e} <= {limit}, lse {err_l:.2e} <= "
                       f"{FLASH_ATOL:g}")
 
+    for B, S, H, Hkv, hd, dtype, causal in (
+            (2, 512, 8, 4, 128, torch.bfloat16, True),
+            (2, 512, 8, 4, 128, torch.bfloat16, False),
+            (2, 511, 8, 4, 128, torch.bfloat16, True),  # ragged S
+            (1, 2048, 8, 4, 128, torch.bfloat16, True),
+            (2, 384, 8, 2, 64, torch.float32, True),
+            # the training path's call: S - 1 = 1023 after the shift
+            (TRAIN_BATCH, TRAIN_SEQ - 1, 16, 8, 128, torch.bfloat16, True)):
+        for with_dlse in (False, True):
+            ok, err, need, limit = bwd_against_plain(
+                torch, gen, *qkv(B, S, H, Hkv, hd, dtype), causal, with_dlse)
+            check(ok, f"flash bwd {str(dtype)[6:]} B{B} S{S} H{H}/{Hkv} "
+                      f"hd{hd} causal={causal} dlse={'rand' if with_dlse else 0}"
+                      f": dq/dk/dv |g-ref| max {err:.2e} <= {limit} "
+                      f"(passes down to {need:.1e} max|ref|)")
+
     a = torch.randn(512, 512, device="cuda", generator=gen).bfloat16()
     b = torch.randn(512, 512, device="cuda", generator=gen).bfloat16()
     out, raw = instrumented_matmul_cuda(a, b, 256, 256, 256)
@@ -188,8 +267,44 @@ def mm_operands(torch, gen):
 # -- phase 3 -----------------------------------------------------------------
 
 
+def serving_tenant(torch, gen, cfg, params):
+    """The KV-cache serving tenant: (step_fn, state), answering
+    SERVE_BATCH prompts of SERVE_PROMPT tokens with SERVE_NEW greedy
+    tokens a batch."""
+    from pbs_tpu_torch.models import make_serve_step
+
+    prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                            device="cuda", generator=gen)
+    serve_step = make_serve_step(cfg, max_new_tokens=SERVE_NEW)
+
+    def serve_fn(state):
+        return serve_step(state, prompts)
+
+    return serve_fn, (params, torch.Generator(device="cuda").manual_seed(1), 0)
+
+
+def check_served(job, counters) -> None:
+    tokens = int(job.contexts[0].counters[counters.TOKENS])
+    check(job.state[2] == STEPS["serve"]
+          and tokens == STEPS["serve"] * SERVE_BATCH * SERVE_NEW,
+          f"serve: {job.state[2]} batches answered, {tokens} "
+          f"tokens == {STEPS['serve']} x {SERVE_BATCH} x {SERVE_NEW}")
+
+
+def print_tenants(jobs, counters) -> None:
+    print(f"  {'tenant':<6} {'steps':>5} {'device_ms':>10} "
+          f"{'stall_rate':>10} {'tslice_us':>9} {'sched':>5} {'yields':>6}")
+    for name, job in jobs.items():
+        ctx = job.contexts[0]
+        print(f"  {name:<6} {job.steps_retired():>5} "
+              f"{int(ctx.counters[counters.DEVICE_TIME_NS]) / 1e6:>10.2f} "
+              f"{job.stall_rate:>10.1f} {job.params.tslice_us:>9} "
+              f"{ctx.sched_count:>5} "
+              f"{int(ctx.counters[counters.YIELDS]):>6}", flush=True)
+
+
 def run_main_path(torch, gen, cfg, params):
-    from pbs_tpu_torch.models import forward, make_serve_step
+    from pbs_tpu_torch.models import forward
     from pbs_tpu_torch.ops.attention import flash_attention_cuda
     from pbs_tpu_torch.ops.matmul import (instrumented_matmul,
                                           instrumented_matmul_cuda,
@@ -198,16 +313,11 @@ def run_main_path(torch, gen, cfg, params):
     from pbs_tpu_torch.sched import FeedbackPolicy
     from pbs_tpu_torch.telemetry import Counter, CudaBackend
 
-    prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
-                            device="cuda", generator=gen)
+    serve_fn, serve_state = serving_tenant(torch, gen, cfg, params)
     score_tokens = torch.randint(0, cfg.vocab, (SCORE_BATCH, SCORE_SEQ),
                                  device="cuda", generator=gen)
     score_cfg = dataclasses.replace(cfg, attn_impl="pallas")
     a, b = mm_operands(torch, gen)
-    serve_step = make_serve_step(cfg, max_new_tokens=SERVE_NEW)
-
-    def serve_fn(state):
-        return serve_step(state, prompts)
 
     @torch.no_grad()
     def score_fn(state):
@@ -219,7 +329,6 @@ def run_main_path(torch, gen, cfg, params):
         out, raw = instrumented_matmul(a, b, MM_BLOCK, MM_BLOCK, MM_BLOCK)
         return out, scale_stats(raw, MM_BLOCK, MM_BLOCK, MM_BLOCK).metrics()
 
-    serve_state = (params, torch.Generator(device="cuda").manual_seed(1), 0)
     # Warm each tenant once outside the partition (cuBLAS handles, the
     # caching allocator), so a slow first step is not charged as
     # device time.
@@ -252,14 +361,7 @@ def run_main_path(torch, gen, cfg, params):
                 "instrumented_matmul": instrumented_matmul_cuda.launches}
     print(f"  {quanta} quanta in {wall:.2f} s wall; kernel launches "
           f"{launches}", flush=True)
-    print(f"  {'tenant':<6} {'steps':>5} {'device_ms':>10} "
-          f"{'stall_rate':>10} {'tslice_us':>9} {'sched':>5}")
-    for name, job in jobs.items():
-        ctx = job.contexts[0]
-        print(f"  {name:<6} {job.steps_retired():>5} "
-              f"{int(ctx.counters[Counter.DEVICE_TIME_NS]) / 1e6:>10.2f} "
-              f"{job.stall_rate:>10.1f} {job.params.tslice_us:>9} "
-              f"{ctx.sched_count:>5}", flush=True)
+    print_tenants(jobs, Counter)
     print(f"  feedback: {json.dumps(fb.dump())}")
 
     for name, job in jobs.items():
@@ -276,11 +378,7 @@ def run_main_path(torch, gen, cfg, params):
     mm_flops = int(jobs["mm"].contexts[0].counters[Counter.DEVICE_FLOPS])
     check(mm_flops == STEPS["mm"] * 2 * MM_N ** 3,
           f"mm: ledger DEVICE_FLOPS {mm_flops} == steps x 2 x 4096^3")
-    tokens = int(jobs["serve"].contexts[0].counters[Counter.TOKENS])
-    check(tokens == STEPS["serve"] * SERVE_BATCH * SERVE_NEW
-          and jobs["serve"].state[2] == STEPS["serve"],
-          f"serve: {jobs['serve'].state[2]} batches answered, {tokens} "
-          f"tokens == {STEPS['serve']} x {SERVE_BATCH} x {SERVE_NEW}")
+    check_served(jobs["serve"], Counter)
     pred = jobs["score"].state
     check(pred.shape == (SCORE_BATCH,) and bool(((pred >= 0)
                                                  & (pred < cfg.vocab)).all()),
@@ -288,6 +386,151 @@ def run_main_path(torch, gen, cfg, params):
     for name, n in launches.items():
         check(n > 0, f"{name}: {n} launches on the main path")
     return launches
+
+
+# -- phase 3t ----------------------------------------------------------------
+
+
+def train_config(torch):
+    """The flagship's training configuration (``__graft_entry__``'s
+    ``_flagship_cfg()``: bf16 compute, fp32 master params, remat "dots"),
+    attending through the flash kernels."""
+    from pbs_tpu_torch.models import TransformerConfig
+
+    return TransformerConfig(**FLAGSHIP, dtype=torch.bfloat16, remat=True,
+                             remat_policy="dots", attn_impl="pallas")
+
+
+def bwd_counts():
+    from pbs_tpu_torch.ops.attention import (flash_attention_bwd_dkv_cuda,
+                                             flash_attention_bwd_dq_cuda,
+                                             flash_attention_cuda)
+    from pbs_tpu_torch.ops.matmul import instrumented_matmul_cuda
+
+    return (flash_attention_cuda, flash_attention_bwd_dq_cuda,
+            flash_attention_bwd_dkv_cuda, instrumented_matmul_cuda)
+
+
+def run_train_path(torch, gen, serve_cfg, serve_params):
+    """The micro-stepped training tenant beside the serving tenant.
+    Returns (launch counts of this run, the training config, the
+    trained params, the micro_step function and its final state)."""
+    from pbs_tpu_torch.models import init_params, make_micro_train_step
+    from pbs_tpu_torch.models.transformer import loss_and_grads
+    from pbs_tpu_torch.runtime import Job, Partition, SchedParams
+    from pbs_tpu_torch.sched import FeedbackPolicy
+    from pbs_tpu_torch.telemetry import Counter, CudaBackend
+
+    cfg = train_config(torch)
+    params = init_params(cfg, gen, device="cuda")  # fp32 master params
+    n_micro_total = TRAIN_STEPS * TRAIN_MICRO
+    batches = torch.randint(0, cfg.vocab,
+                            (n_micro_total + 1, TRAIN_BATCH, TRAIN_SEQ),
+                            device="cuda", generator=gen)
+    cursor = [0]
+
+    def next_batch(micro: int):
+        # a loader: micro-batch after micro-batch of a seeded stream
+        i = cursor[0]
+        cursor[0] += 1
+        return batches[i]
+
+    init_state, micro_step = make_micro_train_step(
+        cfg, n_micro=TRAIN_MICRO, learning_rate=TRAIN_LR,
+        next_batch=next_batch)
+    losses = []
+
+    def train_fn(state):
+        state, metrics = micro_step(state)
+        losses.append(metrics["loss"])
+        return state, metrics
+
+    serve_fn, serve_state = serving_tenant(torch, gen, serve_cfg,
+                                           serve_params)
+    # Warm up outside the partition: one loss/gradient pass on a batch
+    # the run never sees (cuBLAS handles, the caching allocator), and one
+    # serving batch.
+    loss_and_grads(cfg, params, batches[-1])
+    serve_fn(serve_state)
+    torch.cuda.synchronize()
+    watch = {"embed": params["embed"][:8].clone(),
+             "wq": params["layers"]["wq"][0, :8].clone(),
+             "head": params["head"][:, :8].clone()}
+
+    be = CudaBackend()
+    part = Partition("train", source=be)
+    fb = FeedbackPolicy(part)
+    jobs = {
+        "train": Job("train", micro_step_fn=train_fn,
+                     micro_per_step=TRAIN_MICRO, state=init_state(params),
+                     params=SchedParams(weight=512, tslice_us=100),
+                     max_steps=TRAIN_STEPS),
+        "serve": Job("serve", step_fn=serve_fn, state=serve_state,
+                     params=SchedParams(weight=256, tslice_us=100,
+                                        boost_on_wake=True),
+                     max_steps=STEPS["serve"]),
+    }
+    for job in jobs.values():
+        part.add_job(job)
+    wrappers = bwd_counts()
+    for w in wrappers:
+        w.launches = 0
+    t0 = time.monotonic()
+    quanta = part.run()
+    wall = time.monotonic() - t0
+    launches = dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                         "instrumented_matmul"),
+                        (w.launches for w in wrappers)))
+    print(f"  {quanta} quanta in {wall:.2f} s wall; kernel launches "
+          f"{launches}", flush=True)
+    print_tenants(jobs, Counter)
+    print(f"  feedback: {json.dumps(fb.dump())}")
+    loss_vals = [float(x) for x in losses]
+    print(f"  micro-step losses {[round(x, 4) for x in loss_vals]}")
+
+    train, ctx = jobs["train"], jobs["train"].contexts[0]
+    for name, job in jobs.items():
+        check(job.error is None and job.steps_retired() == job.max_steps,
+              f"{name}: {job.steps_retired()} steps retired, no fault "
+              f"({job.error})")
+        snap = part.ledger.snapshot(job.contexts[0].ledger_slot)
+        check(snap.tolist() == job.contexts[0].counters.tolist(),
+              f"{name}: ledger snapshot equals the context counters")
+    check(train.state["step"] == TRAIN_STEPS and train.state["micro"] == 0
+          and ctx.micro_progress == 0,
+          f"train: {train.state['step']} optimizer steps, micro cursor "
+          f"{train.state['micro']}, progress {ctx.micro_progress}")
+    tokens = int(ctx.counters[Counter.TOKENS])
+    want = TRAIN_STEPS * TRAIN_MICRO * TRAIN_BATCH * (TRAIN_SEQ - 1)
+    check(tokens == want, f"train: ledger TOKENS {tokens} == {TRAIN_STEPS} "
+                          f"x {TRAIN_MICRO} x {TRAIN_BATCH} x "
+                          f"{TRAIN_SEQ - 1}")
+    yields = int(ctx.counters[Counter.YIELDS])
+    check(yields > 0, f"train: {yields} yields, cut at chunk boundaries")
+    check(len(loss_vals) == n_micro_total
+          and all(math.isfinite(x) for x in loss_vals),
+          f"train: {len(loss_vals)} micro-step losses, all finite")
+    moved = {
+        "embed": max_abs(params["embed"][:8], watch["embed"]),
+        "wq": max_abs(params["layers"]["wq"][0, :8], watch["wq"]),
+        "head": max_abs(params["head"][:, :8], watch["head"]),
+    }
+    check(all(x > 0 for x in moved.values()),
+          f"train: params moved (max |delta| {moved})")
+    check_served(jobs["serve"], Counter)
+    per_step = cfg.n_layers * n_micro_total
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        check(launches[name] == per_step,
+              f"{name}: {launches[name]} launches == {cfg.n_layers} layers "
+              f"x {n_micro_total} micro-steps")
+    check(launches["flash_fwd"] == 2 * per_step,
+          f"flash_fwd: {launches['flash_fwd']} launches == 2 x "
+          f"{per_step}: each layer's forward, and its recompute in the "
+          f"backward under remat")
+    ms = int(ctx.counters[Counter.DEVICE_TIME_NS]) / 1e6 / n_micro_total
+    print(f"  train: {ms:.2f} ms per micro-step (ledger device time / "
+          f"{n_micro_total})", flush=True)
+    return launches, cfg, params, micro_step, train.state
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -321,10 +564,201 @@ def check_numerics(torch, gen, cfg, params) -> None:
               f"< 0.05")
 
 
+def named_leaves(tree, prefix=""):
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from named_leaves(val, f"{prefix}{key}/")
+        else:
+            yield prefix + key, val
+
+
+def check_train_numerics(torch, gen, cfg, params) -> None:
+    """One micro-batch's loss and gradients through the flash kernels
+    against the dense attention path, bf16 compute, same weights."""
+    from pbs_tpu_torch.models.transformer import loss_and_grads
+
+    tokens = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ),
+                           device="cuda", generator=gen)
+    loss_f, g_f = loss_and_grads(cfg, params, tokens)
+    loss_d, g_d = loss_and_grads(dataclasses.replace(cfg, attn_impl="xla"),
+                                 params, tokens)
+    loss_f, loss_d = float(loss_f), float(loss_d)
+    rel_loss = abs(loss_f - loss_d) / abs(loss_d)
+    check(math.isfinite(loss_f) and rel_loss < 1e-2,
+          f"train loss, flash vs dense attention at width (bf16): "
+          f"{loss_f:.5f} vs {loss_d:.5f}, rel {rel_loss:.2e} < 1e-2")
+    dense = dict(named_leaves(g_d))
+    rels = {}
+    for name, g in named_leaves(g_f):
+        d = dense[name]
+        rels[name] = float(torch.linalg.vector_norm(g - d)
+                           / torch.linalg.vector_norm(d))
+    print(f"  |g_flash - g_dense| / |g_dense| per leaf: "
+          f"{ {k: float(f'{v:.3e}') for k, v in rels.items()} }")
+    worst = max(rels, key=rels.get)
+    check(all(math.isfinite(v) and v < 0.05 for v in rels.values()),
+          f"train gradients, flash vs dense: every leaf's relative norm "
+          f"difference < 0.05 (largest {rels[worst]:.3e}, {worst})")
+
+
 # -- phase 5 -----------------------------------------------------------------
 
 
-def time_kernels(torch, gen, launches) -> list:
+def time_bwd_kernels(torch, gen, launches) -> list:
+    """Kernels 2.2 and 2.3 at the training path's shape (bf16 o and do,
+    no lse cotangent, as the model calls them), beside the plain
+    backward and one library call, SDPA's backward, each computing dq,
+    dk and dv together."""
+    import torch.nn.functional as F
+
+    from pbs_tpu_torch.ops import attention as A
+
+    B, S, H, Hkv = TRAIN_BATCH, TRAIN_SEQ - 1, FLAGSHIP["n_heads"], \
+        FLAGSHIP["n_kv_heads"]
+    hd = FLAGSHIP["d_model"] // H
+    q = torch.randn(B, S, H, hd, device="cuda", generator=gen).bfloat16()
+    k = torch.randn(B, S, Hkv, hd, device="cuda", generator=gen).bfloat16()
+    v = torch.randn(B, S, Hkv, hd, device="cuda", generator=gen).bfloat16()
+    o, lse = A.flash_attention_cuda(q, k, v, True)
+    do = torch.randn(o.shape, device="cuda", generator=gen).bfloat16()
+    row = A._row_delta(o, do, None)
+    dq = A.flash_attention_bwd_dq_cuda(q, k, v, do, lse, row, True)
+    dk, dv = A.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, row, True)
+    ref = A.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o,
+                                      lse, do.float(), None, True)
+    limit = BWD_REL["bfloat16"]
+    oks, errs = [], []
+    for g, want in zip((dq, dk, dv), ref):
+        diff = (g.float() - want).abs()
+        oks.append(bool((diff <= limit * float(want.abs().max())
+                         + BF16_HALF_ULP * want.abs()).all()))
+        errs.append(float(diff.max()))
+    check(all(oks), f"flash bwd at the training path's shape: dq/dk/dv "
+                    f"|g-ref| max {errs} <= {limit:g} max|ref| + "
+                    f"{BF16_HALF_ULP:g}|ref|")
+
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2)
+    lib_dq = torch.autograd.grad(out, (qt, kt, vt), dot,
+                                 retain_graph=True)[0].transpose(1, 2)
+    lib_rel = rel_err(lib_dq, ref[0])
+    check(lib_rel < 0.05, f"library SDPA backward: dq rel err {lib_rel:.2e} "
+                          f"< 0.05 against the plain fp32 dq")
+    t = timed_in_turns(torch, {
+        "dq": lambda: A.flash_attention_bwd_dq_cuda(q, k, v, do, lse, row,
+                                                     True),
+        "dkv": lambda: A.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, row,
+                                                       True),
+        "plain": lambda: A.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                     None, True),
+        "library": lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                               retain_graph=True),
+    }, iters=10)
+    pairs = S * (S + 1) // 2  # causal (query, key) pairs per (b, h)
+    shape = (f"q ({B},{S},{H},{hd}) k/v ({B},{S},{Hkv},{hd}) bf16 causal, "
+             "bf16 do, no lse cotangent")
+    in_bytes = (2 * (2 * B * S * H * hd + 2 * B * S * Hkv * hd)
+                + 2 * 4 * B * S * H)  # q, do, k, v; lse, row delta
+    rows = []
+    for name, flops, out_bytes, err, ok in (
+            ("flash_bwd_dq", 6 * B * H * hd * pairs, 2 * B * S * H * hd,
+             errs[0], oks[0]),
+            ("flash_bwd_dkv", 8 * B * H * hd * pairs,
+             2 * 2 * B * S * Hkv * hd, max(errs[1:]), all(oks[1:]))):
+        bms, by = bound(flops, in_bytes + out_bytes)
+        rows.append(dict(
+            name=name, route="cuda", **KERNELS[name],
+            launches=launches[name], max_abs_err=err,
+            ms=t["dq" if name == "flash_bwd_dq" else "dkv"],
+            plain_ms=t["plain"], library_ms=t["library"], bound_ms=bms,
+            bound_by=by, ok=ok,
+            tolerance=f"|g-ref| <= {limit:g} max|ref| + {BF16_HALF_ULP:g}"
+                      "|ref|, ref = plain fp32 backward",
+            plain_and_library_compute="dq, dk and dv in one call (pair)",
+            shape=shape))
+    return rows
+
+
+def profile_micro_step(torch, micro_step, state) -> None:
+    """One more training micro-step under torch.profiler: device time by
+    kernel and the device's idle share of the step's wall time. A
+    measurement, not a check: where the profiler records no device
+    time it says so."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        micro_step(state)
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    dev = [e for e in prof.key_averages()
+           if getattr(e, "device_type", None) == DeviceType.CUDA]
+
+    def self_us(e):
+        return float(getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0)))
+
+    busy = sum(self_us(e) for e in dev)
+    if busy <= 0:
+        print("  profile: no device time recorded; device time by kernel "
+              "not measured", flush=True)
+        return
+    groups = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
+              "gemm": 0.0, "other": 0.0}
+    for e in dev:
+        key = e.key
+        if "flash_fwd_kernel" in key:
+            g = "flash_fwd"
+        elif "flash_bwd_dq_kernel" in key:
+            g = "flash_bwd_dq"
+        elif "flash_bwd_dkv_kernel" in key:
+            g = "flash_bwd_dkv"
+        elif any(w in key.lower()
+                 for w in ("gemm", "cutlass", "xmma", "nvjet")):
+            g = "gemm"
+        else:
+            g = "other"
+        groups[g] += self_us(e)
+    print(f"  profiled micro-step: {wall_us / 1e3:.2f} ms wall (profiler "
+          f"on), {busy / 1e3:.2f} ms device busy, idle share "
+          f"{1 - busy / wall_us:.3f}", flush=True)
+    print("  device ms by group: " + json.dumps(
+        {k: round(v / 1e3, 3) for k, v in groups.items()}))
+    for e in sorted(dev, key=self_us, reverse=True)[:10]:
+        print(f"    {self_us(e) / 1e3:9.3f} ms  x{e.count:<5} {e.key[:90]}")
+
+
+def time_remat_policies(torch, gen, cfg, params) -> None:
+    """One micro-batch's loss and gradients under each remat setting:
+    host wall time closed by a synchronise, and peak device memory. A
+    measurement of where the training step's time goes, not a check."""
+    from pbs_tpu_torch.models.transformer import loss_and_grads
+
+    tokens = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ),
+                           device="cuda", generator=gen)
+    for remat, policy in ((False, "dots"), (True, "dots"), (True, "full")):
+        c = dataclasses.replace(cfg, remat=remat, remat_policy=policy)
+        loss_and_grads(c, params, tokens)  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        for _ in range(2):
+            loss_and_grads(c, params, tokens)
+        torch.cuda.synchronize()
+        ms = (time.monotonic() - t0) / 2 * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"  loss+grads, remat={remat} policy={policy if remat else '-'}"
+              f": {ms:.2f} ms per micro-batch (host clock), peak "
+              f"{peak:.2f} GiB allocated", flush=True)
+
+
+def time_kernels(torch, gen, launches, train_launches) -> list:
     import torch.nn.functional as F
 
     from pbs_tpu_torch.ops.attention import (flash_attention_cuda,
@@ -355,11 +789,15 @@ def time_kernels(torch, gen, launches) -> list:
     nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * Hkv * hd) + 4 * B * S * H
     bms, by = bound(flops, nbytes)
     rows.append(dict(name="flash_fwd", route="cuda", **KERNELS["flash_fwd"],
-                     launches=launches["flash_fwd"], max_abs_err=err, **t,
+                     launches=launches["flash_fwd"],
+                     launches_by_path={"serve": launches["flash_fwd"],
+                                       "train": train_launches["flash_fwd"]},
+                     max_abs_err=err, **t,
                      bound_ms=bms, bound_by=by, ok=flash_ok,
                      tolerance=f"|o-ref| <= {limit}, ref = plain fp32 o",
                      shape=f"q ({B},{S},{H},{hd}) k/v ({B},{S},{Hkv},{hd}) "
                            "bf16 causal"))
+    rows += time_bwd_kernels(torch, gen, train_launches)
 
     a, b = mm_operands(torch, gen)
     blk = MM_BLOCK
@@ -449,12 +887,20 @@ def main() -> int:
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     launches = run_main_path(torch, gen, cfg, params)
 
+    phase("3t train: a micro-stepped training Job beside the serving tenant")
+    train_launches, train_cfg, train_params, micro_step, train_state = \
+        run_train_path(torch, gen, cfg, params)
+
     phase("4 numerics at width")
     check_numerics(torch, gen, cfg, params)
     del params
+    check_train_numerics(torch, gen, train_cfg, train_params)
 
-    phase("5 times at the main path's shapes")
-    rows = time_kernels(torch, gen, launches)
+    phase("5 times at the main paths' shapes")
+    rows = time_kernels(torch, gen, launches, train_launches)
+    profile_micro_step(torch, micro_step, train_state)
+    del micro_step, train_state
+    time_remat_policies(torch, gen, train_cfg, train_params)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

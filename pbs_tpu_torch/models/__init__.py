@@ -5,12 +5,16 @@ from pbs_tpu_torch.models.generate import (
     make_serve_step,
     prefill,
 )
+from pbs_tpu_torch.models.microstep import make_micro_train_step
 from pbs_tpu_torch.models.transformer import (
     TransformerConfig,
     cast_params,
     forward,
     forward_hidden,
     init_params,
+    make_eval_step,
+    make_train_step,
+    next_token_loss,
     params_from_numpy,
 )
 
@@ -22,8 +26,12 @@ __all__ = [
     "forward_with_cache",
     "init_cache",
     "init_params",
+    "make_eval_step",
     "make_generate",
+    "make_micro_train_step",
     "make_serve_step",
+    "make_train_step",
+    "next_token_loss",
     "params_from_numpy",
     "prefill",
 ]

@@ -27,7 +27,7 @@ CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 
 #: Kernel sources, by library name (``csrc/<name>.cu``).
-KERNEL_SOURCES = ("flash_fwd", "instrumented_matmul")
+KERNEL_SOURCES = ("flash_fwd", "flash_bwd", "instrumented_matmul")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,11 +1,13 @@
 """The port's flash attention against ``pbs_tpu.ops.attention``.
 
 The same inputs, drawn with numpy from a seed, go through the JAX
-package's Pallas kernel (interpret mode on the CPU, as its own tests
-run it) and through ``pbs_tpu_torch.ops.attention`` on CPU tensors (the
-plain PyTorch version the CUDA kernel is held against on the card), at
-the shapes of ``tests/test_attention.py``. fp32, atol = rtol = 2e-5,
-the reference's own bound.
+package's Pallas kernels (interpret mode on the CPU, as its own tests
+run them; gradients by ``jax.grad`` through its ``custom_vjp``) and
+through ``pbs_tpu_torch.ops.attention`` on CPU tensors (the plain
+PyTorch versions the CUDA kernels are held against on the card), at the
+shapes of ``tests/test_attention.py``. fp32, atol = rtol = 2e-5, the
+reference's own bound; gradients at atol 2e-5 after scaling by
+max|ref|, as there.
 """
 
 from __future__ import annotations
@@ -85,12 +87,76 @@ def test_flash_rejects_bad_shapes():
         port.flash_attention(*_torch(*qkv(S=64)), block_q=0)
 
 
-@pytest.mark.parametrize("fn", ["flash_attention", "flash_attention_lse"])
-def test_backward_raises_until_the_kernels_are_ported(fn):
-    """No silent differentiation of the plain version: the backward
-    names the missing kernels 2.2 and 2.3."""
-    q, k, v = (t.requires_grad_() for t in _torch(*qkv(S=64)))
-    out = getattr(port, fn)(q, k, v)
-    loss = (out if fn == "flash_attention" else out[0]).sum()
-    with pytest.raises(NotImplementedError, match=r"2\.2.*2\.3"):
-        loss.backward()
+def _assert_grads_close(got, want):
+    for name, a, b in zip("qkv", got, want):
+        b = np.asarray(b)
+        scale = float(np.max(np.abs(b))) + 1e-9
+        np.testing.assert_allclose(a.numpy() / scale, b / scale, atol=2e-5,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("S,causal,Hkv", [(256, True, 2), (255, True, 2),
+                                          (130, False, 4)])
+def test_flash_grad_matches_reference(S, causal, Hkv):
+    """The port's backward against the Pallas backward (dq pass and
+    GQA-reducing dk/dv pass), including a ragged S."""
+    q, k, v = qkv(S=S, Hkv=Hkv)
+    w = np.random.default_rng(7).standard_normal(q.shape).astype(np.float32)
+    want = jax.grad(
+        lambda q, k, v: jax.numpy.sum(
+            ref.flash_attention(q, k, v, causal=causal) * w),
+        argnums=(0, 1, 2))(q, k, v)
+    tq, tk, tv = (t.requires_grad_() for t in _torch(q, k, v))
+    (port.flash_attention(tq, tk, tv, causal=causal)
+     * torch.from_numpy(w)).sum().backward()
+    _assert_grads_close((tq.grad, tk.grad, tv.grad), want)
+
+
+@pytest.mark.parametrize("S,causal", [(256, True), (130, False)])
+def test_flash_lse_grad_matches_reference(S, causal):
+    """A loss on both o and lse: the lse cotangent enters ds (ring
+    attention's fold depends on it)."""
+    q, k, v = qkv(S=S, hd=32, seed=5)
+    rng = np.random.default_rng(8)
+    w = rng.standard_normal(q.shape).astype(np.float32)
+    wl = rng.standard_normal((2, S, 4, 1)).astype(np.float32)
+
+    def jloss(q, k, v):
+        o, lse = ref.flash_attention_lse(q, k, v, causal=causal)
+        return jax.numpy.sum(o * w) + jax.numpy.sum(lse * wl)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(q, k, v)
+    tq, tk, tv = (t.requires_grad_() for t in _torch(q, k, v))
+    o, lse = port.flash_attention_lse(tq, tk, tv, causal=causal)
+    ((o * torch.from_numpy(w)).sum()
+     + (lse * torch.from_numpy(wl)).sum()).backward()
+    _assert_grads_close((tq.grad, tk.grad, tv.grad), want)
+
+
+@pytest.mark.parametrize("causal,Hkv", [(True, 2), (False, 1), (True, 4)])
+def test_plain_backward_equals_autograd_through_plain_forward(causal, Hkv):
+    """An independent check of the plain backward's arithmetic: torch
+    autograd through flash_attention_plain (dense, masked softmax) on a
+    loss of o and lse."""
+    q, k, v = _torch(*qkv(S=77, Hkv=Hkv, hd=32, seed=9))
+    rng = np.random.default_rng(10)
+    w = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32))
+    wl = torch.from_numpy(
+        rng.standard_normal((2, 77, 4, 1)).astype(np.float32))
+    tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
+    o, lse = port.flash_attention_plain(tq, tk, tv, causal, out_f32=True)
+    ((o * w).sum() + (lse * wl).sum()).backward()
+    got = port.flash_attention_bwd_plain(q, k, v, o.detach(), lse.detach(),
+                                         w, wl, causal)
+    for a, b in zip(got, (tq.grad, tk.grad, tv.grad)):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-5)
+
+
+def test_flash_grads_come_back_in_the_input_dtype():
+    q, k, v = (t.bfloat16().requires_grad_() for t in _torch(*qkv(S=64)))
+    port.flash_attention(q, k, v).float().sum().backward()
+    assert q.grad.dtype == k.grad.dtype == v.grad.dtype == torch.bfloat16
+    o, lse = port.flash_attention_lse(*(t.detach().requires_grad_()
+                                        for t in (q, k, v)))
+    assert o.dtype == torch.float32 and lse.requires_grad

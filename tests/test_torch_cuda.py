@@ -69,6 +69,63 @@ def test_flash_kernel_refuses_what_it_does_not_take(gen):
         attention.flash_attention(q, k, v)
 
 
+def _assert_grad_close(g, ref):
+    r = 2.0 ** -8 if g.dtype == torch.bfloat16 else 0.0
+    diff = (g.float() - ref).abs()
+    limit = 1e-5 * float(ref.abs().max()) + r * ref.abs()
+    assert bool((diff <= limit).all()), float(diff.max())
+
+
+@pytest.mark.parametrize("hd", attention.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("S,causal", [(512, True), (511, False), (130, True)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("use_lse", [False, True], ids=["o", "o+lse"])
+def test_flash_backward_kernels_match_plain(gen, hd, S, causal, dtype,
+                                            use_lse):
+    """Kernels 2.2 and 2.3 through autograd: a loss of o alone (do in
+    the input dtype, no lse cotangent) or of the lse variant's fp32 o
+    and its lse."""
+    q, k, v = (t.requires_grad_() for t in _qkv(gen, 2, S, 8, 4, hd, dtype))
+    w = torch.randn(q.shape, device="cuda", generator=gen)
+    before = (attention.flash_attention_bwd_dq_cuda.launches,
+              attention.flash_attention_bwd_dkv_cuda.launches)
+    if use_lse:
+        wl = torch.randn((2, S, 8, 1), device="cuda", generator=gen)
+        o, lse = attention.flash_attention_lse(q, k, v, causal=causal)
+        ((o * w).sum() + (lse * wl).sum()).backward()
+    else:
+        w, wl = w.to(dtype), None
+        o = attention.flash_attention(q, k, v, causal=causal)
+        o.backward(w)
+        _, lse = attention.flash_attention_cuda(q.detach(), k.detach(),
+                                                v.detach(), causal)
+    torch.cuda.synchronize()
+    assert (attention.flash_attention_bwd_dq_cuda.launches,
+            attention.flash_attention_bwd_dkv_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    qf, kf, vf = (t.detach().float() for t in (q, k, v))
+    ref = attention.flash_attention_bwd_plain(
+        qf, kf, vf, o.detach(), lse.detach(), w.float(), wl, causal)
+    for g, r in zip((q.grad, k.grad, v.grad), ref):
+        assert g.dtype == dtype and g.shape == r.shape
+        _assert_grad_close(g, r)
+
+
+def test_flash_backward_refuses_what_it_does_not_take(gen):
+    q, k, v = _qkv(gen, 1, 64, 2, 1, 64, torch.bfloat16)
+    o, lse = attention.flash_attention_cuda(q, k, v)
+    row = torch.zeros((1, 64, 2), device="cuda")
+    with pytest.raises(ValueError, match="do in"):
+        attention.flash_attention_bwd_dq_cuda(q, k, v, o.half(), lse, row)
+    q48, k48, v48 = _qkv(gen, 1, 64, 2, 1, 48, torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        attention.flash_attention_bwd_dkv_cuda(q48, k48, v48, q48, lse, row)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        attention.flash_attention_bwd(q.half(), k.half(), v.half(), o, lse,
+                                      o)
+
+
 @pytest.mark.parametrize("M,K,N,blk", [(512, 512, 512, 256),
                                        (256, 768, 384, 128),
                                        (384, 256, 256, 64)])

@@ -95,6 +95,7 @@ def test_device_defaults_refuse_without_a_card():
 
     from pbs_tpu_torch.models import (TransformerConfig, init_params,
                                       params_from_numpy)
+    from pbs_tpu_torch.models.transformer import rope_tables
     from pbs_tpu_torch.telemetry import CudaBackend
 
     cfg = TransformerConfig(vocab=16, d_model=16, n_layers=1, n_heads=2,
@@ -106,6 +107,7 @@ def test_device_defaults_refuse_without_a_card():
         gen = torch.Generator(device="cuda").manual_seed(0)
         assert init_params(cfg, gen)["head"].is_cuda
         assert params_from_numpy(tree)["w"].is_cuda
+        assert rope_tables(cfg, 4)[0].is_cuda
         return
     with pytest.raises(RuntimeError):
         CudaBackend()
@@ -113,6 +115,8 @@ def test_device_defaults_refuse_without_a_card():
         init_params(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError):
         params_from_numpy(tree)
+    with pytest.raises(RuntimeError):
+        rope_tables(cfg, 4)
     # An explicit host device is honoured.
     assert CudaBackend(device="cpu").device.type == "cpu"
     p = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
@@ -129,13 +133,17 @@ def test_profiler_sampling_refused_with_roadmap_row():
 def test_kernel_wrappers_never_fall_back_to_plain():
     """A tensor that is neither on the CPU nor usable by the kernel is
     refused: the plain version is reserved for CPU tensors."""
-    from pbs_tpu_torch.ops.attention import flash_attention
+    from pbs_tpu_torch.ops.attention import (flash_attention,
+                                             flash_attention_bwd)
     from pbs_tpu_torch.ops.matmul import instrumented_matmul
 
     q = torch.empty((1, 8, 2, 16), device="meta")
     kv = torch.empty((1, 8, 1, 16), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention(q, kv, kv)
+    lse = torch.empty((1, 8, 2, 1), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd(q, kv, kv, q, lse, q)
     a = torch.empty((8, 8), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         instrumented_matmul(a, a)
