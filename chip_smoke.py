@@ -5,30 +5,37 @@
 Phases, each fatal on failure:
 
 1. build   — compile every kernel of the port from ``pbs_tpu_torch/ops/csrc``
-             (one nvcc per source, all at once) and print the build time.
+             (one nvcc per source, all at once) and print the build time
+             and each kernel's registers and spills (ptxas).
 2. kernels — hold each kernel against its plain PyTorch version on the card,
-             on the shapes and with the tolerances printed beside each check.
+             on the shapes and with the tolerances printed beside each check,
+             and the route each launch took (bf16 inputs TMA can address run
+             on the tensor cores, "wgmma"; the rest on the CUDA cores, "simt").
 3. main    — the feedback-scheduling loop at flagship width: one Partition
              with a CudaBackend and a FeedbackPolicy over three tenants (a
              KV-cache serving tenant answering 4 x 128-token prompts, a
              forward-scoring tenant on (4, 1024) tokens through the flash
              kernel, an instrumented-matmul tenant on 4096^3 bf16), checking
-             ledger words, kernel FLOP counters, launch counts and the
+             ledger words, kernel FLOP counters, launch counts (every
+             launch of kernels 2.1 and 2.4 on the tensor-core route) and the
              adapted slices.
 3t. train  — the flagship training step as a micro-stepped Job: a second
              Partition holds the training tenant (remat "dots", attention
              through the flash kernels, 3 micro-batches of (2, 1024) tokens
              per AdamW step, 2 steps) beside the KV-cache serving tenant,
              checking retired steps, ledger tokens, yields at chunk
-             boundaries, losses, parameter movement and that every
-             backward went through kernels 2.2 and 2.3.
+             boundaries, losses, parameter movement, that every
+             backward went through kernels 2.2 and 2.3, and that every
+             forward went through kernel 2.1 on the tensor-core route.
 4. numerics — the scoring forward through the flash kernel against the dense
              attention path on the same weights, the KV-cache prefill
              against the full forward, and one micro-batch's training loss
              and gradients through the flash kernels against the dense
              attention path.
 5. times   — each kernel, its plain version and one PyTorch library call
-             computing the same function, at the main paths' shapes; one
+             computing the same function, at the main paths' shapes (2.1 at
+             the serving and at the training shape), with achieved TFLOP/s
+             and the fraction of the bound each kernel reaches; one
              profiled training micro-step (device time by kernel, idle
              share).
 
@@ -43,6 +50,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -163,6 +171,15 @@ def bwd_against_plain(torch, gen, q, k, v, causal, with_dlse):
     return ok, err, need, f"{BWD_REL[name]:g} max|ref| + {r:g}|ref|"
 
 
+def route_taken(wrapper, before: dict) -> str:
+    """The route of the one launch ``wrapper`` made since ``before`` (a
+    copy of its ``launches_by_route``), or a description of what else
+    happened."""
+    grew = {k: n - before[k] for k, n in wrapper.launches_by_route.items()
+            if n != before[k]}
+    return next(iter(grew)) if list(grew.values()) == [1] else f"{grew}"
+
+
 def time_ms(torch, fn, iters: int) -> float:
     fn()
     torch.cuda.synchronize()
@@ -195,6 +212,7 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
 
 
 def check_kernels(torch, gen) -> None:
+    from pbs_tpu_torch.ops.attention import flash_attention_cuda
     from pbs_tpu_torch.ops.matmul import (instrumented_matmul_cuda,
                                           instrumented_matmul_plain,
                                           scale_stats)
@@ -208,14 +226,20 @@ def check_kernels(torch, gen) -> None:
             (2, 512, 8, 4, 128, torch.bfloat16, False),
             (2, 511, 8, 4, 128, torch.bfloat16, True),  # ragged S
             (1, 2048, 8, 4, 128, torch.bfloat16, True),
-            (2, 384, 8, 2, 64, torch.float32, True)):
+            (2, 384, 8, 2, 64, torch.float32, True),
+            # the training path's call: S - 1 = 1023 after the shift
+            (TRAIN_BATCH, TRAIN_SEQ - 1, 16, 8, 128, torch.bfloat16, True)):
         for out_f32 in (False, True):
+            before = dict(flash_attention_cuda.launches_by_route)
             ok, err_o, err_l, limit = flash_against_plain(
                 torch, *qkv(B, S, H, Hkv, hd, dtype), causal, out_f32)
-            check(ok, f"flash {str(dtype)[6:]} B{B} S{S} H{H}/{Hkv} hd{hd} "
-                      f"causal={causal} out_f32={out_f32}: |o-ref| max "
-                      f"{err_o:.2e} <= {limit}, lse {err_l:.2e} <= "
-                      f"{FLASH_ATOL:g}")
+            route = route_taken(flash_attention_cuda, before)
+            want = "wgmma" if dtype == torch.bfloat16 else "simt"
+            check(ok and route == want,
+                  f"flash {str(dtype)[6:]} B{B} S{S} H{H}/{Hkv} hd{hd} "
+                  f"causal={causal} out_f32={out_f32} [{route}]: |o-ref| "
+                  f"max {err_o:.2e} <= {limit}, lse {err_l:.2e} <= "
+                  f"{FLASH_ATOL:g}")
 
     for B, S, H, Hkv, hd, dtype, causal in (
             (2, 512, 8, 4, 128, torch.bfloat16, True),
@@ -235,22 +259,42 @@ def check_kernels(torch, gen) -> None:
 
     a = torch.randn(512, 512, device="cuda", generator=gen).bfloat16()
     b = torch.randn(512, 512, device="cuda", generator=gen).bfloat16()
+    before = dict(instrumented_matmul_cuda.launches_by_route)
     out, raw = instrumented_matmul_cuda(a, b, 256, 256, 256)
+    route = route_taken(instrumented_matmul_cuda, before)
     ref, ref_raw = instrumented_matmul_plain(a, b, 256, 256, 256)
     st = scale_stats(raw, 256, 256, 256)
     err = rel_err(out, ref)
     check(raw.tolist() == ref_raw.tolist() and st.mxu_tiles == 8
-          and st.flops == 8 * 2 * 256 ** 3 and err < 1e-3,
-          f"matmul bf16 512^3: stats {raw.tolist()} == plain "
-          f"{ref_raw.tolist()}, mxu_tiles 8, rel err {err:.2e} < 1e-3")
+          and st.flops == 8 * 2 * 256 ** 3 and err < 1e-3
+          and route == "wgmma",
+          f"matmul bf16 512^3 [{route}]: stats {raw.tolist()} "
+          f"== plain {ref_raw.tolist()}, mxu_tiles 8, rel err {err:.2e} "
+          f"< 1e-3")
+    # K = 12: rows of 24 bytes, which TMA cannot address
+    a = torch.randn(64, 12, device="cuda", generator=gen).bfloat16()
+    a[:4, :4] = 0
+    b = torch.randn(12, 64, device="cuda", generator=gen).bfloat16()
+    before = dict(instrumented_matmul_cuda.launches_by_route)
+    out, raw = instrumented_matmul_cuda(a, b, 4, 4, 4)
+    route = route_taken(instrumented_matmul_cuda, before)
+    ref, ref_raw = instrumented_matmul_plain(a, b, 4, 4, 4)
+    err = rel_err(out, ref)
+    check(raw.tolist() == ref_raw.tolist() and err < 1e-3
+          and route == "simt",
+          f"matmul bf16 64x12x64 blocks 4 [{route}]: stats "
+          f"{raw.tolist()} == plain {ref_raw.tolist()}, rel err {err:.2e} "
+          f"< 1e-3")
     a, b = mm_operands(torch, gen)
+    before = dict(instrumented_matmul_cuda.launches_by_route)
     out, raw = instrumented_matmul_cuda(a, b, MM_BLOCK, MM_BLOCK, MM_BLOCK)
+    route = route_taken(instrumented_matmul_cuda, before)
     ref, ref_raw = instrumented_matmul_plain(a, b, MM_BLOCK, MM_BLOCK,
                                              MM_BLOCK)
     err = rel_err(out, ref)
     check(raw.tolist() == ref_raw.tolist() and raw.tolist()[1] > 0
-          and err < 1e-3,
-          f"matmul bf16 4096^3 with planted zero tiles: stats "
+          and err < 1e-3 and route == "wgmma",
+          f"matmul bf16 4096^3 with planted zero tiles [{route}]: stats "
           f"{raw.tolist()} == plain {ref_raw.tolist()}, rel err "
           f"{err:.2e} < 1e-3")
 
@@ -352,15 +396,16 @@ def run_main_path(torch, gen, cfg, params):
     }
     for job in jobs.values():
         part.add_job(job)
-    flash_attention_cuda.launches = 0
-    instrumented_matmul_cuda.launches = 0
+    wrappers = {"flash_fwd": flash_attention_cuda,
+                "instrumented_matmul": instrumented_matmul_cuda}
+    reset_counts(wrappers.values())
     t0 = time.monotonic()
     quanta = part.run()
     wall = time.monotonic() - t0
-    launches = {"flash_fwd": flash_attention_cuda.launches,
-                "instrumented_matmul": instrumented_matmul_cuda.launches}
+    launches = {k: w.launches for k, w in wrappers.items()}
+    routes = {k: dict(w.launches_by_route) for k, w in wrappers.items()}
     print(f"  {quanta} quanta in {wall:.2f} s wall; kernel launches "
-          f"{launches}", flush=True)
+          f"{launches}, by route {routes}", flush=True)
     print_tenants(jobs, Counter)
     print(f"  feedback: {json.dumps(fb.dump())}")
 
@@ -385,7 +430,10 @@ def run_main_path(torch, gen, cfg, params):
           f"score: next-token predictions {pred.tolist()} in [0, vocab)")
     for name, n in launches.items():
         check(n > 0, f"{name}: {n} launches on the main path")
-    return launches
+        check(routes[name] == {"wgmma": n, "simt": 0},
+              f"{name}: every launch on the tensor-core route "
+              f"({routes[name]})")
+    return launches, routes
 
 
 # -- phase 3t ----------------------------------------------------------------
@@ -411,10 +459,22 @@ def bwd_counts():
             flash_attention_bwd_dkv_cuda, instrumented_matmul_cuda)
 
 
+def reset_counts(wrappers) -> None:
+    """Set every launch count of the wrappers to 0, per route too where
+    a wrapper has routes."""
+    from pbs_tpu_torch.ops.cuda_build import new_route_counts
+
+    for w in wrappers:
+        w.launches = 0
+        if hasattr(w, "launches_by_route"):
+            w.launches_by_route = new_route_counts()
+
+
 def run_train_path(torch, gen, serve_cfg, serve_params):
     """The micro-stepped training tenant beside the serving tenant.
-    Returns (launch counts of this run, the training config, the
-    trained params, the micro_step function and its final state)."""
+    Returns (launch counts of this run, kernel 2.1's launches by route,
+    the training config, the trained params, the micro_step function and
+    its final state)."""
     from pbs_tpu_torch.models import init_params, make_micro_train_step
     from pbs_tpu_torch.models.transformer import loss_and_grads
     from pbs_tpu_torch.runtime import Job, Partition, SchedParams
@@ -473,16 +533,16 @@ def run_train_path(torch, gen, serve_cfg, serve_params):
     for job in jobs.values():
         part.add_job(job)
     wrappers = bwd_counts()
-    for w in wrappers:
-        w.launches = 0
+    reset_counts(wrappers)
     t0 = time.monotonic()
     quanta = part.run()
     wall = time.monotonic() - t0
     launches = dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                          "instrumented_matmul"),
                         (w.launches for w in wrappers)))
+    fwd_routes = dict(wrappers[0].launches_by_route)
     print(f"  {quanta} quanta in {wall:.2f} s wall; kernel launches "
-          f"{launches}", flush=True)
+          f"{launches}; flash_fwd by route {fwd_routes}", flush=True)
     print_tenants(jobs, Counter)
     print(f"  feedback: {json.dumps(fb.dump())}")
     loss_vals = [float(x) for x in losses]
@@ -527,10 +587,12 @@ def run_train_path(torch, gen, serve_cfg, serve_params):
           f"flash_fwd: {launches['flash_fwd']} launches == 2 x "
           f"{per_step}: each layer's forward, and its recompute in the "
           f"backward under remat")
+    check(fwd_routes == {"wgmma": 2 * per_step, "simt": 0},
+          f"flash_fwd: every launch on the tensor-core route ({fwd_routes})")
     ms = int(ctx.counters[Counter.DEVICE_TIME_NS]) / 1e6 / n_micro_total
     print(f"  train: {ms:.2f} ms per micro-step (ledger device time / "
           f"{n_micro_total})", flush=True)
-    return launches, cfg, params, micro_step, train.state
+    return launches, fwd_routes, cfg, params, micro_step, train.state
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -670,7 +732,7 @@ def time_bwd_kernels(torch, gen, launches) -> list:
              2 * 2 * B * S * Hkv * hd, max(errs[1:]), all(oks[1:]))):
         bms, by = bound(flops, in_bytes + out_bytes)
         rows.append(dict(
-            name=name, route="cuda", **KERNELS[name],
+            name=name, route="cuda", kernel_route="simt", **KERNELS[name],
             launches=launches[name], max_abs_err=err,
             ms=t["dq" if name == "flash_bwd_dq" else "dkv"],
             plain_ms=t["plain"], library_ms=t["library"], bound_ms=bms,
@@ -713,7 +775,7 @@ def profile_micro_step(torch, micro_step, state) -> None:
               "gemm": 0.0, "other": 0.0}
     for e in dev:
         key = e.key
-        if "flash_fwd_kernel" in key:
+        if "flash_fwd_" in key:
             g = "flash_fwd"
         elif "flash_bwd_dq_kernel" in key:
             g = "flash_bwd_dq"
@@ -758,26 +820,30 @@ def time_remat_policies(torch, gen, cfg, params) -> None:
               f"{peak:.2f} GiB allocated", flush=True)
 
 
-def time_kernels(torch, gen, launches, train_launches) -> list:
+def redesign_rates(row: dict, flops: float) -> dict:
+    """Achieved TFLOP/s (useful work over kernel time) and the fraction
+    of the bound the kernel reaches (bound_ms / ms)."""
+    return dict(tflops=flops / (row["ms"] * 1e-3) / 1e12,
+                bound_fraction=row["bound_ms"] / row["ms"])
+
+
+def time_flash_fwd(torch, gen, B, S, launches, routes, path) -> dict:
+    """Kernel 2.1 at one main path's shape (bf16, causal, bf16 o), held
+    against its plain version, timed beside it and beside SDPA."""
     import torch.nn.functional as F
 
     from pbs_tpu_torch.ops.attention import (flash_attention_cuda,
                                              flash_attention_plain)
-    from pbs_tpu_torch.ops.matmul import (instrumented_matmul_cuda,
-                                          instrumented_matmul_plain)
 
-    rows = []
-    B, S, H, Hkv, hd = SCORE_BATCH, SCORE_SEQ, FLAGSHIP["n_heads"], \
-        FLAGSHIP["n_kv_heads"], FLAGSHIP["d_model"] // FLAGSHIP["n_heads"]
+    H, Hkv = FLAGSHIP["n_heads"], FLAGSHIP["n_kv_heads"]
+    hd = FLAGSHIP["d_model"] // H
     q = torch.randn(B, S, H, hd, device="cuda", generator=gen).bfloat16()
     k = torch.randn(B, S, Hkv, hd, device="cuda", generator=gen).bfloat16()
     v = torch.randn(B, S, Hkv, hd, device="cuda", generator=gen).bfloat16()
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    # the main path's call: bf16 o, causal
-    flash_ok, err, err_l, limit = flash_against_plain(torch, q, k, v, True)
-    check(flash_ok, f"flash at the main path's shape: |o-ref| max "
-                    f"{err:.2e} <= {limit}, lse {err_l:.2e} <= "
-                    f"{FLASH_ATOL:g}")
+    ok, err, err_l, limit = flash_against_plain(torch, q, k, v, True)
+    check(ok, f"flash at the {path} path's shape: |o-ref| max {err:.2e} <= "
+              f"{limit}, lse {err_l:.2e} <= {FLASH_ATOL:g}")
     t = timed_in_turns(torch, {
         "ms": lambda: flash_attention_cuda(q, k, v, True),
         "plain_ms": lambda: flash_attention_plain(q, k, v, True),
@@ -788,15 +854,29 @@ def time_kernels(torch, gen, launches, train_launches) -> list:
     flops = 4 * B * H * hd * pairs
     nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * Hkv * hd) + 4 * B * S * H
     bms, by = bound(flops, nbytes)
-    rows.append(dict(name="flash_fwd", route="cuda", **KERNELS["flash_fwd"],
-                     launches=launches["flash_fwd"],
-                     launches_by_path={"serve": launches["flash_fwd"],
-                                       "train": train_launches["flash_fwd"]},
-                     max_abs_err=err, **t,
-                     bound_ms=bms, bound_by=by, ok=flash_ok,
-                     tolerance=f"|o-ref| <= {limit}, ref = plain fp32 o",
-                     shape=f"q ({B},{S},{H},{hd}) k/v ({B},{S},{Hkv},{hd}) "
-                           "bf16 causal"))
+    row = dict(name="flash_fwd" if path == "serving"
+               else "flash_fwd_training_shape", route="cuda",
+               kernel_route="wgmma", **KERNELS["flash_fwd"],
+               launches=launches, launches_by_route=routes, path=path,
+               max_abs_err=err, **t, bound_ms=bms, bound_by=by, ok=ok,
+               tolerance=f"|o-ref| <= {limit}, ref = plain fp32 o",
+               shape=f"q ({B},{S},{H},{hd}) k/v ({B},{S},{Hkv},{hd}) "
+                     "bf16 causal")
+    row.update(redesign_rates(row, flops))
+    return row
+
+
+def time_kernels(torch, gen, launches, routes, train_launches,
+                 train_routes) -> list:
+    from pbs_tpu_torch.ops.matmul import (instrumented_matmul_cuda,
+                                          instrumented_matmul_plain)
+
+    rows = [time_flash_fwd(torch, gen, SCORE_BATCH, SCORE_SEQ,
+                           launches["flash_fwd"], routes["flash_fwd"],
+                           "serving"),
+            time_flash_fwd(torch, gen, TRAIN_BATCH, TRAIN_SEQ - 1,
+                           train_launches["flash_fwd"], train_routes,
+                           "training")]
     rows += time_bwd_kernels(torch, gen, train_launches)
 
     a, b = mm_operands(torch, gen)
@@ -818,16 +898,21 @@ def time_kernels(torch, gen, launches, train_launches) -> list:
     flops = 2 * MM_N ** 3
     nbytes = 2 * 2 * MM_N * MM_N + 4 * MM_N * MM_N + 16
     bms, by = bound(flops, nbytes)
-    rows.append(dict(name="instrumented_matmul", route="cuda",
-                     **KERNELS["instrumented_matmul"],
-                     launches=launches["instrumented_matmul"],
-                     max_abs_err=err, **t, bound_ms=bms, bound_by=by,
-                     ok=mm_ok, tolerance="stats equal, rel err < 1e-3",
-                     shape=f"{MM_N}^3 bf16 in, fp32 out, blocks {blk}"))
+    row = dict(name="instrumented_matmul", route="cuda", kernel_route="wgmma",
+               **KERNELS["instrumented_matmul"],
+               launches=launches["instrumented_matmul"],
+               launches_by_route=routes["instrumented_matmul"], path="serving",
+               max_abs_err=err, **t, bound_ms=bms, bound_by=by,
+               ok=mm_ok, tolerance="stats equal, rel err < 1e-3",
+               shape=f"{MM_N}^3 bf16 in, fp32 out, blocks {blk}")
+    row.update(redesign_rates(row, flops))
+    rows.append(row)
     for r in rows:
-        print(f"  {r['name']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, "
+        rates = (f", {r['tflops']:.1f} TFLOP/s, {r['bound_fraction']:.3f} "
+                 f"of the bound" if "tflops" in r else "")
+        print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, "
               f"library {r['library_ms']}, bound {r['bound_ms']:.4f} "
-              f"by {r['bound_by']}) at {r['shape']}", flush=True)
+              f"by {r['bound_by']}{rates}) at {r['shape']}", flush=True)
     return rows
 
 
@@ -849,6 +934,34 @@ def mm_library_call(torch, a, b, ref):
     return lambda: torch.mm(a, b, out_dtype=torch.float32)
 
 
+_TEMPLATE_ARG = re.compile(r"13__nv_bfloat16|S\d*_|Li(\d+)E|f")
+
+
+def ptxas_report(log: str) -> list[str]:
+    """nvcc's -Xptxas -v output cut to one line per kernel: its name and
+    template arguments, registers, static shared memory and spills (the
+    wgmma kernels' shared memory is dynamic, sized in their sources)."""
+    lines, name, spill = [], "?", ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            m = re.search(r"\d\d?([a-z][a-z_]*_kernel)(?:I(\w*?E)E)?", ln)
+            if m is None:
+                name = ln.strip()
+                continue
+            args: list[str] = []
+            for t in _TEMPLATE_ARG.finditer(m.group(2) or ""):
+                # a substitution (S_) repeats the type before it
+                args.append("bf16" if t.group(0)[0] == "1" else "fp32"
+                            if t.group(0) == "f" else t.group(1)
+                            or args[-1])
+            name = f"{m.group(1)}<{', '.join(args)}>" if args else m.group(1)
+        elif "spill stores" in ln:
+            spill = ln.strip()
+        elif "registers" in ln:
+            lines.append(f"{name}: {ln.split(':', 1)[1].strip()}; {spill}")
+    return lines
+
+
 def main() -> int:
     import torch
 
@@ -868,10 +981,8 @@ def main() -> int:
     t0 = time.monotonic()
     built = cuda_build.build()
     for r in built.values():
-        regs = [ln.strip() for ln in r.log.splitlines()
-                if "registers" in ln or "spill" in ln]
         print(f"  {r.name}: {r.seconds:.1f} s -> {r.path.name}")
-        for ln in regs:
+        for ln in ptxas_report(r.log):
             print(f"    {ln}")
     print(f"  build wall {time.monotonic() - t0:.1f} s", flush=True)
 
@@ -885,11 +996,11 @@ def main() -> int:
     params = cast_params(init_params(cfg, gen, device="cuda"), cfg.dtype)
     print(f"  flagship: {cfg.num_params() / 1e6:.0f}M params, bf16, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    launches = run_main_path(torch, gen, cfg, params)
+    launches, routes = run_main_path(torch, gen, cfg, params)
 
     phase("3t train: a micro-stepped training Job beside the serving tenant")
-    train_launches, train_cfg, train_params, micro_step, train_state = \
-        run_train_path(torch, gen, cfg, params)
+    (train_launches, train_routes, train_cfg, train_params, micro_step,
+     train_state) = run_train_path(torch, gen, cfg, params)
 
     phase("4 numerics at width")
     check_numerics(torch, gen, cfg, params)
@@ -897,7 +1008,8 @@ def main() -> int:
     check_train_numerics(torch, gen, train_cfg, train_params)
 
     phase("5 times at the main paths' shapes")
-    rows = time_kernels(torch, gen, launches, train_launches)
+    rows = time_kernels(torch, gen, launches, routes, train_launches,
+                        train_routes)
     profile_micro_step(torch, micro_step, train_state)
     del micro_step, train_state
     time_remat_policies(torch, gen, train_cfg, train_params)

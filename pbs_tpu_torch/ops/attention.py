@@ -10,7 +10,8 @@ clamped at 1e-30; the lse variant returns o in fp32 beside the fp32
 per-row logsumexp.
 
 For CUDA tensors the forward is the hand-written kernel
-``csrc/flash_fwd.cu`` and the backward the two kernels of
+``csrc/flash_fwd.cu`` (bf16 inputs TMA can address run on the tensor
+cores, the rest on the CUDA cores; :func:`forward_route`) and the backward the two kernels of
 ``csrc/flash_bwd.cu`` (a dq pass, and a dk/dv pass that sums the GQA
 group in-kernel); head_dim 16, 32, 64 or 128; fp32 or bf16. Neither
 direction writes attention probabilities to device memory: the backward
@@ -88,10 +89,18 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
 def _flash_function():
     lib = cuda_build.load("flash_fwd")
     fn = lib.pbs_flash_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
+
+
+def forward_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The forward kernel's route for these inputs: "wgmma" (tensor
+    cores, TMA loads) for bf16 q, k, v that TMA can address, else
+    "simt" (fp32 FMAs on the CUDA cores)."""
+    ok = all(cuda_build.tma_addressable(t) for t in (q, k, v))
+    return "wgmma" if ok else "simt"
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -110,6 +119,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if hd not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash kernel takes head_dim in "
                          f"{KERNEL_HEAD_DIMS}, got {hd}")
+    route = forward_route(q, k, v)
     lib, fn = _flash_function()
     o = torch.empty((B, S, H, hd),
                     dtype=torch.float32 if out_f32 else q.dtype,
@@ -119,13 +129,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), B, S, H, k.shape[2], hd, int(causal),
             int(q.dtype == torch.bfloat16), int(out_f32),
-            1.0 / math.sqrt(hd), stream)
-    cuda_build.check(lib, rc, "flash_fwd")
+            int(route == "wgmma"), 1.0 / math.sqrt(hd), stream)
+    cuda_build.check(lib, rc, f"flash_fwd ({route})")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.launches_by_route[route] += 1
     return o, lse
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.launches_by_route = cuda_build.new_route_counts()
 
 
 def _row_delta(o: torch.Tensor, do: torch.Tensor,

@@ -2,8 +2,8 @@
 
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into its own
 shared library with a plain C interface, and loaded with ``ctypes``. A
-library's file name carries a digest of its source and flags, so a
-stale build is never loaded; builds land in ``pbs_tpu_torch/build/``
+library's file name carries a digest of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so a stale build is never loaded; builds land in ``pbs_tpu_torch/build/``
 (listed in ``.gitignore``) at first use, or all at once through
 :func:`build`, which starts one ``nvcc`` per source and waits for all.
 
@@ -23,11 +23,18 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 
 #: Kernel sources, by library name (``csrc/<name>.cu``).
 KERNEL_SOURCES = ("flash_fwd", "flash_bwd", "instrumented_matmul")
+
+#: The routes a wrapper can launch: Hopper tensor cores (wgmma on TMA-loaded
+#: tiles) or fp32 FMAs on the CUDA cores. Each wrapper counts its launches
+#: per route in ``launches_by_route``.
+ROUTES = ("wgmma", "simt")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -65,9 +72,11 @@ def source_path(name: str) -> Path:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(
-        source_path(name).read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    h = hashlib.sha256(source_path(name).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -116,6 +125,18 @@ def load(name: str) -> ctypes.CDLL:
             build((name,))
         lib = _loaded[name] = ctypes.CDLL(str(path))
     return lib
+
+
+def tma_addressable(t) -> bool:
+    """Whether TMA can read the contiguous bf16 tensor ``t`` as rows of
+    its last dimension: a 16-byte aligned base and a row pitch that is a
+    multiple of 16 bytes. The tensor-core routes take such tensors only."""
+    return (t.dtype == torch.bfloat16 and t.data_ptr() % 16 == 0
+            and (t.shape[-1] * t.element_size()) % 16 == 0)
+
+
+def new_route_counts() -> dict[str, int]:
+    return dict.fromkeys(ROUTES, 0)
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

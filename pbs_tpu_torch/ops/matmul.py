@@ -8,7 +8,9 @@ and write traffic — which the host scales into FLOPs and bytes and the
 estimate, the way perf tooling scales PMC event counts.
 
 For a CUDA tensor :func:`instrumented_matmul` launches the hand-written
-kernel (``csrc/instrumented_matmul.cu``) or raises; for a CPU tensor it
+kernel (``csrc/instrumented_matmul.cu``; bf16 operands TMA can address
+run on the tensor cores, the rest on the CUDA cores: :func:`kernel_route`)
+or raises; for a CPU tensor it
 runs :func:`instrumented_matmul_plain`, the same function in plain
 PyTorch. The counts are integers and equal the TPU kernel's exactly.
 """
@@ -122,10 +124,18 @@ def instrumented_matmul_plain(a: torch.Tensor, b: torch.Tensor,
 def _mm_function():
     lib = cuda_build.load("instrumented_matmul")
     fn = lib.pbs_instrumented_matmul
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
+
+
+def kernel_route(a: torch.Tensor, b: torch.Tensor) -> str:
+    """The kernel's route for these operands: "wgmma" (tensor cores, TMA
+    loads) for bf16 operands that TMA can address (16-byte aligned, K
+    and N multiples of 8), else "simt" (fp32 FMAs on the CUDA cores)."""
+    ok = cuda_build.tma_addressable(a) and cuda_build.tma_addressable(b)
+    return "wgmma" if ok else "simt"
 
 
 def instrumented_matmul_cuda(a: torch.Tensor, b: torch.Tensor, bm: int,
@@ -143,6 +153,7 @@ def instrumented_matmul_cuda(a: torch.Tensor, b: torch.Tensor, bm: int,
         raise ValueError("instrumented_matmul kernel needs contiguous operands")
     M, K = a.shape
     N = b.shape[1]
+    route = kernel_route(a, b)
     lib, fn = _mm_function()
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
     stats = torch.zeros(N_STATS, dtype=torch.int32, device=a.device)
@@ -150,13 +161,15 @@ def instrumented_matmul_cuda(a: torch.Tensor, b: torch.Tensor, bm: int,
     stream = torch.cuda.current_stream(a.device).cuda_stream
     rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), stats.data_ptr(),
             M, N, K, bm, bn, bk, int(a.dtype == torch.bfloat16),
-            a_kib, b_kib, o_kib, stream)
-    cuda_build.check(lib, rc, "instrumented_matmul")
+            int(route == "wgmma"), a_kib, b_kib, o_kib, stream)
+    cuda_build.check(lib, rc, f"instrumented_matmul ({route})")
     instrumented_matmul_cuda.launches += 1
+    instrumented_matmul_cuda.launches_by_route[route] += 1
     return out, stats
 
 
 instrumented_matmul_cuda.launches = 0
+instrumented_matmul_cuda.launches_by_route = cuda_build.new_route_counts()
 
 
 def instrumented_matmul(

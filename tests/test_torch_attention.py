@@ -21,6 +21,10 @@ import torch  # noqa: E402
 from pbs_tpu.ops import attention as ref  # noqa: E402
 from pbs_tpu_torch.ops import attention as port  # noqa: E402
 
+# The suite runs in parallel worker processes: uncapped, torch's intra-op
+# pool takes every core in each of them and oversubscribes the host.
+torch.set_num_threads(2)
+
 TOL = dict(atol=2e-5, rtol=2e-5)
 
 
@@ -160,3 +164,24 @@ def test_flash_grads_come_back_in_the_input_dtype():
     o, lse = port.flash_attention_lse(*(t.detach().requires_grad_()
                                         for t in (q, k, v)))
     assert o.dtype == torch.float32 and lse.requires_grad
+
+
+@pytest.mark.parametrize("hd", port.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
+                                         (torch.float32, "simt")])
+def test_forward_route_rule(hd, dtype, route):
+    """The stated rule that picks the forward kernel's route: bf16 q, k,
+    v that TMA can address go to the tensor cores, the rest to the CUDA
+    cores."""
+    q, k, v = (t.to(dtype) for t in _torch(*qkv(S=16, hd=hd)))
+    assert port.forward_route(q, k, v) == route
+
+
+def test_forward_route_of_an_unaligned_view():
+    B, S, H, hd = 2, 16, 4, 64
+    flat = torch.zeros(B * S * H * hd + 8, dtype=torch.bfloat16)
+    q = flat[1:1 + B * S * H * hd].view(B, S, H, hd)
+    k, v = (torch.zeros((B, S, 2, hd), dtype=torch.bfloat16) for _ in "kv")
+    assert q.is_contiguous() and port.forward_route(q, k, v) == "simt"
+    q = flat[8:8 + B * S * H * hd].view(B, S, H, hd)
+    assert port.forward_route(q, k, v) == "wgmma"

@@ -10,6 +10,10 @@ output, so its o is held element by element against the plain
 version's fp32 o: |o - ref| <= 2e-4 + r * |ref|, r = 2^-8 (at most half
 a bf16 ulp) for a bf16 o and 0 for an fp32 o; lse within 2e-4. The
 matmul's counter vector must be exactly equal.
+
+Routes: bf16 inputs that TMA can address run on the tensor cores
+("wgmma"), everything else on the CUDA cores ("simt"); each test asserts
+which route its launch took.
 """
 
 from __future__ import annotations
@@ -18,6 +22,10 @@ import pytest
 import torch
 
 from pbs_tpu_torch.ops import attention, matmul
+
+# The suite runs in parallel worker processes: uncapped, torch's intra-op
+# pool takes every core in each of them and oversubscribes the host.
+torch.set_num_threads(2)
 
 pytestmark = pytest.mark.cuda
 
@@ -41,16 +49,30 @@ def _assert_close_to_fp32(o, ref):
     assert bool((diff <= 2e-4 + r * ref.abs()).all()), float(diff.max())
 
 
+def _routes(wrapper):
+    return dict(wrapper.launches_by_route)
+
+
+def _one_more(before, after, route):
+    want = dict(before)
+    want[route] += 1
+    return after == want
+
+
 @pytest.mark.parametrize("hd", attention.KERNEL_HEAD_DIMS)
-@pytest.mark.parametrize("S,causal", [(512, True), (511, False), (130, True)])
+@pytest.mark.parametrize("S,causal", [(512, True), (511, False), (130, True),
+                                      (1023, True), (17, True), (17, False)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "fp32"])
 def test_flash_kernel_matches_plain(gen, hd, S, causal, dtype):
     q, k, v = _qkv(gen, 2, S, 8, 4, hd, dtype)
+    route = "wgmma" if dtype == torch.bfloat16 else "simt"
     before = attention.flash_attention_cuda.launches
+    routes = _routes(attention.flash_attention_cuda)
     o, lse = attention.flash_attention_lse(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert attention.flash_attention_cuda.launches == before + 1
+    assert _one_more(routes, _routes(attention.flash_attention_cuda), route)
     ref_o, ref_lse = attention.flash_attention_plain(q, k, v, causal, True)
     assert o.dtype == torch.float32
     _assert_close_to_fp32(o, ref_o)
@@ -58,6 +80,40 @@ def test_flash_kernel_matches_plain(gen, hd, S, causal, dtype):
     out = attention.flash_attention(q, k, v, causal=causal)
     assert out.dtype == dtype and out.shape == q.shape
     _assert_close_to_fp32(out, ref_o)
+
+
+@pytest.mark.parametrize("B,S", [(4, 1024), (2, 1023)],
+                         ids=["serving", "training"])
+def test_flash_kernel_at_the_main_paths_shapes(gen, B, S):
+    """The flagship's heads (16 query, 8 kv, head_dim 128), bf16,
+    causal, at the serving path's (4, 1024) and the training path's
+    (2, 1023): the tensor-core route."""
+    q, k, v = _qkv(gen, B, S, 16, 8, 128, torch.bfloat16)
+    routes = _routes(attention.flash_attention_cuda)
+    for out_f32 in (False, True):
+        o, lse = attention.flash_attention_cuda(q, k, v, True, out_f32)
+        ref_o, ref_lse = attention.flash_attention_plain(q, k, v, True, True)
+        _assert_close_to_fp32(o, ref_o)
+        assert float((lse - ref_lse).abs().max()) <= 2e-4
+    routes["wgmma"] += 2
+    assert _routes(attention.flash_attention_cuda) == routes
+
+
+def test_flash_kernel_unaligned_bf16_takes_the_cuda_core_route(gen):
+    """A contiguous bf16 view 2 bytes past an aligned base: TMA cannot
+    address it, so the launch takes the CUDA-core route, and agrees."""
+    B, S, H, Hkv, hd = 2, 130, 8, 4, 64
+    flat = torch.randn(B * S * H * hd + 1, device="cuda",
+                       generator=gen).bfloat16()
+    q = flat[1:].view(B, S, H, hd)
+    _, k, v = _qkv(gen, B, S, H, Hkv, hd, torch.bfloat16)
+    assert attention.forward_route(q, k, v) == "simt"
+    routes = _routes(attention.flash_attention_cuda)
+    o, lse = attention.flash_attention_cuda(q, k, v, True)
+    assert _one_more(routes, _routes(attention.flash_attention_cuda), "simt")
+    ref_o, ref_lse = attention.flash_attention_plain(q, k, v, True, True)
+    _assert_close_to_fp32(o, ref_o)
+    assert float((lse - ref_lse).abs().max()) <= 2e-4
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(gen):
@@ -128,17 +184,23 @@ def test_flash_backward_refuses_what_it_does_not_take(gen):
 
 @pytest.mark.parametrize("M,K,N,blk", [(512, 512, 512, 256),
                                        (256, 768, 384, 128),
-                                       (384, 256, 256, 64)])
+                                       (384, 256, 256, 64),
+                                       (4096, 512, 4096, 256),
+                                       (8, 12, 8, 4)])  # K: no TMA
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "fp32"])
 def test_matmul_kernel_matches_plain(gen, M, K, N, blk, dtype):
     a = torch.randn(M, K, device="cuda", generator=gen).to(dtype)
     a[:blk, :blk] = 0  # a data-derived zero tile
     b = torch.randn(K, N, device="cuda", generator=gen).to(dtype)
+    route = ("wgmma" if dtype == torch.bfloat16 and K % 8 == 0 and N % 8 == 0
+             else "simt")
     before = matmul.instrumented_matmul_cuda.launches
+    routes = _routes(matmul.instrumented_matmul_cuda)
     out, raw = matmul.instrumented_matmul(a, b, blk, blk, blk)
     torch.cuda.synchronize()
     assert matmul.instrumented_matmul_cuda.launches == before + 1
+    assert _one_more(routes, _routes(matmul.instrumented_matmul_cuda), route)
     ref, ref_raw = matmul.instrumented_matmul_plain(a, b, blk, blk, blk)
     assert raw.tolist() == ref_raw.tolist()
     assert raw.tolist()[matmul.STAT_A_ZERO_TILES] == N // blk

@@ -17,6 +17,10 @@ from pathlib import Path
 import pytest
 import torch
 
+# The suite runs in parallel worker processes: uncapped, torch's intra-op
+# pool takes every core in each of them and oversubscribes the host.
+torch.set_num_threads(2)
+
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "pbs_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "pbs_tpu"}

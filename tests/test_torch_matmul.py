@@ -22,6 +22,10 @@ import torch  # noqa: E402
 from pbs_tpu.ops import matmul as ref  # noqa: E402
 from pbs_tpu_torch.ops import matmul as port  # noqa: E402
 
+# The suite runs in parallel worker processes: uncapped, torch's intra-op
+# pool takes every core in each of them and oversubscribes the host.
+torch.set_num_threads(2)
+
 
 def _both(a, b, blocks, bf16=False):
     """(ref out, ref stats, port out, port stats) as numpy."""
@@ -128,3 +132,26 @@ def test_kernel_counters_land_in_ledger():
     assert int(ctx.counters[Counter.HBM_STALL_NS]) > 0  # roofline estimate
     np.testing.assert_array_equal(part.ledger.snapshot(ctx.ledger_slot),
                                   ctx.counters)
+
+
+@pytest.mark.parametrize("M,K,N,dtype,route", [
+    (64, 64, 64, torch.bfloat16, "wgmma"),
+    (384, 256, 384, torch.bfloat16, "wgmma"),
+    (8, 12, 8, torch.bfloat16, "simt"),  # A's rows are 24 bytes
+    (8, 16, 12, torch.bfloat16, "simt"),  # B's rows are 24 bytes
+    (64, 64, 64, torch.float32, "simt"),
+])
+def test_kernel_route_rule(M, K, N, dtype, route):
+    """The stated rule that picks the kernel's route: bf16 operands TMA
+    can address go to the tensor cores, the rest to the CUDA cores."""
+    a = torch.zeros((M, K), dtype=dtype)
+    b = torch.zeros((K, N), dtype=dtype)
+    assert port.kernel_route(a, b) == route
+
+
+def test_kernel_route_of_an_unaligned_view():
+    flat = torch.zeros(64 * 64 + 8, dtype=torch.bfloat16)
+    a = flat[1:1 + 64 * 64].view(64, 64)  # 2 bytes past an aligned base
+    b = torch.zeros((64, 64), dtype=torch.bfloat16)
+    assert a.is_contiguous() and port.kernel_route(a, b) == "simt"
+    assert port.kernel_route(flat[8:8 + 64 * 64].view(64, 64), b) == "wgmma"

@@ -25,6 +25,10 @@ from __graft_entry__ import _flagship_cfg  # noqa: E402
 from pbs_tpu import models as ref  # noqa: E402
 from pbs_tpu_torch import models as port  # noqa: E402
 
+# The suite runs in parallel worker processes: uncapped, torch's intra-op
+# pool takes every core in each of them and oversubscribes the host.
+torch.set_num_threads(2)
+
 RTOL = 1e-4
 ATOL = 1e-4
 

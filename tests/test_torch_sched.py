@@ -22,10 +22,15 @@ import pbs_tpu.knobs  # noqa: E402
 import pbs_tpu.runtime as ref_rt  # noqa: E402
 import pbs_tpu.sched as ref_sched  # noqa: E402
 import pbs_tpu.telemetry as ref_tel  # noqa: E402
+import torch  # noqa: E402
 import pbs_tpu_torch.runtime as port_rt  # noqa: E402
 import pbs_tpu_torch.sched as port_sched  # noqa: E402
 import pbs_tpu_torch.telemetry as port_tel  # noqa: E402
 from pbs_tpu_torch import knobs as port_knobs  # noqa: E402
+
+# The suite runs in parallel worker processes: uncapped, torch's intra-op
+# pool takes every core in each of them and oversubscribes the host.
+torch.set_num_threads(2)
 
 REF = (ref_rt, ref_sched, ref_tel)
 PORT = (port_rt, port_sched, port_tel)

@@ -29,6 +29,10 @@ from pbs_tpu.models import transformer as ref_tf  # noqa: E402
 from pbs_tpu_torch import models as port  # noqa: E402
 from pbs_tpu_torch.models import transformer as port_tf  # noqa: E402
 
+# The suite runs in parallel worker processes: uncapped, torch's intra-op
+# pool takes every core in each of them and oversubscribes the host.
+torch.set_num_threads(2)
+
 GRAD_TOL = dict(rtol=2e-4, atol=2e-5)
 #: tests/test_microstep.py's TINY widths.
 MICRO = dict(vocab=64, d_model=32, n_layers=1, n_heads=2, n_kv_heads=2,
