@@ -10,7 +10,8 @@ Phases, each fatal on failure:
 2. kernels — hold each kernel against its plain PyTorch version on the card,
              on the shapes and with the tolerances printed beside each check,
              and the route each launch took (bf16 inputs TMA can address run
-             on the tensor cores, "wgmma"; the rest on the CUDA cores, "simt").
+             on the tensor cores, "wgmma"; the rest on the CUDA cores, "simt":
+             fp32 inputs, and for the backward an fp32 do).
 3. main    — the feedback-scheduling loop at flagship width: one Partition
              with a CudaBackend and a FeedbackPolicy over three tenants (a
              KV-cache serving tenant answering 4 x 128-token prompts, a
@@ -25,8 +26,8 @@ Phases, each fatal on failure:
              per AdamW step, 2 steps) beside the KV-cache serving tenant,
              checking retired steps, ledger tokens, yields at chunk
              boundaries, losses, parameter movement, that every
-             backward went through kernels 2.2 and 2.3, and that every
-             forward went through kernel 2.1 on the tensor-core route.
+             backward went through kernels 2.2 and 2.3 and every forward
+             through kernel 2.1, all on the tensor-core route.
 4. numerics — the scoring forward through the flash kernel against the dense
              attention path on the same weights, the KV-cache prefill
              against the full forward, and one micro-batch's training loss
@@ -35,9 +36,10 @@ Phases, each fatal on failure:
 5. times   — each kernel, its plain version and one PyTorch library call
              computing the same function, at the main paths' shapes (2.1 at
              the serving and at the training shape), with achieved TFLOP/s
-             and the fraction of the bound each kernel reaches; one
-             profiled training micro-step (device time by kernel, idle
-             share).
+             and the fraction of the bound each kernel reaches; 2.2 and 2.3
+             also on their CUDA-core route and beside the row-delta
+             reduction they read; one profiled training micro-step (device
+             time by kernel, idle share).
 
 Prints the card's name and power limit, then one ``{"kernels": [...]}`` line,
 then, last, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -144,8 +146,10 @@ def bwd_against_plain(torch, gen, q, k, v, causal, with_dlse):
     ``with_dlse``: the lse variant's fp32 o, fp32 do, random lse
     cotangent), and the plain backward in fp32 on the same inputs.
     Returns (ok, max abs err, the smallest BWD_REL that passes, the
-    limit)."""
+    limit, the routes of the dq and the dk/dv launch)."""
     from pbs_tpu_torch.ops.attention import (flash_attention_bwd,
+                                             flash_attention_bwd_dkv_cuda,
+                                             flash_attention_bwd_dq_cuda,
                                              flash_attention_bwd_plain,
                                              flash_attention_cuda)
 
@@ -153,7 +157,10 @@ def bwd_against_plain(torch, gen, q, k, v, causal, with_dlse):
     do = torch.randn(o.shape, device="cuda", generator=gen).to(o.dtype)
     dlse = (torch.randn(lse.shape, device="cuda", generator=gen)
             if with_dlse else None)
+    wrappers = (flash_attention_bwd_dq_cuda, flash_attention_bwd_dkv_cuda)
+    before = [dict(w.launches_by_route) for w in wrappers]
     got = flash_attention_bwd(q, k, v, o, lse, do, dlse, causal)
+    routes = tuple(route_taken(w, b) for w, b in zip(wrappers, before))
     ref = flash_attention_bwd_plain(q.float(), k.float(), v.float(), o, lse,
                                     do.float(), dlse, causal)
     ok, err, need = True, 0.0, 0.0
@@ -168,7 +175,7 @@ def bwd_against_plain(torch, gen, q, k, v, causal, with_dlse):
         err = max(err, float(diff.max()))
         need = max(need, float((diff - r * want.abs()).clamp_min(0).max())
                    / scale)
-    return ok, err, need, f"{BWD_REL[name]:g} max|ref| + {r:g}|ref|"
+    return ok, err, need, f"{BWD_REL[name]:g} max|ref| + {r:g}|ref|", routes
 
 
 def route_taken(wrapper, before: dict) -> str:
@@ -246,16 +253,23 @@ def check_kernels(torch, gen) -> None:
             (2, 512, 8, 4, 128, torch.bfloat16, False),
             (2, 511, 8, 4, 128, torch.bfloat16, True),  # ragged S
             (1, 2048, 8, 4, 128, torch.bfloat16, True),
+            (2, 130, 8, 4, 64, torch.bfloat16, True),
+            (2, 17, 4, 2, 32, torch.bfloat16, False),
+            (1, 200, 4, 4, 16, torch.bfloat16, True),
             (2, 384, 8, 2, 64, torch.float32, True),
             # the training path's call: S - 1 = 1023 after the shift
             (TRAIN_BATCH, TRAIN_SEQ - 1, 16, 8, 128, torch.bfloat16, True)):
         for with_dlse in (False, True):
-            ok, err, need, limit = bwd_against_plain(
+            ok, err, need, limit, routes = bwd_against_plain(
                 torch, gen, *qkv(B, S, H, Hkv, hd, dtype), causal, with_dlse)
-            check(ok, f"flash bwd {str(dtype)[6:]} B{B} S{S} H{H}/{Hkv} "
-                      f"hd{hd} causal={causal} dlse={'rand' if with_dlse else 0}"
-                      f": dq/dk/dv |g-ref| max {err:.2e} <= {limit} "
-                      f"(passes down to {need:.1e} max|ref|)")
+            # the lse variant's do is fp32: the CUDA-core route
+            want = ("wgmma" if dtype == torch.bfloat16 and not with_dlse
+                    else "simt")
+            check(ok and routes == (want, want),
+                  f"flash bwd {str(dtype)[6:]} B{B} S{S} H{H}/{Hkv} hd{hd} "
+                  f"causal={causal} dlse={'rand' if with_dlse else 0} "
+                  f"[{'/'.join(routes)}]: dq/dk/dv |g-ref| max {err:.2e} <= "
+                  f"{limit} (passes down to {need:.1e} max|ref|)")
 
     a = torch.randn(512, 512, device="cuda", generator=gen).bfloat16()
     b = torch.randn(512, 512, device="cuda", generator=gen).bfloat16()
@@ -472,9 +486,9 @@ def reset_counts(wrappers) -> None:
 
 def run_train_path(torch, gen, serve_cfg, serve_params):
     """The micro-stepped training tenant beside the serving tenant.
-    Returns (launch counts of this run, kernel 2.1's launches by route,
-    the training config, the trained params, the micro_step function and
-    its final state)."""
+    Returns (launch counts of this run, the flash kernels' launches by
+    route, the training config, the trained params, the micro_step
+    function and its final state)."""
     from pbs_tpu_torch.models import init_params, make_micro_train_step
     from pbs_tpu_torch.models.transformer import loss_and_grads
     from pbs_tpu_torch.runtime import Job, Partition, SchedParams
@@ -540,9 +554,10 @@ def run_train_path(torch, gen, serve_cfg, serve_params):
     launches = dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                          "instrumented_matmul"),
                         (w.launches for w in wrappers)))
-    fwd_routes = dict(wrappers[0].launches_by_route)
+    routes = dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                      (dict(w.launches_by_route) for w in wrappers[:3])))
     print(f"  {quanta} quanta in {wall:.2f} s wall; kernel launches "
-          f"{launches}; flash_fwd by route {fwd_routes}", flush=True)
+          f"{launches}; by route {routes}", flush=True)
     print_tenants(jobs, Counter)
     print(f"  feedback: {json.dumps(fb.dump())}")
     loss_vals = [float(x) for x in losses]
@@ -587,12 +602,13 @@ def run_train_path(torch, gen, serve_cfg, serve_params):
           f"flash_fwd: {launches['flash_fwd']} launches == 2 x "
           f"{per_step}: each layer's forward, and its recompute in the "
           f"backward under remat")
-    check(fwd_routes == {"wgmma": 2 * per_step, "simt": 0},
-          f"flash_fwd: every launch on the tensor-core route ({fwd_routes})")
+    for name, r in routes.items():
+        check(r == {"wgmma": launches[name], "simt": 0},
+              f"{name}: every launch on the tensor-core route ({r})")
     ms = int(ctx.counters[Counter.DEVICE_TIME_NS]) / 1e6 / n_micro_total
     print(f"  train: {ms:.2f} ms per micro-step (ledger device time / "
           f"{n_micro_total})", flush=True)
-    return launches, fwd_routes, cfg, params, micro_step, train.state
+    return launches, routes, cfg, params, micro_step, train.state
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -666,13 +682,41 @@ def check_train_numerics(torch, gen, cfg, params) -> None:
 # -- phase 5 -----------------------------------------------------------------
 
 
-def time_bwd_kernels(torch, gen, launches) -> list:
-    """Kernels 2.2 and 2.3 at the training path's shape (bf16 o and do,
-    no lse cotangent, as the model calls them), beside the plain
-    backward and one library call, SDPA's backward, each computing dq,
-    dk and dv together."""
+def sdpa_pair(qt, kt, vt):
+    """SDPA's forward on (B, H, S, hd) leaves, for the backward pair's
+    yardstick: the flash backend pinned with ``sdpa_kernel`` where it
+    takes ``enable_gqa``, else PyTorch's own dispatch. Returns (output,
+    which backend)."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
+    def call():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    try:
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return call(), "SDPA flash backend (pinned), enable_gqa"
+    except RuntimeError as e:
+        why = str(e).splitlines()[0][:160]
+        return call(), f"SDPA default dispatch (flash refused: {why})"
+
+
+def unaligned_copy(torch, t):
+    """A contiguous copy of ``t`` 2 bytes past an aligned base: TMA
+    cannot address it, so a wrapper takes the CUDA-core route on it."""
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    out = flat[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def time_bwd_kernels(torch, gen, launches, routes) -> list:
+    """Kernels 2.2 and 2.3 at the training path's shape (bf16 o and do,
+    no lse cotangent, as the model calls them), beside their CUDA-core
+    route on the same values (through an unaligned copy of q), the
+    row-delta reduction they read, the plain backward and one library
+    call, SDPA's backward, each of the last two computing dq, dk and dv
+    together."""
     from pbs_tpu_torch.ops import attention as A
 
     B, S, H, Hkv = TRAIN_BATCH, TRAIN_SEQ - 1, FLAGSHIP["n_heads"], \
@@ -684,63 +728,83 @@ def time_bwd_kernels(torch, gen, launches) -> list:
     o, lse = A.flash_attention_cuda(q, k, v, True)
     do = torch.randn(o.shape, device="cuda", generator=gen).bfloat16()
     row = A._row_delta(o, do, None)
-    dq = A.flash_attention_bwd_dq_cuda(q, k, v, do, lse, row, True)
-    dk, dv = A.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, row, True)
+    qu = unaligned_copy(torch, q)
+    check(A.backward_route(q, k, v, do) == "wgmma"
+          and A.backward_route(qu, k, v, do) == "simt",
+          "backward routes at the training path's shape: wgmma, and simt "
+          "for an unaligned copy of q")
     ref = A.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o,
                                       lse, do.float(), None, True)
     limit = BWD_REL["bfloat16"]
-    oks, errs = [], []
-    for g, want in zip((dq, dk, dv), ref):
-        diff = (g.float() - want).abs()
-        oks.append(bool((diff <= limit * float(want.abs().max())
-                         + BF16_HALF_ULP * want.abs()).all()))
-        errs.append(float(diff.max()))
-    check(all(oks), f"flash bwd at the training path's shape: dq/dk/dv "
-                    f"|g-ref| max {errs} <= {limit:g} max|ref| + "
-                    f"{BF16_HALF_ULP:g}|ref|")
+    errs = {}
+    for route, qq in (("wgmma", q), ("simt", qu)):
+        dq = A.flash_attention_bwd_dq_cuda(qq, k, v, do, lse, row, True)
+        dk, dv = A.flash_attention_bwd_dkv_cuda(qq, k, v, do, lse, row, True)
+        oks, err = [], []
+        for g, want in zip((dq, dk, dv), ref):
+            diff = (g.float() - want).abs()
+            oks.append(bool((diff <= limit * float(want.abs().max())
+                             + BF16_HALF_ULP * want.abs()).all()))
+            err.append(float(diff.max()))
+        errs[route] = (oks, err)
+        check(all(oks), f"flash bwd ({route}) at the training path's shape: "
+                        f"dq/dk/dv |g-ref| max {err} <= {limit:g} max|ref| "
+                        f"+ {BF16_HALF_ULP:g}|ref|")
 
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                         enable_gqa=True)
+    out, backend = sdpa_pair(qt, kt, vt)
     dot = do.transpose(1, 2)
     lib_dq = torch.autograd.grad(out, (qt, kt, vt), dot,
                                  retain_graph=True)[0].transpose(1, 2)
     lib_rel = rel_err(lib_dq, ref[0])
-    check(lib_rel < 0.05, f"library SDPA backward: dq rel err {lib_rel:.2e} "
-                          f"< 0.05 against the plain fp32 dq")
+    check(lib_rel < 0.05, f"library SDPA backward ({backend}): dq rel err "
+                          f"{lib_rel:.2e} < 0.05 against the plain fp32 dq")
     t = timed_in_turns(torch, {
         "dq": lambda: A.flash_attention_bwd_dq_cuda(q, k, v, do, lse, row,
                                                      True),
         "dkv": lambda: A.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, row,
                                                        True),
+        "dq_simt": lambda: A.flash_attention_bwd_dq_cuda(qu, k, v, do, lse,
+                                                          row, True),
+        "dkv_simt": lambda: A.flash_attention_bwd_dkv_cuda(qu, k, v, do, lse,
+                                                            row, True),
+        "row_delta": lambda: A._row_delta(o, do, None),
         "plain": lambda: A.flash_attention_bwd_plain(q, k, v, o, lse, do,
                                                      None, True),
-        "library": lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
-                                               retain_graph=True),
-    }, iters=10)
+        # SDPA's pair wanders between calls: more iterations than the rest
+        "library": lambda: [torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                retain_graph=True)
+                            for _ in range(5)],
+    }, iters=20)
+    t["library"] /= 5
     pairs = S * (S + 1) // 2  # causal (query, key) pairs per (b, h)
     shape = (f"q ({B},{S},{H},{hd}) k/v ({B},{S},{Hkv},{hd}) bf16 causal, "
              "bf16 do, no lse cotangent")
     in_bytes = (2 * (2 * B * S * H * hd + 2 * B * S * Hkv * hd)
                 + 2 * 4 * B * S * H)  # q, do, k, v; lse, row delta
+    oks, err = errs["wgmma"]
     rows = []
-    for name, flops, out_bytes, err, ok in (
-            ("flash_bwd_dq", 6 * B * H * hd * pairs, 2 * B * S * H * hd,
-             errs[0], oks[0]),
-            ("flash_bwd_dkv", 8 * B * H * hd * pairs,
-             2 * 2 * B * S * Hkv * hd, max(errs[1:]), all(oks[1:]))):
+    for name, key, flops, out_bytes, e, ok in (
+            ("flash_bwd_dq", "dq", 6 * B * H * hd * pairs,
+             2 * B * S * H * hd, err[0], oks[0]),
+            ("flash_bwd_dkv", "dkv", 8 * B * H * hd * pairs,
+             2 * 2 * B * S * Hkv * hd, max(err[1:]), all(oks[1:]))):
         bms, by = bound(flops, in_bytes + out_bytes)
-        rows.append(dict(
-            name=name, route="cuda", kernel_route="simt", **KERNELS[name],
-            launches=launches[name], max_abs_err=err,
-            ms=t["dq" if name == "flash_bwd_dq" else "dkv"],
-            plain_ms=t["plain"], library_ms=t["library"], bound_ms=bms,
-            bound_by=by, ok=ok,
+        entry = dict(
+            name=name, route="cuda", kernel_route=route_of(routes[name]),
+            **KERNELS[name], launches=launches[name],
+            launches_by_route=routes[name],
+            path="training", max_abs_err=e, ms=t[key],
+            simt_ms=t[f"{key}_simt"], row_delta_ms=t["row_delta"],
+            plain_ms=t["plain"], library_ms=t["library"],
+            library_backend=backend, bound_ms=bms, bound_by=by, ok=ok,
             tolerance=f"|g-ref| <= {limit:g} max|ref| + {BF16_HALF_ULP:g}"
                       "|ref|, ref = plain fp32 backward",
             plain_and_library_compute="dq, dk and dv in one call (pair)",
-            shape=shape))
+            shape=shape)
+        entry.update(redesign_rates(entry, flops))
+        rows.append(entry)
     return rows
 
 
@@ -777,9 +841,9 @@ def profile_micro_step(torch, micro_step, state) -> None:
         key = e.key
         if "flash_fwd_" in key:
             g = "flash_fwd"
-        elif "flash_bwd_dq_kernel" in key:
+        elif "flash_bwd_dq_" in key:
             g = "flash_bwd_dq"
-        elif "flash_bwd_dkv_kernel" in key:
+        elif "flash_bwd_dkv_" in key:
             g = "flash_bwd_dkv"
         elif any(w in key.lower()
                  for w in ("gemm", "cutlass", "xmma", "nvjet")):
@@ -820,6 +884,12 @@ def time_remat_policies(torch, gen, cfg, params) -> None:
               f"{peak:.2f} GiB allocated", flush=True)
 
 
+def route_of(counts: dict) -> str:
+    """The route(s) a main path's launches took, from a wrapper's
+    ``launches_by_route``: "wgmma", "simt", or both joined by "+"."""
+    return "+".join(r for r, n in counts.items() if n) or "none"
+
+
 def redesign_rates(row: dict, flops: float) -> dict:
     """Achieved TFLOP/s (useful work over kernel time) and the fraction
     of the bound the kernel reaches (bound_ms / ms)."""
@@ -856,7 +926,7 @@ def time_flash_fwd(torch, gen, B, S, launches, routes, path) -> dict:
     bms, by = bound(flops, nbytes)
     row = dict(name="flash_fwd" if path == "serving"
                else "flash_fwd_training_shape", route="cuda",
-               kernel_route="wgmma", **KERNELS["flash_fwd"],
+               kernel_route=route_of(routes), **KERNELS["flash_fwd"],
                launches=launches, launches_by_route=routes, path=path,
                max_abs_err=err, **t, bound_ms=bms, bound_by=by, ok=ok,
                tolerance=f"|o-ref| <= {limit}, ref = plain fp32 o",
@@ -875,9 +945,9 @@ def time_kernels(torch, gen, launches, routes, train_launches,
                            launches["flash_fwd"], routes["flash_fwd"],
                            "serving"),
             time_flash_fwd(torch, gen, TRAIN_BATCH, TRAIN_SEQ - 1,
-                           train_launches["flash_fwd"], train_routes,
-                           "training")]
-    rows += time_bwd_kernels(torch, gen, train_launches)
+                           train_launches["flash_fwd"],
+                           train_routes["flash_fwd"], "training")]
+    rows += time_bwd_kernels(torch, gen, train_launches, train_routes)
 
     a, b = mm_operands(torch, gen)
     blk = MM_BLOCK
@@ -898,7 +968,8 @@ def time_kernels(torch, gen, launches, routes, train_launches,
     flops = 2 * MM_N ** 3
     nbytes = 2 * 2 * MM_N * MM_N + 4 * MM_N * MM_N + 16
     bms, by = bound(flops, nbytes)
-    row = dict(name="instrumented_matmul", route="cuda", kernel_route="wgmma",
+    row = dict(name="instrumented_matmul", route="cuda",
+               kernel_route=route_of(routes["instrumented_matmul"]),
                **KERNELS["instrumented_matmul"],
                launches=launches["instrumented_matmul"],
                launches_by_route=routes["instrumented_matmul"], path="serving",
@@ -910,6 +981,10 @@ def time_kernels(torch, gen, launches, routes, train_launches,
     for r in rows:
         rates = (f", {r['tflops']:.1f} TFLOP/s, {r['bound_fraction']:.3f} "
                  f"of the bound" if "tflops" in r else "")
+        if "simt_ms" in r:
+            rates += (f"; CUDA-core route {r['simt_ms']:.4f} ms, row delta "
+                      f"{r['row_delta_ms']:.4f} ms; library: "
+                      f"{r['library_backend']}")
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, "
               f"library {r['library_ms']}, bound {r['bound_ms']:.4f} "
               f"by {r['bound_by']}{rates}) at {r['shape']}", flush=True)

@@ -10,10 +10,11 @@ clamped at 1e-30; the lse variant returns o in fp32 beside the fp32
 per-row logsumexp.
 
 For CUDA tensors the forward is the hand-written kernel
-``csrc/flash_fwd.cu`` (bf16 inputs TMA can address run on the tensor
-cores, the rest on the CUDA cores; :func:`forward_route`) and the backward the two kernels of
+``csrc/flash_fwd.cu`` and the backward the two kernels of
 ``csrc/flash_bwd.cu`` (a dq pass, and a dk/dv pass that sums the GQA
-group in-kernel); head_dim 16, 32, 64 or 128; fp32 or bf16. Neither
+group in-kernel); head_dim 16, 32, 64 or 128; fp32 or bf16. bf16 inputs
+TMA can address run on the tensor cores, the rest on the CUDA cores
+(:func:`forward_route`, :func:`backward_route`). Neither
 direction writes attention probabilities to device memory: the backward
 recomputes p = exp(s - lse) tile by tile. For CPU tensors both
 directions are plain PyTorch (:func:`flash_attention_plain`,
@@ -190,11 +191,11 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
 def _bwd_functions():
     lib = cuda_build.load("flash_bwd")
     dq = lib.pbs_flash_bwd_dq
-    dq.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+    dq.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_void_p])
     dq.restype = ctypes.c_int
     dkv = lib.pbs_flash_bwd_dkv
-    dkv.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+    dkv.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                     + [ctypes.c_float, ctypes.c_void_p])
     dkv.restype = ctypes.c_int
     return lib, dq, dkv
@@ -230,11 +231,22 @@ def _check_bwd_inputs(q, k, v, do, lse, row) -> None:
                          f"{KERNEL_HEAD_DIMS}, got {hd}")
 
 
-def _bwd_args(q, k, do, causal):
+def backward_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   do: torch.Tensor) -> str:
+    """The backward kernels' route for these inputs: "wgmma" (tensor
+    cores, TMA loads) for bf16 q, k, v and a bf16 do that TMA can
+    address, else "simt" (fp32 FMAs on the CUDA cores: fp32 inputs, and
+    the lse variant's fp32 do)."""
+    ok = all(cuda_build.tma_addressable(t) for t in (q, k, v, do))
+    return "wgmma" if ok else "simt"
+
+
+def _bwd_args(q, k, do, causal, route):
     B, S, H, hd = q.shape
     return (B, S, H, k.shape[2], hd, int(causal),
             int(q.dtype == torch.bfloat16),
-            int(do.dtype == torch.float32), 1.0 / math.sqrt(hd),
+            int(do.dtype == torch.float32), int(route == "wgmma"),
+            1.0 / math.sqrt(hd),
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
@@ -245,17 +257,20 @@ def flash_attention_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor,
     """Launch kernel 2.2 (the dq pass); ``row`` is :func:`_row_delta`.
     Raises on any input it does not take."""
     _check_bwd_inputs(q, k, v, do, lse, row)
+    route = backward_route(q, k, v, do)
     lib, fn, _ = _bwd_functions()
     dq = torch.empty_like(q)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), row.data_ptr(), dq.data_ptr(),
-            *_bwd_args(q, k, do, causal))
-    cuda_build.check(lib, rc, "flash_bwd_dq")
+            *_bwd_args(q, k, do, causal, route))
+    cuda_build.check(lib, rc, f"flash_bwd_dq ({route})")
     flash_attention_bwd_dq_cuda.launches += 1
+    flash_attention_bwd_dq_cuda.launches_by_route[route] += 1
     return dq
 
 
 flash_attention_bwd_dq_cuda.launches = 0
+flash_attention_bwd_dq_cuda.launches_by_route = cuda_build.new_route_counts()
 
 
 def flash_attention_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -266,18 +281,21 @@ def flash_attention_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor,
     """Launch kernel 2.3 (the dk/dv pass, GQA group summed in-kernel).
     Raises on any input it does not take."""
     _check_bwd_inputs(q, k, v, do, lse, row)
+    route = backward_route(q, k, v, do)
     lib, _, fn = _bwd_functions()
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), row.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *_bwd_args(q, k, do, causal))
-    cuda_build.check(lib, rc, "flash_bwd_dkv")
+            *_bwd_args(q, k, do, causal, route))
+    cuda_build.check(lib, rc, f"flash_bwd_dkv ({route})")
     flash_attention_bwd_dkv_cuda.launches += 1
+    flash_attention_bwd_dkv_cuda.launches_by_route[route] += 1
     return dk, dv
 
 
 flash_attention_bwd_dkv_cuda.launches = 0
+flash_attention_bwd_dkv_cuda.launches_by_route = cuda_build.new_route_counts()
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

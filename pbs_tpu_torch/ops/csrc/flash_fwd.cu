@@ -252,16 +252,6 @@ struct Tc {
   static constexpr size_t SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;  // + alignment slack
 };
 
-// o += P V for one 16-key slice: P (64x16, registers), V (16 x HD, MN-major).
-template <int HD>
-__device__ __forceinline__ void pv_wgmma(float (&d)[HD / 2], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (HD == 16) hopper::wgmma_m64n16_rs_mnmajor(d, a, db);
-  else if constexpr (HD == 32) hopper::wgmma_m64n32_rs_mnmajor(d, a, db);
-  else if constexpr (HD == 64) hopper::wgmma_m64n64_rs_mnmajor(d, a, db);
-  else hopper::wgmma_m64n128_rs_mnmajor(d, a, db);
-}
-
 __device__ __forceinline__ void store_pair(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
 }
@@ -404,22 +394,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       // p as bf16 hi + lo, in the register-operand pattern of the
       // accumulator: 16-key slice kt is accumulator columns 16kt..16kt+15.
       uint32_t hi[4][4], lo[4][4];
-#pragma unroll
-      for (int kt = 0; kt < 4; ++kt)
-#pragma unroll
-        for (int w = 0; w < 4; ++w) {
-          const float x = s[8 * kt + 2 * w], y = s[8 * kt + 2 * w + 1];
-          const __nv_bfloat16 xh = __float2bfloat16(x), yh = __float2bfloat16(y);
-          hi[kt][w] = hopper::pack_bf16(__bfloat162float(xh), __bfloat162float(yh));
-          lo[kt][w] = hopper::pack_bf16(x - __bfloat162float(xh), y - __bfloat162float(yh));
-        }
+      hopper::split_bf16(s, hi, lo);
       hopper::fence_regs(acc);
       hopper::wgmma_fence();
 #pragma unroll
       for (int kt = 0; kt < 4; ++kt) {
         const uint64_t dv = hopper::desc(sV + kt * 16 * C::ROWB, C::KV_CHUNK, C::SBO, C::LAYOUT);
-        pv_wgmma<HD>(acc, hi[kt], dv);
-        pv_wgmma<HD>(acc, lo[kt], dv);
+        hopper::wgmma_rs_mnmajor<HD>(acc, hi[kt], dv);
+        hopper::wgmma_rs_mnmajor<HD>(acc, lo[kt], dv);
       }
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();

@@ -322,5 +322,37 @@ __device__ __forceinline__ void wgmma_m64n128_rs_mnmajor(float (&d)[64], const u
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D(64xN, fp32) += A(64x16 bf16, registers) * B(16xN, smem desc), B MN-major,
+// for N = 16, 32, 64 or 128 (an attention head's width).
+template <int N>
+__device__ __forceinline__ void wgmma_rs_mnmajor(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 16) wgmma_m64n16_rs_mnmajor(d, a, db);
+  else if constexpr (N == 32) wgmma_m64n32_rs_mnmajor(d, a, db);
+  else if constexpr (N == 64) wgmma_m64n64_rs_mnmajor(d, a, db);
+  else wgmma_m64n128_rs_mnmajor(d, a, db);
+}
+
+// A 64x64 fp32 accumulator as the register A operand of four k16 products
+// (16-column slice kt is accumulator columns 16kt..16kt+15), each value x
+// split into bf16 hi = bf16(x) and lo = bf16(x - hi): two products into one
+// accumulator keep ~2^-17 of x's relative accuracy.
+__device__ __forceinline__ void split_bf16(const float (&s)[32], uint32_t (&hi)[4][4],
+                                           uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kt = 0; kt < 4; ++kt)
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float x = s[8 * kt + 2 * w], y = s[8 * kt + 2 * w + 1];
+      const float xh = __bfloat162float(__float2bfloat16(x));
+      const float yh = __bfloat162float(__float2bfloat16(y));
+      hi[kt][w] = pack_bf16(xh, yh);
+      lo[kt][w] = pack_bf16(x - xh, y - yh);
+    }
+}
+
+// Named barrier `id` (1..15; 0 is __syncthreads) over `count` threads.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
 
 }  // namespace hopper

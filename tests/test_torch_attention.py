@@ -185,3 +185,29 @@ def test_forward_route_of_an_unaligned_view():
     assert q.is_contiguous() and port.forward_route(q, k, v) == "simt"
     q = flat[8:8 + B * S * H * hd].view(B, S, H, hd)
     assert port.forward_route(q, k, v) == "wgmma"
+
+
+@pytest.mark.parametrize("hd", port.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("dtype,do_dtype,route", [
+    (torch.bfloat16, torch.bfloat16, "wgmma"),
+    (torch.float32, torch.float32, "simt"),
+    (torch.bfloat16, torch.float32, "simt")],  # the lse variant's fp32 do
+    ids=["bf16-bf16", "fp32-fp32", "bf16-fp32"])
+def test_backward_route_rule(hd, dtype, do_dtype, route):
+    """The stated rule that picks the backward kernels' route: bf16 q, k,
+    v and a bf16 do that TMA can address go to the tensor cores, the rest
+    to the CUDA cores."""
+    q, k, v = (t.to(dtype) for t in _torch(*qkv(S=16, hd=hd)))
+    do = torch.zeros(q.shape, dtype=do_dtype)
+    assert port.backward_route(q, k, v, do) == route
+
+
+def test_backward_route_of_an_unaligned_view():
+    B, S, H, hd = 2, 16, 4, 64
+    flat = torch.zeros(B * S * H * hd + 8, dtype=torch.bfloat16)
+    do = flat[1:1 + B * S * H * hd].view(B, S, H, hd)
+    q = torch.zeros((B, S, H, hd), dtype=torch.bfloat16)
+    k, v = (torch.zeros((B, S, 2, hd), dtype=torch.bfloat16) for _ in "kv")
+    assert do.is_contiguous() and port.backward_route(q, k, v, do) == "simt"
+    do = flat[8:8 + B * S * H * hd].view(B, S, H, hd)
+    assert port.backward_route(q, k, v, do) == "wgmma"

@@ -12,8 +12,9 @@ a bf16 ulp) for a bf16 o and 0 for an fp32 o; lse within 2e-4. The
 matmul's counter vector must be exactly equal.
 
 Routes: bf16 inputs that TMA can address run on the tensor cores
-("wgmma"), everything else on the CUDA cores ("simt"); each test asserts
-which route its launch took.
+("wgmma"), everything else on the CUDA cores ("simt"); for the backward
+kernels that includes do, so the lse variant's fp32 do takes "simt".
+Each test asserts which route its launch took.
 """
 
 from __future__ import annotations
@@ -132,8 +133,13 @@ def _assert_grad_close(g, ref):
     assert bool((diff <= limit).all()), float(diff.max())
 
 
+_BWD = (attention.flash_attention_bwd_dq_cuda,
+        attention.flash_attention_bwd_dkv_cuda)
+
+
 @pytest.mark.parametrize("hd", attention.KERNEL_HEAD_DIMS)
-@pytest.mark.parametrize("S,causal", [(512, True), (511, False), (130, True)])
+@pytest.mark.parametrize("S,causal", [(512, True), (511, False), (130, True),
+                                      (17, True), (17, False)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "fp32"])
 @pytest.mark.parametrize("use_lse", [False, True], ids=["o", "o+lse"])
@@ -141,11 +147,14 @@ def test_flash_backward_kernels_match_plain(gen, hd, S, causal, dtype,
                                             use_lse):
     """Kernels 2.2 and 2.3 through autograd: a loss of o alone (do in
     the input dtype, no lse cotangent) or of the lse variant's fp32 o
-    and its lse."""
+    and its lse. bf16 with a bf16 do takes the tensor cores; fp32, and
+    the lse variant's fp32 do, the CUDA cores."""
     q, k, v = (t.requires_grad_() for t in _qkv(gen, 2, S, 8, 4, hd, dtype))
     w = torch.randn(q.shape, device="cuda", generator=gen)
+    route = "wgmma" if dtype == torch.bfloat16 and not use_lse else "simt"
     before = (attention.flash_attention_bwd_dq_cuda.launches,
               attention.flash_attention_bwd_dkv_cuda.launches)
+    routes = [_routes(fn) for fn in _BWD]
     if use_lse:
         wl = torch.randn((2, S, 8, 1), device="cuda", generator=gen)
         o, lse = attention.flash_attention_lse(q, k, v, causal=causal)
@@ -160,12 +169,83 @@ def test_flash_backward_kernels_match_plain(gen, hd, S, causal, dtype,
     assert (attention.flash_attention_bwd_dq_cuda.launches,
             attention.flash_attention_bwd_dkv_cuda.launches) == (
         before[0] + 1, before[1] + 1)
+    for fn, was in zip(_BWD, routes):
+        assert _one_more(was, _routes(fn), route)
     qf, kf, vf = (t.detach().float() for t in (q, k, v))
     ref = attention.flash_attention_bwd_plain(
         qf, kf, vf, o.detach(), lse.detach(), w.float(), wl, causal)
     for g, r in zip((q.grad, k.grad, v.grad), ref):
         assert g.dtype == dtype and g.shape == r.shape
         _assert_grad_close(g, r)
+
+
+def _bwd_inputs(gen, B, S, H, Hkv, hd, do_dtype=torch.bfloat16):
+    q, k, v = _qkv(gen, B, S, H, Hkv, hd, torch.bfloat16)
+    o, lse = attention.flash_attention_cuda(q, k, v, True)
+    do = torch.randn(o.shape, device="cuda", generator=gen).to(do_dtype)
+    return q, k, v, o, lse, do
+
+
+def _bwd_launch(q, k, v, o, lse, do, route):
+    """Both backward kernels on one input set; asserts each took
+    ``route``; returns (dq, dk, dv) and the plain fp32 reference."""
+    routes = [_routes(fn) for fn in _BWD]
+    row = attention._row_delta(o, do, None)
+    dq = attention.flash_attention_bwd_dq_cuda(q, k, v, do, lse, row, True)
+    dk, dv = attention.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, row,
+                                                    True)
+    torch.cuda.synchronize()
+    for fn, was in zip(_BWD, routes):
+        assert _one_more(was, _routes(fn), route)
+    ref = attention.flash_attention_bwd_plain(
+        q.float(), k.float(), v.float(), o, lse, do.float(), None, True)
+    return (dq, dk, dv), ref
+
+
+def test_flash_backward_at_the_training_shape(gen):
+    """The training path's call (B 2, S 1023, 16/8 heads, head_dim 128,
+    bf16, causal, bf16 do): both passes on the tensor cores."""
+    inputs = _bwd_inputs(gen, 2, 1023, 16, 8, 128)
+    got, ref = _bwd_launch(*inputs, "wgmma")
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.bfloat16
+        _assert_grad_close(g, r)
+
+
+def test_flash_backward_bf16_with_fp32_do_takes_the_cuda_core_route(gen):
+    """bf16 q, k, v with an fp32 do (the lse variant's cotangent): the
+    CUDA-core route, which takes fp32 do, and agrees."""
+    inputs = _bwd_inputs(gen, 2, 130, 8, 4, 64, do_dtype=torch.float32)
+    assert attention.backward_route(*inputs[:3], inputs[5]) == "simt"
+    got, ref = _bwd_launch(*inputs, "simt")
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.bfloat16
+        _assert_grad_close(g, r)
+
+
+def test_flash_backward_unaligned_bf16_takes_the_cuda_core_route(gen):
+    """A contiguous bf16 q 2 bytes past an aligned base: TMA cannot
+    address it, so both passes take the CUDA-core route, and agree."""
+    q, k, v, o, lse, do = _bwd_inputs(gen, 2, 130, 8, 4, 64)
+    flat = torch.empty(q.numel() + 8, dtype=q.dtype, device="cuda")
+    qu = flat[1:1 + q.numel()].view(q.shape)
+    qu.copy_(q)
+    assert attention.backward_route(qu, k, v, do) == "simt"
+    got, ref = _bwd_launch(qu, k, v, o, lse, do, "simt")
+    for g, r in zip(got, ref):
+        _assert_grad_close(g, r)
+
+
+@pytest.mark.parametrize("route", ["wgmma", "simt"])
+def test_flash_backward_is_deterministic(gen, route):
+    """No atomics: two calls on the same inputs give bitwise-equal dq,
+    dk and dv on either route."""
+    q, k, v, o, lse, do = _bwd_inputs(gen, 2, 511, 8, 4, 128)
+    if route == "simt":
+        do = do.float()
+    first, _ = _bwd_launch(q, k, v, o, lse, do, route)
+    again, _ = _bwd_launch(q, k, v, o, lse, do, route)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def test_flash_backward_refuses_what_it_does_not_take(gen):
