@@ -28,6 +28,19 @@ Phases, each fatal on failure:
              boundaries, losses, parameter movement, that every
              backward went through kernels 2.2 and 2.3 and every forward
              through kernel 2.1, all on the tensor-core route.
+3m. measured — serve, score, mm and the training Job in one Partition
+             under FeedbackPolicy, with a CompileAdmission and CudaBackend
+             (profile_every=2): each tenant's first invocation and every
+             2nd after it run under torch.profiler, and the stall fraction
+             measured from the card's kernels sets HBM_STALL_NS. Checks
+             every sample came from the device lane with no profiler
+             failure, train measured more memory-bound than mm, mm below
+             its roofline estimate, an overflow sample on serve's TOKENS
+             that fires once and stays disarmed until rearmed, no compile
+             charged to any tenant, and that phase 1's nvcc runs are the
+             CompileMeter's compiles; prints each tenant's measured
+             fractions and top kernels beside the roofline estimate, its
+             final slice, and its sampled and unsampled device time.
 4. numerics — the scoring forward through the flash kernel against the dense
              attention path on the same weights, the KV-cache prefill
              against the full forward, and one micro-batch's training loss
@@ -40,6 +53,10 @@ Phases, each fatal on failure:
              also on their CUDA-core route and beside the row-delta
              reduction they read; one profiled training micro-step (device
              time by kernel, idle share).
+
+``--trace-out PATH`` also writes one profiled quantum's Chrome trace,
+trimmed to a few dozen events (the CPU tests parse such a trace from
+``tests/data/``).
 
 Prints the card's name and power limit, then one ``{"kernels": [...]}`` line,
 then, last, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -66,6 +83,14 @@ STEPS = {"serve": 4, "score": 6, "mm": 8}
 # The training tenant: micro-batch (2, 1024), 3 micro-batches per AdamW
 # step (a global batch of 6 x 1024), 2 steps.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS, TRAIN_LR = 2, 1024, 3, 2, 3e-4
+# Phase 3m, measured telemetry: every tenant at width, each sampled by
+# torch.profiler on its first invocation and every 2nd after it; fewer
+# steps than phases 3 and 3t, and one slice for all to start from.
+MEASURED_STEPS = {"serve": 3, "score": 4, "mm": 8}
+MEASURED_TRAIN_STEPS = 2
+MEASURED_PROFILE_EVERY = 2
+MEASURED_TSLICE_US = 300
+MEASURED_COMPILE_BUDGET_NS = 600 * 10 ** 9
 H100_PEAK_BF16_FLOPS = 989e12  # dense, data sheet
 H100_PEAK_HBM_BW = 3.35e12
 
@@ -361,21 +386,14 @@ def print_tenants(jobs, counters) -> None:
               f"{int(ctx.counters[counters.YIELDS]):>6}", flush=True)
 
 
-def run_main_path(torch, gen, cfg, params):
+def scoring_tenant(torch, gen, cfg, params):
+    """The forward-scoring tenant: (SCORE_BATCH, SCORE_SEQ) tokens
+    through the flash kernel; its answer is the next-token predictions."""
     from pbs_tpu_torch.models import forward
-    from pbs_tpu_torch.ops.attention import flash_attention_cuda
-    from pbs_tpu_torch.ops.matmul import (instrumented_matmul,
-                                          instrumented_matmul_cuda,
-                                          scale_stats)
-    from pbs_tpu_torch.runtime import Job, Partition, SchedParams
-    from pbs_tpu_torch.sched import FeedbackPolicy
-    from pbs_tpu_torch.telemetry import Counter, CudaBackend
 
-    serve_fn, serve_state = serving_tenant(torch, gen, cfg, params)
     score_tokens = torch.randint(0, cfg.vocab, (SCORE_BATCH, SCORE_SEQ),
                                  device="cuda", generator=gen)
     score_cfg = dataclasses.replace(cfg, attn_impl="pallas")
-    a, b = mm_operands(torch, gen)
 
     @torch.no_grad()
     def score_fn(state):
@@ -383,9 +401,33 @@ def run_main_path(torch, gen, cfg, params):
         # the (B,) next-token predictions are the tenant's answer
         return logits[:, -1].argmax(dim=-1), {"tokens": score_tokens.numel()}
 
+    return score_fn
+
+
+def mm_tenant(torch, gen):
+    """The instrumented-matmul tenant on MM_N^3 bf16 with planted zero
+    tiles: its in-kernel counters are its FLOP and byte metrics."""
+    from pbs_tpu_torch.ops.matmul import instrumented_matmul, scale_stats
+
+    a, b = mm_operands(torch, gen)
+
     def mm_fn(state):
         out, raw = instrumented_matmul(a, b, MM_BLOCK, MM_BLOCK, MM_BLOCK)
         return out, scale_stats(raw, MM_BLOCK, MM_BLOCK, MM_BLOCK).metrics()
+
+    return mm_fn
+
+
+def run_main_path(torch, gen, cfg, params):
+    from pbs_tpu_torch.ops.attention import flash_attention_cuda
+    from pbs_tpu_torch.ops.matmul import instrumented_matmul_cuda
+    from pbs_tpu_torch.runtime import Job, Partition, SchedParams
+    from pbs_tpu_torch.sched import FeedbackPolicy
+    from pbs_tpu_torch.telemetry import Counter, CudaBackend
+
+    serve_fn, serve_state = serving_tenant(torch, gen, cfg, params)
+    score_fn = scoring_tenant(torch, gen, cfg, params)
+    mm_fn = mm_tenant(torch, gen)
 
     # Warm each tenant once outside the partition (cuBLAS handles, the
     # caching allocator), so a slow first step is not charged as
@@ -484,23 +526,18 @@ def reset_counts(wrappers) -> None:
             w.launches_by_route = new_route_counts()
 
 
-def run_train_path(torch, gen, serve_cfg, serve_params):
-    """The micro-stepped training tenant beside the serving tenant.
-    Returns (launch counts of this run, the flash kernels' launches by
-    route, the training config, the trained params, the micro_step
-    function and its final state)."""
+def training_tenant(torch, gen, n_steps: int) -> dict:
+    """The flagship training tenant: fresh fp32 master params, a loader
+    of n_steps x TRAIN_MICRO seeded micro-batches (and one spare the run
+    never sees, for warm-up), the micro-step and the Job's micro-step
+    function, which records each micro-batch's loss."""
     from pbs_tpu_torch.models import init_params, make_micro_train_step
-    from pbs_tpu_torch.models.transformer import loss_and_grads
-    from pbs_tpu_torch.runtime import Job, Partition, SchedParams
-    from pbs_tpu_torch.sched import FeedbackPolicy
-    from pbs_tpu_torch.telemetry import Counter, CudaBackend
 
     cfg = train_config(torch)
     params = init_params(cfg, gen, device="cuda")  # fp32 master params
-    n_micro_total = TRAIN_STEPS * TRAIN_MICRO
     batches = torch.randint(0, cfg.vocab,
-                            (n_micro_total + 1, TRAIN_BATCH, TRAIN_SEQ),
-                            device="cuda", generator=gen)
+                            (n_steps * TRAIN_MICRO + 1, TRAIN_BATCH,
+                             TRAIN_SEQ), device="cuda", generator=gen)
     cursor = [0]
 
     def next_batch(micro: int):
@@ -519,12 +556,33 @@ def run_train_path(torch, gen, serve_cfg, serve_params):
         losses.append(metrics["loss"])
         return state, metrics
 
+    return dict(cfg=cfg, params=params, spare=batches[-1],
+                init_state=init_state, micro_step=micro_step,
+                train_fn=train_fn, losses=losses)
+
+
+def run_train_path(torch, gen, serve_cfg, serve_params):
+    """The micro-stepped training tenant beside the serving tenant.
+    Returns (launch counts of this run, the flash kernels' launches by
+    route, the training config, the trained params, the micro_step
+    function and its final state)."""
+    from pbs_tpu_torch.models.transformer import loss_and_grads
+    from pbs_tpu_torch.runtime import Job, Partition, SchedParams
+    from pbs_tpu_torch.sched import FeedbackPolicy
+    from pbs_tpu_torch.telemetry import Counter, CudaBackend
+
+    tenant = training_tenant(torch, gen, TRAIN_STEPS)
+    cfg, params = tenant["cfg"], tenant["params"]
+    init_state, micro_step = tenant["init_state"], tenant["micro_step"]
+    train_fn, losses = tenant["train_fn"], tenant["losses"]
+    n_micro_total = TRAIN_STEPS * TRAIN_MICRO
+
     serve_fn, serve_state = serving_tenant(torch, gen, serve_cfg,
                                            serve_params)
     # Warm up outside the partition: one loss/gradient pass on a batch
     # the run never sees (cuBLAS handles, the caching allocator), and one
     # serving batch.
-    loss_and_grads(cfg, params, batches[-1])
+    loss_and_grads(cfg, params, tenant["spare"])
     serve_fn(serve_state)
     torch.cuda.synchronize()
     watch = {"embed": params["embed"][:8].clone(),
@@ -609,6 +667,245 @@ def run_train_path(torch, gen, serve_cfg, serve_params):
     print(f"  train: {ms:.2f} ms per micro-step (ledger device time / "
           f"{n_micro_total})", flush=True)
     return launches, routes, cfg, params, micro_step, train.state
+
+
+# -- phase 3m ----------------------------------------------------------------
+
+
+def warm_profiler(torch) -> float:
+    """One throwaway torch.profiler session with CUDA activity: CUPTI's
+    first start can take seconds, which would otherwise land in the
+    first sampled quantum's device time. Returns its wall seconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.monotonic()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.ones(1 << 20, device="cuda").mul_(2)
+        torch.cuda.synchronize()
+    return time.monotonic() - t0
+
+
+def roofline_frac(be, metrics: dict) -> float:
+    """The stall fraction the backend itself charges a step with these
+    counted FLOPs and bytes before its first sample: one second charged
+    with no measured sample, read back from HBM_STALL_NS."""
+    import numpy as np
+
+    from pbs_tpu_torch.telemetry.counters import NUM_COUNTERS, Counter
+
+    deltas = np.zeros(NUM_COUNTERS, dtype=np.uint64)
+    be._charge(deltas, 10 ** 9, 0, 0, metrics, measured=None)
+    return int(deltas[Counter.HBM_STALL_NS]) / 10 ** 9
+
+
+def run_measured_path(torch, gen, cfg, params, built) -> tuple:
+    """serve, score, mm and the micro-stepped training Job in one
+    Partition under FeedbackPolicy, with CudaBackend sampling every
+    MEASURED_PROFILE_EVERY-th invocation of each tenant through
+    torch.profiler, a CompileAdmission that admits all four, and an
+    overflow sample armed on serve's TOKENS. Returns (launch counts of
+    this run, launches by route)."""
+    from pbs_tpu_torch.models.transformer import loss_and_grads
+    from pbs_tpu_torch.runtime import (CompileAdmission, CompileBudget, Job,
+                                       Partition, SchedParams, Virq)
+    from pbs_tpu_torch.sched import FeedbackPolicy
+    from pbs_tpu_torch.telemetry import CompileMeter, Counter, CudaBackend
+
+    meter = CompileMeter.install()
+    n_built = sum(1 for r in built.values() if r.seconds > 0)
+    ambient = meter.peek_all().get("<ambient>", (0, 0))
+    print(f"  compile meter: {meter.total_compiles} nvcc runs, "
+          f"{meter.total_compile_ns / 1e9:.1f} s (mean "
+          f"{meter.mean_compile_ns / 1e9:.1f} s), unattributed "
+          f"{ambient}; phase 1 built {n_built} sources", flush=True)
+    check(meter.total_compiles == n_built and ambient[0] == n_built,
+          f"phase 1's build went through the CompileMeter: "
+          f"{meter.total_compiles} compiles == {n_built} sources nvcc "
+          f"built in this run, all unattributed")
+
+    serve_fn, serve_state = serving_tenant(torch, gen, cfg, params)
+    score_fn = scoring_tenant(torch, gen, cfg, params)
+    mm_fn = mm_tenant(torch, gen)
+    tenant = training_tenant(torch, gen, MEASURED_TRAIN_STEPS)
+    # Warm every tenant outside the partition, then CUPTI.
+    for fn, st in ((serve_fn, serve_state), (score_fn, None), (mm_fn, None)):
+        fn(st)
+    loss_and_grads(tenant["cfg"], tenant["params"], tenant["spare"])
+    torch.cuda.synchronize()
+    print(f"  profiler warm-up session: {warm_profiler(torch):.2f} s",
+          flush=True)
+
+    be = CudaBackend(profile_every=MEASURED_PROFILE_EVERY)
+    gate = CompileAdmission(CompileBudget(
+        max_programs=4, budget_ns=MEASURED_COMPILE_BUDGET_NS))
+    part = Partition("measured", source=be, compile_admission=gate)
+    fb = FeedbackPolicy(part)
+
+    def params_(weight):
+        return SchedParams(weight=weight, tslice_us=MEASURED_TSLICE_US)
+
+    jobs = {
+        "serve": Job("serve", step_fn=serve_fn, state=serve_state,
+                     params=params_(256),
+                     max_steps=MEASURED_STEPS["serve"]),
+        "score": Job("score", step_fn=score_fn, params=params_(256),
+                     max_steps=MEASURED_STEPS["score"]),
+        "mm": Job("mm", step_fn=mm_fn, params=params_(512),
+                  max_steps=MEASURED_STEPS["mm"]),
+        "train": Job("train", micro_step_fn=tenant["train_fn"],
+                     micro_per_step=TRAIN_MICRO,
+                     state=tenant["init_state"](tenant["params"]),
+                     params=params_(512), max_steps=MEASURED_TRAIN_STEPS),
+    }
+    for job in jobs.values():
+        part.add_job(job)
+    print(f"  compile admission: {json.dumps(gate.dump())}")
+    period = SERVE_BATCH * SERVE_NEW  # one served batch of tokens
+    serve_ctx = jobs["serve"].contexts[0]
+    sid = part.sampler.arm(serve_ctx, Counter.TOKENS, period=period)
+    virqs = []
+    part.events.bind_virq(Virq.TELEMETRY, virqs.append)
+
+    wrappers = bwd_counts()
+    reset_counts(wrappers)
+    t0 = time.monotonic()
+    quanta = part.run()
+    wall = time.monotonic() - t0
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+             "instrumented_matmul")
+    launches = dict(zip(names, (w.launches for w in wrappers)))
+    routes = dict(zip(names, (dict(w.launches_by_route) for w in wrappers)))
+    part.events.deliver_pending()
+    print(f"  profile_every={MEASURED_PROFILE_EVERY}: {quanta} quanta in "
+          f"{wall:.2f} s wall; {be.profiler.samples} samples, "
+          f"{be.profiler.failures} failures ({be.profiler.last_error}); "
+          f"kernel launches {launches}; by route {routes}", flush=True)
+    print_tenants(jobs, Counter)
+    print(f"  feedback: {json.dumps(fb.dump())}")
+
+    roof_mm = roofline_frac(be, mm_fn(None)[1])
+    # Charged device ms of a sampled and an unsampled invocation, and
+    # the profiler's own ms per sample (kept out of the charge).
+    print(f"  {'tenant':<6} {'stall':>6} {'compute':>7} {'coll':>5} "
+          f"{'roofline':>8} {'ops':>5} {'busy_ms':>8} {'sampled_ms':>10} "
+          f"{'unsampled_ms':>12} {'profiler_ms':>11}  top ops")
+    for name, job in jobs.items():
+        m = be.measured(name)
+        if m is None:
+            print(f"  {name:<6} no sample")
+            continue
+        busy = m.compute_ns + m.memory_ns + m.collective_ns
+        # only mm counts FLOPs and bytes: the others have no estimate
+        roof = f"{roof_mm:.3f}" if name == "mm" else "none"
+        n_s, s_ns, p_ns = be.profile_cost.get(name, (0, 0, 0))
+        n_u = job.max_steps * job.micro_per_step - n_s
+        u_ns = int(job.contexts[0].counters[Counter.DEVICE_TIME_NS]) - s_ns
+        top = "; ".join(f"{k[:48]} {v / 1e6:.3f} ms" for k, v in m.top_ops[:3])
+        print(f"  {name:<6} {m.stall_frac:>6.3f} "
+              f"{m.compute_ns / busy if busy else 0.0:>7.3f} "
+              f"{m.collective_frac:>5.3f} {roof:>8} {m.n_ops:>5} "
+              f"{m.device_time_ns / 1e6:>8.3f} "
+              f"{s_ns / n_s / 1e6 if n_s else 0.0:>10.2f} "
+              f"{u_ns / n_u / 1e6 if n_u else 0.0:>12.2f} "
+              f"{p_ns / n_s / 1e6 if n_s else 0.0:>11.2f}  {top}", flush=True)
+
+    for name, job in jobs.items():
+        check(job.error is None and job.steps_retired() == job.max_steps,
+              f"{name}: {job.steps_retired()} steps retired, no fault "
+              f"({job.error})")
+    check(be.profiler.failures == 0 and be.profiler.samples >= len(jobs),
+          f"profiler: {be.profiler.samples} samples >= one per job, "
+          f"{be.profiler.failures} failures")
+    measured = {name: be.measured(name) for name in jobs}
+    for name, m in measured.items():
+        check(m is not None and m.source == "device" and m.n_ops > 0,
+              f"{name}: measured from the device lane "
+              f"({m.source if m else None}, {m.n_ops if m else 0} ops)")
+    check(measured["train"].stall_frac > measured["mm"].stall_frac,
+          f"measured stall: train {measured['train'].stall_frac:.3f} > mm "
+          f"{measured['mm'].stall_frac:.3f}")
+    check(measured["mm"].stall_frac < roof_mm,
+          f"mm: measured stall {measured['mm'].stall_frac:.3f} < its "
+          f"roofline estimate {roof_mm:.3f}")
+    events = part.sampler.drain()
+    before = part.sampler.dump()[0]
+    tokens = int(serve_ctx.counters[Counter.TOKENS])
+    check(len(events) == 1 and events[0].seq == 1
+          and events[0].threshold == period and events[0].value >= period
+          and virqs == [int(Virq.TELEMETRY)] and not before["armed"]
+          and before["fired"] == 1 and tokens >= 2 * period,
+          f"serve TOKENS overflow at {period}: fired once "
+          f"({[(e.value, e.seq) for e in events]}, virqs {virqs}) and "
+          f"stayed disarmed to {tokens} tokens")
+    part.sampler.rearm(sid)
+    after = part.sampler.dump()[0]
+    check(after["armed"] and after["threshold"] == tokens + period,
+          f"serve TOKENS sample rearmed at {after['threshold']}")
+    for name, job in jobs.items():
+        ctx = job.contexts[0]
+        n_c = int(ctx.counters[Counter.COMPILES])
+        check(n_c == 0 and int(ctx.counters[Counter.COMPILE_TIME_NS]) == 0,
+              f"{name}: ledger COMPILES {n_c}, phase 1 built everything")
+        snap = part.ledger.snapshot(ctx.ledger_slot)
+        check(snap.tolist() == ctx.counters.tolist(),
+              f"{name}: ledger snapshot equals the context counters")
+    for name, n in launches.items():
+        check(n > 0 and routes[name] == {"wgmma": n, "simt": 0},
+              f"{name}: {n} launches, every one on the tensor-core route "
+              f"({routes[name]})")
+    losses = [float(x) for x in tenant["losses"]]
+    check(len(losses) == MEASURED_TRAIN_STEPS * TRAIN_MICRO
+          and all(math.isfinite(x) for x in losses),
+          f"train: {len(losses)} micro-step losses, all finite")
+    return launches, routes
+
+
+def write_trace_fixture(torch, gen, path: str) -> None:
+    """Profile one quantum of kernels 2.1-2.4 and a short tanh chain on
+    the card and write its Chrome trace, trimmed to the device lane,
+    its process names and a few host runtime calls, to ``path``."""
+    import os
+    import tempfile
+
+    from pbs_tpu_torch.ops.attention import (flash_attention_bwd,
+                                             flash_attention_cuda)
+    from pbs_tpu_torch.ops.matmul import instrumented_matmul
+    from pbs_tpu_torch.telemetry.profiler import (DEVICE_CATS,
+                                                  TorchQuantumProfiler)
+
+    a = torch.randn(512, 512, device="cuda", generator=gen).bfloat16()
+    q, k, v = (torch.randn(1, 256, h, 128, device="cuda", generator=gen)
+               .bfloat16() for h in (4, 2, 2))
+    x = torch.randn(1 << 20, device="cuda", generator=gen)
+
+    def quantum():
+        instrumented_matmul(a, a, 256, 256, 256)
+        o, lse = flash_attention_cuda(q, k, v, True)
+        flash_attention_bwd(q, k, v, o, lse, o, None, True)
+        y = x
+        for _ in range(4):
+            y = torch.tanh(y)
+        torch.cuda.synchronize()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        prof = TorchQuantumProfiler("cuda", keep_dir=tmp)
+        _, stats = prof.profile(quantum)
+        with open(os.path.join(tmp, "trace_0.json")) as f:
+            doc = json.load(f)
+    events = doc["traceEvents"]
+    device = [e for e in events if e.get("cat") in DEVICE_CATS]
+    pids = {e.get("pid") for e in device}
+    runtime = [e for e in events if e.get("cat") == "cuda_runtime"][:6]
+    pids |= {e.get("pid") for e in runtime}
+    meta = [e for e in events if e.get("ph") == "M" and e.get("pid") in pids]
+    out = {"schemaVersion": doc.get("schemaVersion"),
+           "deviceProperties": doc.get("deviceProperties"),
+           "traceEvents": meta + runtime + device}
+    with open(path, "w") as f:
+        json.dump(out, f, indent=0)
+    print(f"  trace fixture: {len(device)} device events, "
+          f"{os.path.getsize(path)} bytes -> {path}; stall "
+          f"{stats.stall_frac:.3f}, top {stats.top_ops[:4]}", flush=True)
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -810,11 +1107,14 @@ def time_bwd_kernels(torch, gen, launches, routes) -> list:
 
 def profile_micro_step(torch, micro_step, state) -> None:
     """One more training micro-step under torch.profiler: device time by
-    kernel and the device's idle share of the step's wall time. A
-    measurement, not a check: where the profiler records no device
-    time it says so."""
+    kernel and the device's idle share of the step's wall time, each of
+    the port's flash kernels on its own and everything else by the
+    telemetry plane's classifier (``classify_kernel``). A measurement,
+    not a check: where the profiler records no device time it says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from pbs_tpu_torch.telemetry.profiler import classify_kernel
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -836,26 +1136,18 @@ def profile_micro_step(torch, micro_step, state) -> None:
               "not measured", flush=True)
         return
     groups = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
-              "gemm": 0.0, "other": 0.0}
+              "compute": 0.0, "memory": 0.0, "collective": 0.0}
     for e in dev:
         key = e.key
-        if "flash_fwd_" in key:
-            g = "flash_fwd"
-        elif "flash_bwd_dq_" in key:
-            g = "flash_bwd_dq"
-        elif "flash_bwd_dkv_" in key:
-            g = "flash_bwd_dkv"
-        elif any(w in key.lower()
-                 for w in ("gemm", "cutlass", "xmma", "nvjet")):
-            g = "gemm"
-        else:
-            g = "other"
+        g = next((k for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+                  if f"{k}_" in key), None) or classify_kernel(key)
         groups[g] += self_us(e)
     print(f"  profiled micro-step: {wall_us / 1e3:.2f} ms wall (profiler "
           f"on), {busy / 1e3:.2f} ms device busy, idle share "
           f"{1 - busy / wall_us:.3f}", flush=True)
-    print("  device ms by group: " + json.dumps(
-        {k: round(v / 1e3, 3) for k, v in groups.items()}))
+    print("  device ms by group (the flash kernels, then the rest by "
+          "classify_kernel): " + json.dumps(
+              {k: round(v / 1e3, 3) for k, v in groups.items()}))
     for e in sorted(dev, key=self_us, reverse=True)[:10]:
         print(f"    {self_us(e) / 1e3:9.3f} ms  x{e.count:<5} {e.key[:90]}")
 
@@ -1038,6 +1330,13 @@ def ptxas_report(log: str) -> list[str]:
 
 
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--trace-out", default=None,
+                    help="also write one profiled quantum's trimmed Chrome "
+                         "trace (kernels 2.1-2.4 and a tanh chain) here")
+    args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -1077,6 +1376,11 @@ def main() -> int:
     (train_launches, train_routes, train_cfg, train_params, micro_step,
      train_state) = run_train_path(torch, gen, cfg, params)
 
+    phase("3m measured telemetry: torch.profiler samples steer the slices")
+    m_launches, m_routes = run_measured_path(torch, gen, cfg, params, built)
+    if args.trace_out:
+        write_trace_fixture(torch, gen, args.trace_out)
+
     phase("4 numerics at width")
     check_numerics(torch, gen, cfg, params)
     del params
@@ -1085,6 +1389,11 @@ def main() -> int:
     phase("5 times at the main paths' shapes")
     rows = time_kernels(torch, gen, launches, routes, train_launches,
                         train_routes)
+    for r in rows:  # phase 3m's launches of the same kernel
+        kernel = "flash_fwd" if r["name"].startswith("flash_fwd") \
+            else r["name"]
+        r["measured_path_launches"] = m_launches[kernel]
+        r["measured_path_launches_by_route"] = m_routes[kernel]
     profile_micro_step(torch, micro_step, train_state)
     del micro_step, train_state
     time_remat_policies(torch, gen, train_cfg, train_params)

@@ -10,6 +10,11 @@ library's file name carries a digest of its source, the shared headers
 Nothing here runs at import time: the CPU tests import every module on
 a host with no ``nvcc``. A failed build raises :class:`BuildError`; no
 caller falls back to a plain version because a kernel did not build.
+
+Every finished ``nvcc`` run is reported to the port's ``CompileMeter``
+as one backend-compile event of its own wall seconds, and every first
+load of a library as a front-end event, both in the calling thread, so
+they land in the scope of whichever job's dispatch asked for them.
 """
 
 from __future__ import annotations
@@ -21,9 +26,13 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
+
+from pbs_tpu_torch.telemetry.compile import (BACKEND_COMPILE_EVENT,
+                                             FRONTEND_EVENTS, CompileMeter)
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
@@ -80,10 +89,17 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def _finish(proc: subprocess.Popen) -> tuple[str, str, float]:
+    """Wait for one ``nvcc``: (stdout, stderr, the moment it ended)."""
+    stdout, stderr = proc.communicate()
+    return stdout, stderr, time.monotonic()
+
+
 def build(names: tuple[str, ...] = KERNEL_SOURCES) -> dict[str, BuildResult]:
     """Compile every named source whose library is missing, one ``nvcc``
-    per source, all started together. Raises BuildError naming every
-    source that failed, with nvcc's output."""
+    per source, all started together, and report each finished run to
+    the ``CompileMeter``. Raises BuildError naming every source that
+    failed, with nvcc's output."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     results: dict[str, BuildResult] = {}
     running = {}
@@ -97,15 +113,24 @@ def build(names: tuple[str, ...] = KERNEL_SOURCES) -> dict[str, BuildResult]:
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
         running[name] = (proc, tmp, out, time.monotonic())
+    if not running:
+        return results
+    # One waiter per process, so each run's seconds end when it ends,
+    # not when the runs before it in this loop have been waited for.
+    with ThreadPoolExecutor(len(running)) as pool:
+        ended = {name: pool.submit(_finish, proc)
+                 for name, (proc, *_) in running.items()}
+    meter = CompileMeter.install()
     failures = []
     for name, (proc, tmp, out, t0) in running.items():
-        stdout, stderr = proc.communicate()
-        seconds = time.monotonic() - t0
+        stdout, stderr, t1 = ended[name].result()
+        seconds = t1 - t0
         log = (stdout + stderr).strip()
         if proc.returncode != 0:
             failures.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
             continue
         os.replace(tmp, out)  # atomic: a reader never sees half a file
+        meter._on_event(BACKEND_COMPILE_EVENT, seconds)
         results[name] = BuildResult(name, out, seconds, log)
     if failures:
         raise BuildError("kernel build failed:\n" + "\n".join(failures))
@@ -123,7 +148,10 @@ def load(name: str) -> ctypes.CDLL:
         path = library_path(name)
         if not path.exists():
             build((name,))
+        t0 = time.monotonic()
         lib = _loaded[name] = ctypes.CDLL(str(path))
+        CompileMeter.install()._on_event(FRONTEND_EVENTS[0],
+                                         time.monotonic() - t0)
     return lib
 
 

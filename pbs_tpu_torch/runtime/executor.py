@@ -9,8 +9,9 @@ with telemetry save/restore, run, account.
 There is no device preemption, so a quantum is realized as N steps, N
 derived from the policy's nanosecond slice and the context's measured
 per-step time. The dispatch arithmetic and its order are the
-reference's; the trace, recorder, overflow-sampler and compile-
-admission taps are not ported yet (ROADMAP).
+reference's, with its compile-admission charge and overflow-sampler
+check at the quantum boundary; the trace and recorder taps are not
+ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ MAX_STEPS_PER_QUANTUM = knobs.default(
 # Plain-int counter indices for the dispatch hot path.
 _I_DEVICE_TIME = int(Counter.DEVICE_TIME_NS)
 _I_SCHED_COUNT = int(Counter.SCHED_COUNT)
+_I_COMPILE_TIME = int(Counter.COMPILE_TIME_NS)
 
 
 def quantum_to_steps(quantum_ns: int, avg_step_ns: float) -> int:
@@ -133,6 +135,12 @@ class Executor:
         deltas[_I_SCHED_COUNT] = 1
         np.add(ctx.counters, deltas, out=ctx.counters)
         ctx.observe_step_time(ran_ns, n_steps_equiv)
+        if part.compile_admission is not None:
+            # Measured compile spend tightens the admission projections
+            # (runtime.compile_gate) — the accounting leg of the claim.
+            c_ns = int(deltas[_I_COMPILE_TIME])
+            if c_ns:
+                part.compile_admission.charge(job.name, c_ns)
         if ctx.ledger_slot >= 0:
             part.ledger.suspend(ctx.ledger_slot, deltas)
         self.current = None
@@ -141,6 +149,10 @@ class Executor:
         end = part.clock.now_ns()
         part.timers.fire_due(end)
         part.scheduler.descheduled(self, ctx, ran_ns, end)
+        # Overflow check at the quantum boundary (pmu_ihandler analog):
+        # counters only advance here, so this is where i-mode thresholds
+        # can cross; the virq is delivered by the run loop between quanta.
+        part.sampler.check(ctx)
 
         if job.finished():
             for c in job.contexts:

@@ -12,9 +12,8 @@ realized as a number of steps, with the per-job time slice converted
 through the job's measured step time.
 
 Not ported yet (ROADMAP): ``Job.foreign`` (adopting a callable that
-follows no protocol, which leans on XLA executables), the per-job
-profiler override, the console ring, admission declarations (label,
-mem_bytes, compile budget) and paging.
+follows no protocol, which leans on XLA executables), the console
+ring, the label and ``mem_bytes`` admission declarations, and paging.
 """
 
 from __future__ import annotations
@@ -78,8 +77,17 @@ class Job:
         gang: bool = False,
         micro_per_step: int = 1,
         micro_step_fn: Callable[[Any], Any] | None = None,
+        n_programs: int = 1,
+        est_compile_ns: int | None = None,
     ):
         self.name = name
+        # Compile-cache admission declaration (runtime.compile_gate):
+        # how many distinct programs this job brings (cache entries it
+        # will occupy) and, optionally, the expected per-program
+        # compile cost; undeclared costs are projected from the
+        # observed fleet average.
+        self.n_programs = max(1, int(n_programs))
+        self.est_compile_ns = est_compile_ns
         self.step_fn = step_fn
         # Sub-step latency bounding: a job whose step is long may
         # decompose it into ``micro_per_step`` micro-steps advanced by
@@ -109,6 +117,10 @@ class Job:
         self.error: str | None = None
         # Scheduler-private per-job state hangs here (sched "domdata").
         self.sched_priv: Any = None
+        # Measured-telemetry override: profile every N-th invocation of
+        # THIS job regardless of the backend-wide default (None = use
+        # the backend's).
+        self.profile_every: int | None = None
 
     # -- contention hints (batched vcrd_op) ------------------------------
 

@@ -7,18 +7,18 @@ cooperative ``run()`` loop drives executors round-robin on one host
 thread; under a ``VirtualClock`` it is fully deterministic and jumps
 the clock to the next timer deadline when every executor is idle.
 
-Admission, run-state control, fault containment, the loop and
-``dump()`` keep the reference's decision order. Not ported yet
-(ROADMAP): security labels (xsm), lifecycle hooks, trace rings, the
-overflow sampler, the run recorder, memory and compile admission, and
-the file-backed ledger with its monitor sidecar. None of them changes
-a dispatch decision.
+Admission (with the optional compile-cache claim), run-state control,
+fault containment, the overflow sampler, the loop and ``dump()`` keep
+the reference's decision order. Not ported yet (ROADMAP): security
+labels (xsm), lifecycle hooks, trace rings, the run recorder, memory
+admission, and the file-backed ledger with its monitor sidecar. None of
+them changes a dispatch decision.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Callable
+from typing import TYPE_CHECKING, Any, Callable
 
 from pbs_tpu_torch.runtime.events import EventBus, Virq
 from pbs_tpu_torch.runtime.executor import Executor
@@ -28,6 +28,9 @@ from pbs_tpu_torch.sched.base import Scheduler, make_scheduler
 from pbs_tpu_torch.telemetry.ledger import Ledger
 from pbs_tpu_torch.telemetry.source import TelemetrySource
 from pbs_tpu_torch.utils.clock import Clock, VirtualClock
+
+if TYPE_CHECKING:
+    from pbs_tpu_torch.runtime.compile_gate import CompileAdmission
 
 DEFAULT_LEDGER_SLOTS = 128
 
@@ -43,6 +46,7 @@ class Partition:
         clock: Clock | None = None,
         ledger_slots: int = DEFAULT_LEDGER_SLOTS,
         sched_params: dict[str, Any] | None = None,
+        compile_admission: "CompileAdmission | None" = None,
     ):
         self.name = name
         self.source = source
@@ -52,6 +56,16 @@ class Partition:
         # Async signaling fabric (event_channel.c analog); delivered by
         # the run loop between quanta.
         self.events = EventBus()
+        # i-mode counter sampling: thresholds -> Virq.TELEMETRY -> rearm
+        # (the VIRQ_PERFCTR overflow path, telemetry/sampler.py; imported
+        # here because the sampler imports runtime.events, so a
+        # module-level import would cycle).
+        from pbs_tpu_torch.telemetry.sampler import OverflowSampler
+
+        self.sampler = OverflowSampler(self.events)
+        # Optional compile-cache admission (runtime.compile_gate):
+        # distinct programs per partition and cumulative compile time.
+        self.compile_admission = compile_admission
         self._free_slots = list(range(ledger_slots - 1, -1, -1))
         self.jobs: list[Job] = []
         # Monotone quantum counter.
@@ -70,6 +84,11 @@ class Partition:
     # -- admission (domain_create analog, xen/common/domain.c) -----------
 
     def add_job(self, job: Job) -> Job:
+        if self.compile_admission is not None:
+            # Fail-fast compile-cache claim FIRST: it touches no shared
+            # state beyond its own table, so rejection leaves nothing
+            # to unwind (the XENMEM_claim_pages ordering).
+            self.compile_admission.admit(job)
         try:
             for ctx in job.contexts:
                 if not self._free_slots:
@@ -80,6 +99,8 @@ class Partition:
             # Unwind fully so a failed admission leaves nothing behind
             # and the name stays retryable.
             self._release_slots(job)
+            if self.compile_admission is not None:
+                self.compile_admission.release(job.name)
             raise
         # Scheduler enrollment is part of the same atomic admission.
         enrolled = False
@@ -99,6 +120,8 @@ class Partition:
             if job in self.jobs:
                 self.jobs.remove(job)
             self._release_slots(job)
+            if self.compile_admission is not None:
+                self.compile_admission.release(job.name)
             raise
         return job
 
@@ -109,9 +132,20 @@ class Partition:
                 ctx.ledger_slot = -1
 
     def remove_job(self, job: Job) -> None:
+        if self.compile_admission is not None:
+            self.compile_admission.release(job.name)
+        # Dead jobs must not pin their contexts via armed samples (or
+        # keep getting scanned by every overflow check).
+        self.sampler.disarm_job(job)
         self.scheduler.job_removed(job)
         self.jobs.remove(job)
         self._release_slots(job)
+
+    def job(self, name: str) -> Job:
+        for j in self.jobs:
+            if j.name == name:
+                return j
+        raise KeyError(name)
 
     # -- run-state control (vcpu_sleep/wake, schedule.c) -----------------
 

@@ -1,5 +1,8 @@
 from pbs_tpu_torch.telemetry.counters import DUMP_EVENTS, NUM_COUNTERS, Counter
 from pbs_tpu_torch.telemetry.ledger import SLOT_BYTES, SLOT_WORDS, Ledger
+from pbs_tpu_torch.telemetry.compile import CompileMeter
+from pbs_tpu_torch.telemetry.profiler import TorchQuantumProfiler, TraceStats
+from pbs_tpu_torch.telemetry.sampler import OverflowEvent, OverflowSampler
 from pbs_tpu_torch.telemetry.source import (
     CudaBackend,
     SimBackend,
@@ -9,15 +12,20 @@ from pbs_tpu_torch.telemetry.source import (
 )
 
 __all__ = [
+    "CompileMeter",
     "Counter",
     "CudaBackend",
     "DUMP_EVENTS",
     "Ledger",
     "NUM_COUNTERS",
+    "OverflowEvent",
+    "OverflowSampler",
     "SLOT_BYTES",
     "SLOT_WORDS",
     "SimBackend",
     "SimPhase",
     "SimProfile",
     "TelemetrySource",
+    "TorchQuantumProfiler",
+    "TraceStats",
 ]

@@ -8,14 +8,17 @@ reports counter deltas. Two backends:
   from the JAX package so a scheduling trace here is comparable, word
   for word, with one there.
 - ``CudaBackend`` — real measurements on an NVIDIA GPU, the counterpart
-  of ``TpuBackend``: step wall time closed by a device synchronise, a
-  static FLOP/byte estimate from a duck-typed ``cost_analysis()``, and
-  the metrics a step function returns (instrumented kernels' own
-  counters outrank the static estimate).
+  of ``TpuBackend``: step wall time closed by a device synchronise,
+  measured per-kernel time from periodic ``torch.profiler`` samples
+  (``profiler.py`` — the rdpmc-read analog) with a roofline HBM-stall
+  estimate from a duck-typed ``cost_analysis()`` as the cold-start
+  fallback, compile time (``nvcc`` runs a step triggered) split out of
+  the runtime charge (``compile.py``), and the metrics a step function
+  returns (instrumented kernels' own counters outrank the static
+  estimate).
 
-Not ported yet (ROADMAP): the profiler sampling that measures stall
-fractions per quantum, compile attribution (the port runs eagerly, so
-its compile counters stay 0), and the counter fault-injection seam.
+Both backends end every quantum at the ``telemetry.counters`` fault
+seam (``apply_counter_faults``).
 """
 
 from __future__ import annotations
@@ -26,8 +29,24 @@ from typing import Any, Callable, Protocol
 
 import numpy as np
 
+from pbs_tpu_torch.faults import injector as _faults
 from pbs_tpu_torch.telemetry.counters import NUM_COUNTERS, Counter
 from pbs_tpu_torch.utils.clock import Clock, MonotonicClock, VirtualClock
+
+#: Channels a ``telemetry.counters`` 'stall' fault freezes: the
+#: PMC-grade measurements a dead readout stops delivering. Progress
+#: counters (STEPS_RETIRED, TOKENS, YIELDS) are runtime-observed — the
+#: job really ran — so a stalled readout must NOT erase progress; that
+#: split is exactly what lets the feedback policy *detect* staleness
+#: (steps advanced, device time didn't) and stop steering on it.
+_STALLABLE = (Counter.DEVICE_TIME_NS, Counter.HBM_BYTES,
+              Counter.HBM_STALL_NS, Counter.COLLECTIVE_WAIT_NS,
+              Counter.DEVICE_FLOPS)
+
+#: Channels a 'spike' fault multiplies: the noisy-counter adversity the
+#: feedback policy's stability window must absorb — rate inputs only,
+#: never progress.
+_SPIKABLE = (Counter.HBM_STALL_NS, Counter.COLLECTIVE_WAIT_NS)
 
 # Plain-int counter indices for the quantum hot loop: indexing numpy
 # with an IntEnum pays an __index__ round trip per store.
@@ -38,6 +57,23 @@ _I_COLL = int(Counter.COLLECTIVE_WAIT_NS)
 _I_FLOPS = int(Counter.DEVICE_FLOPS)
 _I_STEPS = int(Counter.STEPS_RETIRED)
 _I_TOKENS = int(Counter.TOKENS)
+
+
+def apply_counter_faults(job_name: str, deltas: np.ndarray) -> np.ndarray:
+    """``telemetry.counters`` injection seam (stream key = job name),
+    shared by every backend: consult once per execute call, mutate the
+    delta vector in place. No injector installed = one global load."""
+    f = _faults.consult("telemetry.counters", job_name)
+    if f is None:
+        return deltas
+    if f.fault == "stall":
+        for c in _STALLABLE:
+            deltas[c] = 0
+    elif f.fault == "spike":
+        factor = float(f.args.get("factor", 10.0))
+        for c in _SPIKABLE:
+            deltas[c] = np.uint64(int(deltas[c]) * factor)
+    return deltas
 
 
 class TelemetrySource(Protocol):
@@ -287,6 +323,8 @@ class SimBackend:
         deltas[_I_FLOPS] = flops
         deltas[_I_STEPS] = n_steps
         deltas[_I_TOKENS] = tokens
+        if _faults._active is not None:
+            return apply_counter_faults(name, deltas)
         return deltas
 
     def execute_micro(self, ctx: Any, n_micro: int) -> np.ndarray:
@@ -311,7 +349,7 @@ class SimBackend:
                 self._steps_done[name] = step + 1
         if ctx.micro_progress:
             deltas[Counter.YIELDS] += 1
-        return deltas
+        return apply_counter_faults(name, deltas)
 
 
 # ---------------------------------------------------------------------------
@@ -339,10 +377,6 @@ def cost_analysis_of(compiled) -> tuple[int, int]:
         return 0, 0
 
 
-#: The ROADMAP row the profiler-sampling refusal names.
-_PROFILE_ROW = "ROADMAP queue 1, row 'telemetry: profiler sampling'"
-
-
 class CudaBackend:
     """Measures real PyTorch jobs on a CUDA device: wall time closed by
     ``torch.cuda.synchronize`` + static cost estimate + step metrics.
@@ -354,9 +388,16 @@ class CudaBackend:
     (collective wait, gang skew, tokens, draft proposals) land in their
     counters.
 
+    ``profile_every=N`` runs every N-th invocation of each job under a
+    ``TorchQuantumProfiler`` (``profiler=`` injects another one); the
+    measured stall fraction of the latest sample then sets
+    HBM_STALL_NS, and the roofline estimate serves only before a job's
+    first sample. 0 = roofline estimate only.
+
     ``device`` defaults to ``cuda``; with no card that raises rather
     than measuring the CPU under a device metric's name. The tests pass
-    ``device="cpu"``, which times the host and skips the synchronise.
+    ``device="cpu"``, which times the host, skips the synchronise and
+    profiles the host's ops.
     """
 
     def __init__(
@@ -365,15 +406,11 @@ class CudaBackend:
         peak_flops: float = H100_PEAK_FLOPS,
         peak_hbm_bw: float = H100_PEAK_HBM_BW,
         profile_every: int = 0,
+        profiler=None,
         device: Any = None,
     ):
         import torch
 
-        if int(profile_every) > 0:
-            raise ValueError(
-                f"profile_every={profile_every}: profiler-sampled "
-                f"telemetry is not ported yet ({_PROFILE_ROW}); use 0 "
-                "for the roofline estimate")
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -387,6 +424,27 @@ class CudaBackend:
         self.peak_hbm_bw = peak_hbm_bw
         # per-job (flops, bytes) from cost analysis, captured at first run
         self._costs: dict[str, tuple[int, int]] = {}
+        # Measured-telemetry sampling: every N-th invocation per job runs
+        # under the profiler; the parsed per-kernel time fills the stall/
+        # collective counters and its fractions carry forward until the
+        # next sample. 0 = roofline-estimate only.
+        self.profile_every = int(profile_every)
+        if profiler is None and self.profile_every > 0:
+            from pbs_tpu_torch.telemetry.profiler import TorchQuantumProfiler
+
+            profiler = TorchQuantumProfiler(self.device)
+        self.profiler = profiler
+        self._measured: dict[str, Any] = {}  # job name -> TraceStats
+        self._since_profile: dict[str, int] = {}
+        # job name -> [samples, runtime ns charged for the sampled
+        # invocations, the profiler's own ns around them (not charged)]
+        self.profile_cost: dict[str, list[int]] = {}
+        # Per-job compile attribution (telemetry.compile): every
+        # invocation runs in the job's attribution scope, so a kernel
+        # build its first call triggers lands in ITS ledger slots.
+        from pbs_tpu_torch.telemetry.compile import CompileMeter
+
+        self.compile_meter = CompileMeter.install()
 
     def _job_cost(self, job) -> tuple[int, int]:
         c = self._costs.get(job.name)
@@ -403,27 +461,79 @@ class CudaBackend:
         ("spec_proposed", Counter.SPEC_PROPOSED),
     )
 
+    def measured(self, job_name: str):
+        """Latest measured TraceStats for a job (None before the first
+        profiler sample, or with profiling disabled)."""
+        return self._measured.get(job_name)
+
+    def _profile_due(self, job) -> bool:
+        # Per-job override first (a tenant can carry its own sampling
+        # period and get measured phases even when the backend-wide
+        # default is roofline-only).
+        every = getattr(job, "profile_every", None) or self.profile_every
+        if not every:
+            return False
+        if self.profiler is None:
+            from pbs_tpu_torch.telemetry.profiler import TorchQuantumProfiler
+
+            self.profiler = TorchQuantumProfiler(self.device)
+        k = self._since_profile.get(job.name, every)
+        due = k >= every  # first invocation profiles
+        self._since_profile[job.name] = 1 if due else k + 1
+        return due
+
     def _invoke(self, job, fn) -> tuple[int, dict, int, int]:
         """Run one host-callable unit; returns (run_ns, metrics,
         n_compiles, compile_ns). The wall time closes on a device
         synchronise (the ``block_until_ready`` of the JAX backend), so
-        it covers the kernels the step queued. Eager PyTorch compiles
-        nothing, so the compile pair is (0, 0)."""
+        it covers the kernels the step queued — and, on a sampled
+        invocation, the synchronise sits inside the profiler session,
+        so the quantum's kernels are in its trace. Compilation time is
+        split OUT of the runtime charge: a tenant's first-call kernel
+        build (seconds of ``nvcc``) billed as device time would sink it
+        into deep credit debt and starve it for the equivalent share —
+        compile spend is tracked in its own counters and governed by
+        the admission budget (runtime/compile_gate.py). The profiler's
+        own time around a sampled invocation (session start and stop,
+        trace export and parse) is split out the same way, into
+        ``profile_cost``: billed as device time it would inflate the
+        sampled tenant's charge by the size of its trace."""
+
+        def run():
+            out = fn(job.state)
+            metrics: dict[str, Any] = {}
+            if (isinstance(out, tuple) and len(out) == 2
+                    and isinstance(out[1], dict)):
+                st, metrics = out
+            else:
+                st = out
+            if self._sync is not None:
+                self._sync()
+            return st, metrics
+
         t0 = time.monotonic_ns()
-        out = fn(job.state)
-        metrics: dict[str, Any] = {}
-        if (isinstance(out, tuple) and len(out) == 2
-                and isinstance(out[1], dict)):
-            job.state, metrics = out
-        else:
-            job.state = out
-        if self._sync is not None:
-            self._sync()
+        sampled, prof_ns = False, 0
+        with self.compile_meter.attribute(job.name):
+            if self._profile_due(job):
+                (job.state, metrics), stats = self.profiler.profile(run)
+                sampled = True
+                prof_ns = getattr(self.profiler, "last_overhead_ns", 0)
+                if stats is not None and stats.n_ops:
+                    self._measured[job.name] = stats
+            else:
+                job.state, metrics = run()
         dt = time.monotonic_ns() - t0
-        return max(0, dt), metrics, 0, 0
+        n_c, c_ns = self.compile_meter.take(job.name)
+        run_ns = max(0, dt - prof_ns - c_ns)
+        if sampled:
+            cost = self.profile_cost.setdefault(job.name, [0, 0, 0])
+            cost[0] += 1
+            cost[1] += run_ns
+            cost[2] += prof_ns
+        return run_ns, metrics, n_c, c_ns
 
     def _charge(self, deltas: np.ndarray, dt: int, flops: int,
-                nbytes: int, metrics: dict) -> None:
+                nbytes: int, metrics: dict, measured=None) -> None:
         # In-graph instrumented kernels (ops.matmul emits its own tile/
         # byte counters, PMC-style) outrank the static cost-analysis
         # estimate for the same quantity.
@@ -432,7 +542,16 @@ class CudaBackend:
         deltas[Counter.DEVICE_TIME_NS] += dt
         deltas[Counter.HBM_BYTES] += nbytes
         deltas[Counter.DEVICE_FLOPS] += flops
-        if flops or nbytes:
+        if measured is not None and measured.n_ops:
+            # Measured path (the rdpmc analog): fractions from the latest
+            # profiler sample apply to this quantum's wall time — stall
+            # tracks what the kernels actually did, so phase changes show
+            # up without waiting for the next sample's absolute numbers.
+            deltas[Counter.HBM_STALL_NS] += int(dt * measured.stall_frac)
+            if "collective_wait_ns" not in metrics and measured.collective_ns:
+                deltas[Counter.COLLECTIVE_WAIT_NS] += int(
+                    dt * measured.collective_frac)
+        elif flops or nbytes:
             # Roofline stall estimate: fraction of the step the program
             # was memory-bound, against this card's peaks.
             t_mem = nbytes / self.peak_hbm_bw
@@ -449,11 +568,12 @@ class CudaBackend:
         flops, nbytes = self._job_cost(job)
         for _ in range(n_steps):
             dt, metrics, n_c, c_ns = self._invoke(job, job.step_fn)
-            self._charge(deltas, dt, flops, nbytes, metrics)
+            self._charge(deltas, dt, flops, nbytes, metrics,
+                         measured=self._measured.get(job.name))
             deltas[Counter.COMPILES] += n_c
             deltas[Counter.COMPILE_TIME_NS] += c_ns
             deltas[Counter.STEPS_RETIRED] += 1
-        return deltas
+        return apply_counter_faults(job.name, deltas)
 
     def execute_micro(self, ctx: Any, n_micro: int) -> np.ndarray:
         """Chunked execution of a long-step job: each call to
@@ -474,7 +594,8 @@ class CudaBackend:
         flops, nbytes = self._job_cost(job)
         for _ in range(n_micro):
             dt, metrics, n_c, c_ns = self._invoke(job, fn)
-            self._charge(deltas, dt, flops // K, nbytes // K, metrics)
+            self._charge(deltas, dt, flops // K, nbytes // K, metrics,
+                         measured=self._measured.get(job.name))
             deltas[Counter.COMPILES] += n_c
             deltas[Counter.COMPILE_TIME_NS] += c_ns
             ctx.micro_progress += 1
@@ -483,4 +604,4 @@ class CudaBackend:
                 deltas[Counter.STEPS_RETIRED] += 1
         if ctx.micro_progress:
             deltas[Counter.YIELDS] += 1
-        return deltas
+        return apply_counter_faults(job.name, deltas)

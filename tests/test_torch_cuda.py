@@ -286,3 +286,64 @@ def test_matmul_kernel_matches_plain(gen, M, K, N, blk, dtype):
     assert raw.tolist()[matmul.STAT_A_ZERO_TILES] == N // blk
     rel = float((out - ref).abs().max() / ref.abs().max())
     assert out.dtype == torch.float32 and rel < 1e-3
+
+
+# -- measured telemetry: torch.profiler on the card ---------------------------
+
+
+def _profiled(fn, keep_dir):
+    from pbs_tpu_torch.telemetry.profiler import TorchQuantumProfiler
+
+    prof = TorchQuantumProfiler("cuda", keep_dir=str(keep_dir))
+
+    def quantum():
+        fn()
+        torch.cuda.synchronize()
+
+    _, stats = prof.profile(quantum)
+    assert (prof.samples, prof.failures) == (1, 0), prof.last_error
+    return stats
+
+
+def test_profiler_bills_each_wgmma_kernel_as_compute(gen, tmp_path):
+    import json
+
+    from pbs_tpu_torch.telemetry.profiler import (DEVICE_CATS,
+                                                  classify_kernel)
+
+    q, k, v = _qkv(gen, 1, 256, 4, 2, 128, torch.bfloat16)
+    a = torch.randn(512, 512, device="cuda", generator=gen).bfloat16()
+
+    def fn():
+        o, lse = attention.flash_attention_cuda(q, k, v, True)
+        attention.flash_attention_bwd(q, k, v, o, lse, o, None, True)
+        matmul.instrumented_matmul(a, a, 256, 256, 256)
+
+    stats = _profiled(fn, tmp_path)
+    assert stats.source == "device" and stats.compute_ns > 0
+    doc = json.loads((tmp_path / "trace_0.json").read_text())
+    names = {e["name"] for e in doc["traceEvents"]
+             if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS}
+    for kernel in ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                   "flash_bwd_dkv_wgmma_kernel", "mm_wgmma_kernel"):
+        hits = [n for n in names if kernel in n]
+        assert hits, (kernel, sorted(names))
+        assert all(classify_kernel(n) == "compute" for n in hits)
+
+
+def test_profiler_reads_a_tanh_chain_as_memory_and_apart_from_a_matmul(
+        gen, tmp_path):
+    x = torch.randn(1 << 24, device="cuda", generator=gen)
+    a = torch.randn(2048, 2048, device="cuda", generator=gen).bfloat16()
+
+    def chain():
+        y = x
+        for _ in range(8):
+            y = torch.tanh(y)
+
+    tanh = _profiled(chain, tmp_path / "tanh")
+    mm = _profiled(lambda: matmul.instrumented_matmul(a, a, 256, 256, 256),
+                   tmp_path / "mm")
+    assert tanh.source == mm.source == "device"
+    assert tanh.stall_frac > 0.95, tanh.top_ops
+    assert tanh.stall_frac - mm.stall_frac > 0.5, (tanh.top_ops, mm.top_ops)

@@ -127,11 +127,24 @@ def test_device_defaults_refuse_without_a_card():
     assert p["layers"]["wq"].shape == (1, 16, 16)
 
 
-def test_profiler_sampling_refused_with_roadmap_row():
-    from pbs_tpu_torch.telemetry import CudaBackend
+def test_profiler_sampling_samples_on_the_host():
+    """``profile_every`` is accepted: the first invocation of a job and
+    every 4th after it run under ``torch.profiler``, and on the host the
+    sample reads the host's ops."""
+    from pbs_tpu_torch.runtime import Job, Partition
+    from pbs_tpu_torch.telemetry import CudaBackend, TorchQuantumProfiler
 
-    with pytest.raises(ValueError, match="ROADMAP"):
-        CudaBackend(device="cpu", profile_every=4)
+    be = CudaBackend(device="cpu", profile_every=4)
+    assert isinstance(be.profiler, TorchQuantumProfiler)
+    x = torch.ones(32, 32)
+    part = Partition("p", source=be)
+    job = part.add_job(Job("mm", step_fn=lambda s: s + x @ x, state=x,
+                           max_steps=5))
+    part.run(max_rounds=10)
+    assert job.steps_retired() == 5
+    assert (be.profiler.samples, be.profiler.failures) == (2, 0)
+    m = be.measured("mm")
+    assert m.source == "host" and m.n_ops > 0 and m.compute_ns > 0
 
 
 def test_kernel_wrappers_never_fall_back_to_plain():
