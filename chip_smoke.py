@@ -41,6 +41,19 @@ Phases, each fatal on failure:
              CompileMeter's compiles; prints each tenant's measured
              fractions and top kernels beside the roofline estimate, its
              final slice, and its sampled and unsampled device time.
+3s. engine — the serving engine (``ContinuousBatcher``) on a seeded script of
+             24 staggered requests at flagship width, 8 slots: (a) bf16, as a
+             Job beside score and mm under FeedbackPolicy + CudaBackend,
+             checking completions, ledger TOKENS, prefix hits and that every
+             launch of kernels 2.1 and 2.4 took the tensor-core route; (b) an
+             fp32 engine token-exact against the lockstep ``make_generate``
+             at B=1 (a divergence passes only at a near-tie of the lockstep
+             run's top-2 logits); (c) the ``SpeculativeBatcher`` (k=4, a
+             noisy-head draft) token-exact against (b) in fewer ticks; (d)
+             int8 weight-only serving at bf16 compute: bytes, prefill logits
+             against bf16, every request served. Prints each engine's TTFT
+             and latency p50/p99, decode-tick and prefill ms, tokens/s and
+             acceptance beside the card's name and power limit.
 4. numerics — the scoring forward through the flash kernel against the dense
              attention path on the same weights, the KV-cache prefill
              against the full forward, and one micro-batch's training loss
@@ -70,6 +83,7 @@ import dataclasses
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -91,6 +105,30 @@ MEASURED_TRAIN_STEPS = 2
 MEASURED_PROFILE_EVERY = 2
 MEASURED_TSLICE_US = 300
 MEASURED_COMPILE_BUDGET_NS = 600 * 10 ** 9
+# Phase 3s, the serving engine: a seeded script of 24 requests (prompts of
+# 16-128 tokens, budgets of 8-64), 8 at tick 0 then 2 a tick, the last 4
+# repeating the first 4 prompts; 8 slots, prompts padded to 128, slabs of
+# 512 positions, a prefix cache of 32 entries.
+ENGINE_SEED = 6
+ENGINE_REQUESTS, ENGINE_FIRST, ENGINE_PER_TICK, ENGINE_REPEATS = 24, 8, 2, 4
+ENGINE_PROMPT, ENGINE_NEW = (16, 128), (8, 64)
+ENGINE_SLOTS, ENGINE_BUCKET, ENGINE_MAX_LEN, ENGINE_PREFIX = 8, 128, 512, 32
+# The speculative engine's draft: the target with its head perturbed by
+# seeded Gaussian noise at 5% of the head's standard deviation, k = 4.
+ENGINE_K, ENGINE_DRAFT_NOISE = 4, 0.05
+# A greedy divergence passes only at a near-tie: the lockstep run's top-2
+# fp32 logits within 1e-4 of the larger one's magnitude.
+ENGINE_TIE = 1e-4
+# int8 weight-only: under 0.55 x the bf16 tree's bytes, and prefill logits
+# within 0.35 std of the bf16 tree's (the bound of tests/test_quant.py).
+ENGINE_INT8_BYTES, ENGINE_INT8_LOGITS = 0.55, 0.35
+# The int8 engine's own prefill logits against the lockstep prefill's on
+# the same int8 tree, in std of the latter: two bf16 paths, one function
+# (a sound H100 run read 0.0000 to four places; a wrong scale or slice in
+# the engine's int8 path moves the logits by ~1 std).
+ENGINE_INT8_PATHS = 0.02
+# Decode ticks of the bf16 engine profiled after (a), all slots busy.
+ENGINE_PROFILED_TICKS = 3
 H100_PEAK_BF16_FLOPS = 989e12  # dense, data sheet
 H100_PEAK_HBM_BW = 3.35e12
 
@@ -489,7 +527,10 @@ def run_main_path(torch, gen, cfg, params):
         check(routes[name] == {"wgmma": n, "simt": 0},
               f"{name}: every launch on the tensor-core route "
               f"({routes[name]})")
-    return launches, routes
+    serve_ctx = jobs["serve"].contexts[0]
+    serve_ms_per_token = (int(serve_ctx.counters[Counter.DEVICE_TIME_NS])
+                          / 1e6 / int(serve_ctx.counters[Counter.TOKENS]))
+    return launches, routes, serve_ms_per_token
 
 
 # -- phase 3t ----------------------------------------------------------------
@@ -860,6 +901,420 @@ def run_measured_path(torch, gen, cfg, params, built) -> tuple:
     return launches, routes
 
 
+# -- phase 3s ----------------------------------------------------------------
+
+
+def engine_script():
+    """The seeded request script: (prompt, max_new) pairs and, for each
+    tick, the indices arriving then (ENGINE_FIRST at tick 0, then
+    ENGINE_PER_TICK a tick); the last ENGINE_REPEATS prompts repeat the
+    first ones exactly."""
+    import numpy as np
+
+    rng = np.random.default_rng(ENGINE_SEED)
+    reqs = []
+    for i in range(ENGINE_REQUESTS):
+        plen = int(rng.integers(ENGINE_PROMPT[0], ENGINE_PROMPT[1] + 1))
+        prompt = rng.integers(0, FLAGSHIP["vocab"], plen).astype(np.int32)
+        reqs.append((prompt, int(rng.integers(ENGINE_NEW[0],
+                                              ENGINE_NEW[1] + 1))))
+    n_new = ENGINE_REQUESTS - ENGINE_REPEATS
+    for i in range(ENGINE_REPEATS):
+        reqs[n_new + i] = (reqs[i][0].copy(), reqs[n_new + i][1])
+    arrivals = {0: list(range(ENGINE_FIRST))}
+    for i in range(ENGINE_FIRST, ENGINE_REQUESTS):
+        tick = 1 + (i - ENGINE_FIRST) // ENGINE_PER_TICK
+        arrivals.setdefault(tick, []).append(i)
+    return reqs, arrivals
+
+
+def engine_ticks(budgets: list, arrivals: dict, n_slots: int) -> int:
+    """Ticks a continuous-batching engine needs to finish these requests
+    (no EOS): each tick admits queued requests into free slots in slot
+    order (the prefill samples a request's first token), retires what is
+    already done, then decodes one token for every busy slot; a request
+    retires in the tick that samples its last token."""
+    from collections import deque
+
+    queue, busy, left = deque(), [False] * n_slots, [0] * n_slots
+    done = tick = 0
+    while done < len(budgets):
+        queue.extend(arrivals.get(tick, []))
+        for s in range(n_slots):
+            if not busy[s] and queue:
+                busy[s], left[s] = True, budgets[queue.popleft()] - 1
+        for s in range(n_slots):
+            if busy[s] and not left[s]:
+                busy[s], done = False, done + 1
+        for s in range(n_slots):
+            if busy[s]:
+                left[s] -= 1
+                if not left[s]:
+                    busy[s], done = False, done + 1
+        tick += 1
+    return tick
+
+
+def drive_engine(torch, eng, reqs, arrivals) -> dict:
+    """Feed the script to an engine tick by tick until it drains. Returns
+    completions by request index, each tick's host ms (the tick ends in
+    the read of its sampled tokens, a device synchronise) with its
+    number of admissions, and the wall seconds."""
+    rid_of, done, ticks = {}, {}, []
+    t0 = time.monotonic()
+    tick = 0
+    while tick <= max(arrivals) or eng.has_work():
+        for i in arrivals.get(tick, []):
+            rid_of[eng.submit(*reqs[i])] = i
+        t = time.monotonic()
+        for c in eng.step():
+            done[rid_of[c.request_id]] = c
+        ticks.append(((time.monotonic() - t) * 1e3, len(eng._admitted)))
+        tick += 1
+    return dict(done=done, ticks=ticks, wall=time.monotonic() - t0)
+
+
+def decode_tick_ms(ticks) -> float:
+    """Median host ms of the ticks that admitted nothing."""
+    return statistics.median(ms for ms, admitted in ticks if not admitted)
+
+
+def engine_line(name, eng, wall, tick_ms, prefill_ms, lockstep_ms, card,
+                extra="") -> str:
+    """One engine's numbers: ``stats()``'s TTFT and latency percentiles,
+    the median decode tick, a prefill, tokens/s over the run's wall time
+    and, beside them, the lockstep serve tenant's ms per token (phase
+    3's ledger), then the card."""
+    st = eng.stats()
+    tok_s = st["tokens_emitted"] / wall
+    return (f"  {name}: completed {st['completed']}, prefix hits "
+            f"{st['prefix_hits']}; TTFT p50 {st['ttft_p50_s'] * 1e3:.2f} / "
+            f"p99 {st['ttft_p99_s'] * 1e3:.2f} ms, latency p50 "
+            f"{st['latency_p50_s'] * 1e3:.2f} / p99 "
+            f"{st['latency_p99_s'] * 1e3:.2f} ms (host clock); decode tick "
+            f"{tick_ms:.2f} ms (median), prefill {prefill_ms:.2f} ms; "
+            f"{tok_s:.1f} tok/s ({1e3 / tok_s:.3f} ms per token) over "
+            f"{st['steps']} ticks, {wall:.2f} s{extra}; lockstep serve "
+            f"tenant (phase 3) {lockstep_ms:.3f} ms per token [{card}]")
+
+
+def profile_ticks(torch, eng, n: int, card: str) -> None:
+    """``n`` decode ticks of a busy engine under torch.profiler: host ms
+    per tick, device busy ms and kernels per tick, the device's idle
+    share, the top kernels. A measurement, not a check."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    busy_slots = int(eng.active.sum())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(n):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    dev = [e for e in prof.key_averages()
+           if getattr(e, "device_type", None) == DeviceType.CUDA]
+    busy = sum(device_self_us(e) for e in dev)
+    if busy <= 0:
+        print("  profiled decode ticks: no device time recorded; not "
+              "measured", flush=True)
+        return
+    kernels = sum(e.count for e in dev)
+    print(f"  profiled decode ticks ({n}, {busy_slots} slots busy): "
+          f"{wall_us / n / 1e3:.2f} ms per tick (profiler on), "
+          f"{busy / n / 1e3:.3f} ms device busy, {kernels / n:.0f} kernels "
+          f"per tick, idle share {1 - busy / wall_us:.3f} [{card}]",
+          flush=True)
+    for e in sorted(dev, key=device_self_us, reverse=True)[:5]:
+        print(f"    {device_self_us(e) / n / 1e3:8.3f} ms/tick  "
+              f"x{e.count // n:<4} {e.key[:90]}")
+
+
+def time_prefill(torch, eng, prompt) -> float:
+    """Median host ms of three prefills of ``prompt`` into slot 0 of an
+    idle engine (each ends in the read of its first token); the slot is
+    left free."""
+    import numpy as np
+
+    padded = np.zeros(eng.bucket, np.int32)
+    padded[:len(prompt)] = prompt
+    out = []
+    for _ in range(3):
+        t = time.monotonic()
+        int(eng._prefill(0, padded, len(prompt))[0])
+        out.append((time.monotonic() - t) * 1e3)
+    eng.cache["pos"][0] = 0
+    return statistics.median(out)
+
+
+def lockstep_margin(torch, cfg, params, prompt, toks, j) -> float:
+    """The lockstep run's top-2 fp32 logit gap at output position j, over
+    the larger logit's magnitude: a B=1 prefill, then decodes of its
+    tokens[:j], as ``make_generate`` computes them."""
+    from pbs_tpu_torch.models import forward_with_cache, init_cache
+
+    cache = init_cache(cfg, 1, max_len=len(prompt) + j + 1, device="cuda")
+    with torch.no_grad():
+        logits, cache = forward_with_cache(
+            cfg, params, torch.tensor(prompt[None], device="cuda"), cache)
+        for t in toks[:j]:
+            logits, cache = forward_with_cache(
+                cfg, params, torch.tensor([[t]], device="cuda"), cache)
+    top = logits[0, -1].topk(2).values
+    return float(top[0] - top[1]) / float(top[0].abs())
+
+
+def compare_tokens(torch, cfg, params, reqs, got: dict, want: dict,
+                   what: str) -> list:
+    """Request by request, ``got`` against ``want`` (token lists). A
+    divergence passes only where the lockstep run's top-2 logits at
+    that position are within ENGINE_TIE of each other (a tie two GEMM
+    shapes may break differently); it is printed either way. Returns
+    the divergences as (request, position, margin)."""
+    ties = []
+    for i, w in want.items():
+        g = got[i]
+        j = next((n for n, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if j is None:
+            check(len(g) == len(w), f"{what}: request {i} has {len(g)} "
+                                    f"tokens == {len(w)}")
+            continue
+        margin = lockstep_margin(torch, cfg, params, reqs[i][0], w, j)
+        print(f"  {what}: request {i} diverges at token {j} ({g[j]} vs "
+              f"{w[j]}); lockstep top-2 gap {margin:.3e} of |top-1|",
+              flush=True)
+        check(margin < ENGINE_TIE, f"{what}: request {i}'s divergence is a "
+                                   f"near-tie (gap {margin:.3e} < "
+                                   f"{ENGINE_TIE:g})")
+        ties.append((i, j, margin))
+    return ties
+
+
+def run_engine_path(torch, gen, cfg, params, serve_ms_per_token, card):
+    """Phase 3s: (a) the bf16 engine as a tenant beside score and mm,
+    (b) an fp32 engine token-exact against the lockstep generate, (c) the
+    speculative engine against (b), (d) int8 weight-only serving.
+    Returns the launch counts and routes of (a)'s run."""
+    from pbs_tpu_torch.models import (ContinuousBatcher, SpeculativeBatcher,
+                                      TransformerConfig, cast_params,
+                                      init_params, make_continuous_serve_step,
+                                      make_generate, prefill,
+                                      quantize_weights, quantized_nbytes)
+    import numpy as np
+
+    from pbs_tpu_torch.models.generate import init_cache
+    from pbs_tpu_torch.runtime import Job, Partition, SchedParams, nbytes_of
+    from pbs_tpu_torch.sched import FeedbackPolicy
+    from pbs_tpu_torch.telemetry import Counter, CudaBackend
+
+    t_phase = time.monotonic()
+    reqs, arrivals = engine_script()
+    budgets = [n for _, n in reqs]
+    n_ticks = engine_ticks(budgets, arrivals, ENGINE_SLOTS)
+    print(f"  script: {len(reqs)} requests, prompts "
+          f"{min(len(p) for p, _ in reqs)}-{max(len(p) for p, _ in reqs)} "
+          f"tokens, budgets {min(budgets)}-{max(budgets)} ({sum(budgets)} "
+          f"tokens), {ENGINE_FIRST} at tick 0 then {ENGINE_PER_TICK} a tick; "
+          f"{n_ticks} ticks with {ENGINE_SLOTS} slots", flush=True)
+    kw = dict(n_slots=ENGINE_SLOTS, prompt_bucket=ENGINE_BUCKET,
+              max_len=ENGINE_MAX_LEN, prefix_cache_size=ENGINE_PREFIX)
+
+    # (a) the bf16 engine as a scheduled tenant beside score and mm
+    t0 = time.monotonic()
+    eng = ContinuousBatcher(cfg, params, **kw)
+    built_s = time.monotonic() - t0
+    serve_step = make_continuous_serve_step(
+        eng, next_requests=lambda t: [reqs[i] for i in arrivals.get(t, [])])
+    ticks = []
+
+    def engine_fn(state):
+        t = time.monotonic()
+        out = serve_step(state)
+        ticks.append(((time.monotonic() - t) * 1e3, len(eng._admitted)))
+        return out
+
+    score_fn = scoring_tenant(torch, gen, cfg, params)
+    mm_fn = mm_tenant(torch, gen)
+    for fn in (score_fn, mm_fn):
+        fn(None)
+    torch.cuda.synchronize()
+    part = Partition("engine", source=CudaBackend(profile_every=0))
+    fb = FeedbackPolicy(part)
+    jobs = {
+        "engine": Job("engine", step_fn=engine_fn,
+                      state={"step": 0, "completed": 0},
+                      params=SchedParams(weight=256, tslice_us=100,
+                                         boost_on_wake=True),
+                      max_steps=n_ticks),
+        "score": Job("score", step_fn=score_fn, params=SchedParams(weight=256),
+                     max_steps=STEPS["score"]),
+        "mm": Job("mm", step_fn=mm_fn, params=SchedParams(weight=512),
+                  max_steps=STEPS["mm"]),
+    }
+    for job in jobs.values():
+        part.add_job(job)
+    wrappers = bwd_counts()
+    reset_counts(wrappers)
+    t0 = time.monotonic()
+    quanta = part.run()
+    wall = time.monotonic() - t0
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+             "instrumented_matmul")
+    launches = dict(zip(names, (w.launches for w in wrappers)))
+    routes = dict(zip(names, (dict(w.launches_by_route) for w in wrappers)))
+    print(f"  (a) engine built (warm-up included) in {built_s:.2f} s; "
+          f"{quanta} quanta in {wall:.2f} s wall; kernel launches "
+          f"{launches}, by route {routes}", flush=True)
+    print_tenants(jobs, Counter)
+    print(f"  feedback: {json.dumps(fb.dump())}")
+    for name, job in jobs.items():
+        check(job.error is None and job.steps_retired() == job.max_steps,
+              f"{name}: {job.steps_retired()} steps retired, no fault "
+              f"({job.error})")
+    st = eng.stats()
+    ctx = jobs["engine"].contexts[0]
+    tokens = int(ctx.counters[Counter.TOKENS])
+    check(st["completed"] == len(reqs) == jobs["engine"].state["completed"]
+          and not eng.has_work(),
+          f"(a) engine: {st['completed']} of {len(reqs)} requests completed "
+          f"in the {n_ticks} ticks the script needs")
+    check(tokens == eng.tokens_emitted == sum(budgets),
+          f"(a) engine: ledger TOKENS {tokens} == tokens_emitted "
+          f"{eng.tokens_emitted} == the budgets' sum {sum(budgets)}")
+    check(st["prefix_hits"] == ENGINE_REPEATS
+          and eng.prefill_count == len(reqs) - ENGINE_REPEATS,
+          f"(a) engine: prefix hits {st['prefix_hits']} == {ENGINE_REPEATS}, "
+          f"prefill_count {eng.prefill_count} == "
+          f"{len(reqs) - ENGINE_REPEATS}")
+    for name in ("flash_fwd", "instrumented_matmul"):
+        n = launches[name]
+        check(n > 0 and routes[name] == {"wgmma": n, "simt": 0},
+              f"{name}: {n} launches beside the engine, every one on the "
+              f"tensor-core route ({routes[name]})")
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        check(launches[name] == 0,
+              f"{name}: {launches[name]} launches beside the engine == 0 "
+              f"(no training tenant in this run)")
+    ms_eng = int(ctx.counters[Counter.DEVICE_TIME_NS]) / 1e6
+    print(engine_line(
+        "(a) bf16 engine (tenant)", eng, wall, decode_tick_ms(ticks),
+        time_prefill(torch, eng, reqs[0][0]), serve_ms_per_token, card,
+        f"; ledger {ms_eng / n_ticks:.2f} ms per tick, "
+        f"{ms_eng / tokens:.3f} ms per token"), flush=True)
+    # all 8 slots busy again (prefix hits, no prefill), then profiled
+    for i in range(ENGINE_SLOTS):
+        eng.submit(*reqs[i])
+    eng.step()
+    profile_ticks(torch, eng, ENGINE_PROFILED_TICKS, card)
+    del eng
+    print(f"  (a) wall {time.monotonic() - t_phase:.1f} s", flush=True)
+
+    # (b) an fp32 engine, token-exact against the lockstep generate
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    master = init_params(cfg32, torch.Generator(device="cuda").manual_seed(
+        ENGINE_SEED), device="cuda")
+    first = {i: reqs[i] for i in range(ENGINE_FIRST)}
+    first_arrivals = {0: list(first)}
+    plain = ContinuousBatcher(cfg32, master, **kw)
+    b = drive_engine(torch, plain, reqs, first_arrivals)
+    b_toks = {i: c.tokens for i, c in b["done"].items()}
+    check(sorted(b_toks) == list(first)
+          and all(len(b_toks[i]) == reqs[i][1] for i in first),
+          f"(b) fp32 engine: {len(b_toks)} requests, each with its budget")
+    want = {}
+    for i, (prompt, n) in first.items():
+        out = make_generate(cfg32, n)(
+            master, torch.tensor(prompt[None], device="cuda"))
+        want[i] = out[0].tolist()
+    ties = compare_tokens(torch, cfg32, master, reqs, b_toks, want,
+                          "(b) fp32 engine vs lockstep make_generate (B=1)")
+    print(f"  (b) fp32 engine token-exact against the lockstep generate on "
+          f"{len(want) - len(ties)} of {len(want)} requests, the rest "
+          f"near-ties {ties}", flush=True)
+    print(engine_line("(b) fp32 engine", plain, b["wall"],
+                      decode_tick_ms(b["ticks"]),
+                      time_prefill(torch, plain, reqs[0][0]),
+                      serve_ms_per_token, card),
+          flush=True)
+    b_steps = plain.stats()["steps"]
+    del plain
+
+    # (c) the speculative engine against (b)
+    head = master["head"]
+    noise = torch.randn(head.shape, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(ENGINE_SEED + 1))
+    draft = dict(master, head=head + ENGINE_DRAFT_NOISE * head.std() * noise)
+    spec = SpeculativeBatcher(cfg32, master, cfg32, draft, k=ENGINE_K, **kw)
+    c = drive_engine(torch, spec, reqs, first_arrivals)
+    c_toks = {i: r.tokens for i, r in c["done"].items()}
+    check(sorted(c_toks) == list(first),
+          f"(c) speculative engine: {len(c_toks)} requests completed")
+    spec_ties = compare_tokens(torch, cfg32, master, reqs, c_toks, b_toks,
+                               "(c) speculative vs (b)'s engine")
+    sst = spec.stats()
+    check(sst["steps"] < b_steps,
+          f"(c) speculative engine: {sst['steps']} ticks < (b)'s {b_steps}")
+    print(engine_line("(c) fp32 speculative engine, k=4", spec, c["wall"],
+                      decode_tick_ms(c["ticks"]),
+                      time_prefill(torch, spec, reqs[0][0]),
+                      serve_ms_per_token, card,
+                      f"; spec_acceptance {sst['spec_acceptance']} "
+                      f"({sst['spec_accepted']} of {sst['spec_proposed']}); "
+                      f"near-ties {spec_ties}"), flush=True)
+    del spec, draft, noise
+
+    # (d) int8 weight-only serving at bf16 compute
+    q = quantize_weights(master)
+    bf16 = cast_params(master, cfg.dtype)
+    del master
+    q_bytes, b_bytes = quantized_nbytes(q), nbytes_of(bf16)
+    check(q_bytes < ENGINE_INT8_BYTES * b_bytes,
+          f"(d) int8 tree {q_bytes / 2**30:.3f} GiB < {ENGINE_INT8_BYTES} x "
+          f"the bf16 tree's {b_bytes / 2**30:.3f} GiB")
+    prompt = torch.tensor(reqs[0][0][None], device="cuda")
+    with torch.no_grad():
+        l16, _ = prefill(cfg, bf16, prompt,
+                         init_cache(cfg, 1, len(reqs[0][0]), device="cuda"))
+        l8, _ = prefill(cfg, q, prompt,
+                        init_cache(cfg, 1, len(reqs[0][0]), device="cuda"))
+    err = float((l16 - l8).abs().max()) / float(l16.std())
+    check(bool(torch.isfinite(l8).all()) and err < ENGINE_INT8_LOGITS,
+          f"(d) first request's prefill logits: max|l_bf16 - l_int8| / "
+          f"std(l_bf16) = {err:.4f} < {ENGINE_INT8_LOGITS}")
+    del bf16
+    eng8 = ContinuousBatcher(cfg, q, **kw)
+    d = drive_engine(torch, eng8, reqs, arrivals)
+    check(sorted(d["done"]) == list(range(len(reqs)))
+          and all(len(d["done"][i].tokens) == reqs[i][1]
+                  for i in d["done"]),
+          f"(d) int8 engine: all {len(d['done'])} requests completed with "
+          f"their budgets")
+    # the engine's own int8 prefill (padded bucket, slot slab, embed_rows
+    # and layer_params on {"q","s"} leaves) against the lockstep one
+    padded = np.zeros(eng8.bucket, np.int32)
+    padded[:len(reqs[0][0])] = reqs[0][0]
+    with torch.no_grad():
+        le = eng8._prefill(0, padded, len(reqs[0][0]))[1].float()
+    eng8.cache["pos"][0] = 0
+    l8_last = l8[0].float()  # prefill's logits are (B, vocab)
+    err = float((le - l8_last).abs().max()) / float(l8_last.std())
+    check(bool(torch.isfinite(le).all()) and err < ENGINE_INT8_PATHS,
+          f"(d) int8 engine's prefill logits against the lockstep prefill's "
+          f"on the same int8 tree: max|diff| / std = {err:.3e} < "
+          f"{ENGINE_INT8_PATHS}")
+    print(engine_line("(d) int8 weight-only engine, bf16 compute", eng8,
+                      d["wall"], decode_tick_ms(d["ticks"]),
+                      time_prefill(torch, eng8, reqs[0][0]),
+                      serve_ms_per_token, card),
+          flush=True)
+    del eng8, q
+    print(f"  phase 3s wall {time.monotonic() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return launches, routes
+
+
 def write_trace_fixture(torch, gen, path: str) -> None:
     """Profile one quantum of kernels 2.1-2.4 and a short tanh chain on
     the card and write its Chrome trace, trimmed to the device lane,
@@ -1105,6 +1560,12 @@ def time_bwd_kernels(torch, gen, launches, routes) -> list:
     return rows
 
 
+def device_self_us(e) -> float:
+    """A ``key_averages()`` row's device time of its own, in us."""
+    return float(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0)))
+
+
 def profile_micro_step(torch, micro_step, state) -> None:
     """One more training micro-step under torch.profiler: device time by
     kernel and the device's idle share of the step's wall time, each of
@@ -1125,12 +1586,7 @@ def profile_micro_step(torch, micro_step, state) -> None:
         wall_us = (time.monotonic() - t0) * 1e6
     dev = [e for e in prof.key_averages()
            if getattr(e, "device_type", None) == DeviceType.CUDA]
-
-    def self_us(e):
-        return float(getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0.0)))
-
-    busy = sum(self_us(e) for e in dev)
+    busy = sum(device_self_us(e) for e in dev)
     if busy <= 0:
         print("  profile: no device time recorded; device time by kernel "
               "not measured", flush=True)
@@ -1141,15 +1597,16 @@ def profile_micro_step(torch, micro_step, state) -> None:
         key = e.key
         g = next((k for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
                   if f"{k}_" in key), None) or classify_kernel(key)
-        groups[g] += self_us(e)
+        groups[g] += device_self_us(e)
     print(f"  profiled micro-step: {wall_us / 1e3:.2f} ms wall (profiler "
           f"on), {busy / 1e3:.2f} ms device busy, idle share "
           f"{1 - busy / wall_us:.3f}", flush=True)
     print("  device ms by group (the flash kernels, then the rest by "
           "classify_kernel): " + json.dumps(
               {k: round(v / 1e3, 3) for k, v in groups.items()}))
-    for e in sorted(dev, key=self_us, reverse=True)[:10]:
-        print(f"    {self_us(e) / 1e3:9.3f} ms  x{e.count:<5} {e.key[:90]}")
+    for e in sorted(dev, key=device_self_us, reverse=True)[:10]:
+        print(f"    {device_self_us(e) / 1e3:9.3f} ms  x{e.count:<5} "
+              f"{e.key[:90]}")
 
 
 def time_remat_policies(torch, gen, cfg, params) -> None:
@@ -1329,6 +1786,16 @@ def ptxas_report(log: str) -> list[str]:
     return lines
 
 
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    return smi.splitlines()[0]
+
+
 def main() -> int:
     import argparse
 
@@ -1370,7 +1837,8 @@ def main() -> int:
     params = cast_params(init_params(cfg, gen, device="cuda"), cfg.dtype)
     print(f"  flagship: {cfg.num_params() / 1e6:.0f}M params, bf16, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    launches, routes = run_main_path(torch, gen, cfg, params)
+    launches, routes, serve_ms_per_token = run_main_path(torch, gen, cfg,
+                                                         params)
 
     phase("3t train: a micro-stepped training Job beside the serving tenant")
     (train_launches, train_routes, train_cfg, train_params, micro_step,
@@ -1380,6 +1848,11 @@ def main() -> int:
     m_launches, m_routes = run_measured_path(torch, gen, cfg, params, built)
     if args.trace_out:
         write_trace_fixture(torch, gen, args.trace_out)
+
+    phase("3s serving engine: continuous batching as a tenant, fp32 "
+          "exactness, speculative and int8 serving")
+    e_launches, e_routes = run_engine_path(torch, gen, cfg, params,
+                                           serve_ms_per_token, card_line())
 
     phase("4 numerics at width")
     check_numerics(torch, gen, cfg, params)
@@ -1394,15 +1867,14 @@ def main() -> int:
             else r["name"]
         r["measured_path_launches"] = m_launches[kernel]
         r["measured_path_launches_by_route"] = m_routes[kernel]
+        # phase 3s's run: 2.1 (score) and 2.4 (mm) beside the engine
+        r["engine_path_launches"] = e_launches[kernel]
+        r["engine_path_launches_by_route"] = e_routes[kernel]
     profile_micro_step(torch, micro_step, train_state)
     del micro_step, train_state
     time_remat_policies(torch, gen, train_cfg, train_params)
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    print(smi.splitlines()[0])
+    print(card_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

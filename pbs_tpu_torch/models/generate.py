@@ -13,8 +13,9 @@ decode loop is a Python loop, the cache slabs are updated in place (no
 copy of the whole cache per token), and sampling draws from a
 ``torch.Generator`` (greedy decoding is token-exact against the
 reference; sampled tokens follow the same distribution, not the same
-stream). The int8-quantized and MoE serving variants are not ported
-yet (ROADMAP).
+stream). An int8-quantized tree (``models.quant.quantize_weights``)
+serves through the same forward, by ``wload`` and ``embed_rows``. The
+MoE serving variant is not ported yet (ROADMAP).
 """
 
 from __future__ import annotations

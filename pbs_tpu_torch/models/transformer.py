@@ -148,8 +148,10 @@ def cast_params(tree: Any, dtype: torch.dtype) -> Any:
 def params_from_numpy(tree: Any, device: Any = None,
                       dtype: torch.dtype | None = None) -> Any:
     """Carry a parameter tree of numpy arrays (e.g. the JAX package's
-    ``init_params`` output through ``np.asarray``) onto ``device``,
-    keeping its key names and layout. ``dtype`` casts once at load."""
+    ``init_params`` output through ``np.asarray``, or its
+    ``quantize_weights`` output) onto ``device``, keeping its key names,
+    layout and integer leaves (int8 ``q`` stays int8). ``dtype`` casts
+    the floating leaves once at load."""
     dev = resolve_device(device)
 
     def leaf(x):
@@ -251,8 +253,11 @@ def layer_body(cfg: TransformerConfig, x: torch.Tensor, lp: dict,
 
 
 def layer_params(params: dict, i: int) -> dict:
-    """Layer ``i``'s slice of the L-stacked layer params (views)."""
-    return {name: w[i] for name, w in params["layers"].items()}
+    """Layer ``i``'s slice of the L-stacked layer params (views); an
+    int8 ``{"q", "s"}`` leaf slices into ``{"q": q[i], "s": s[i]}``."""
+    return {name: ({"q": w["q"][i], "s": w["s"][i]}
+                   if isinstance(w, dict) else w[i])
+            for name, w in params["layers"].items()}
 
 
 # -- forward / loss ---------------------------------------------------------

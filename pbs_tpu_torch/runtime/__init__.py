@@ -6,6 +6,7 @@ from pbs_tpu_torch.runtime.compile_gate import (
 from pbs_tpu_torch.runtime.events import EventBus, EventChannel, Virq
 from pbs_tpu_torch.runtime.executor import Executor, quantum_to_steps
 from pbs_tpu_torch.runtime.job import ContextState, ExecutionContext, Job, SchedParams
+from pbs_tpu_torch.runtime.memory import nbytes_of
 from pbs_tpu_torch.runtime.partition import Partition
 from pbs_tpu_torch.runtime.timer import Timer, TimerWheel
 
@@ -24,5 +25,6 @@ __all__ = [
     "Timer",
     "TimerWheel",
     "Virq",
+    "nbytes_of",
     "quantum_to_steps",
 ]

@@ -164,8 +164,9 @@ class Partition:
     def fail_job(self, job: Job, exc: BaseException) -> None:
         """Contain a fault to one job (the MCE-containment model): mark
         every context FAILED and notify — the partition and its other
-        tenants keep running."""
+        tenants keep running. The job's overflow samples go with it."""
         job.error = f"{type(exc).__name__}: {exc}"
+        self.sampler.disarm_job(job)
         for c in job.contexts:
             if c.state is not ContextState.FAILED:
                 c.state = ContextState.FAILED

@@ -275,6 +275,33 @@ def test_remove_job_disarms_its_samples():
     assert part.sampler.dump() == []
 
 
+def test_failed_job_disarms_its_samples():
+    """A job whose quantum raises (here the SimBackend's, which knows no
+    profile for it) is contained by ``fail_job``, which drops its
+    overflow samples, in the port as in the reference."""
+    pytest.importorskip("jax", reason="parity tests need the JAX reference")
+    import pbs_tpu.runtime as ref_rt
+    import pbs_tpu.telemetry as ref_tel
+
+    import pbs_tpu_torch.runtime as port_rt
+    import pbs_tpu_torch.telemetry as port_tel
+
+    def bad(state):
+        raise RuntimeError("step fault")
+
+    def drive(rt, tel):
+        part = rt.Partition("p", source=tel.SimBackend())
+        job = part.add_job(rt.Job("bad", step_fn=bad, max_steps=4))
+        part.sampler.arm(job.contexts[0], tel.Counter.TOKENS, 128)
+        part.run(max_rounds=4)
+        return job.error, part.sampler.dump()
+
+    want = drive(ref_rt, ref_tel)
+    got = drive(port_rt, port_tel)
+    assert want[0] is not None and want[1] == []
+    assert got == want
+
+
 # -- the counter fault seam and stale telemetry (test_feedback_stale.py) -----
 
 

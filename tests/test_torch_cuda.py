@@ -347,3 +347,68 @@ def test_profiler_reads_a_tanh_chain_as_memory_and_apart_from_a_matmul(
     assert tanh.source == mm.source == "device"
     assert tanh.stall_frac > 0.95, tanh.top_ops
     assert tanh.stall_frac - mm.stall_frac > 0.5, (tanh.top_ops, mm.top_ops)
+
+
+# -- the serving engine on the card ------------------------------------------
+
+
+def _engine_model(gen):
+    from pbs_tpu_torch.models import TransformerConfig, init_params
+
+    cfg = TransformerConfig(vocab=256, d_model=128, n_layers=2, n_heads=4,
+                            n_kv_heads=2, d_ff=256, max_seq=128,
+                            dtype=torch.float32)
+    return cfg, init_params(cfg, gen)
+
+
+def _staggered(eng, reqs):
+    got, pending, tick = {}, list(reqs), 0
+    while pending or eng.has_work():
+        if pending and tick % 2 == 0:
+            eng.submit(*pending.pop(0))
+        got.update({c.request_id: c.tokens for c in eng.step()})
+        tick += 1
+    return got
+
+
+def _requests(n):
+    rng = torch.Generator().manual_seed(3)
+    return [(torch.randint(0, 256, (int(torch.randint(1, 16, (1,),
+                                                      generator=rng)),),
+                           generator=rng).tolist(),
+             int(torch.randint(1, 24, (1,), generator=rng)))
+            for _ in range(n)]
+
+
+def test_engine_is_token_exact_against_lockstep_generate(gen):
+    """fp32 on the card: staggered requests through 3 slots give each
+    request the tokens of the port's lockstep generate at B=1."""
+    from pbs_tpu_torch.models import ContinuousBatcher, make_generate
+
+    cfg, params = _engine_model(gen)
+    reqs = _requests(7)
+    eng = ContinuousBatcher(cfg, params, n_slots=3, prompt_bucket=16,
+                            max_len=64, prefix_cache_size=16)
+    assert eng.device.type == "cuda" and eng.cache["pos"].is_cuda
+    got = _staggered(eng, reqs + reqs[:2])
+    assert eng.prefix_hits == 2
+    for rid, (prompt, n) in enumerate(reqs + reqs[:2]):
+        want = make_generate(cfg, n)(
+            params, torch.tensor([prompt], device="cuda"))[0].tolist()
+        assert got[rid] == want, rid
+
+
+def test_speculative_engine_matches_the_plain_engine(gen):
+    from pbs_tpu_torch.models import ContinuousBatcher, SpeculativeBatcher
+
+    cfg, params = _engine_model(gen)
+    noise = torch.randn(params["head"].shape, device="cuda", generator=gen)
+    draft = dict(params, head=params["head"] + 0.05 * params["head"].std()
+                 * noise)
+    reqs = _requests(7)
+    kw = dict(n_slots=3, prompt_bucket=16, max_len=64)
+    plain = ContinuousBatcher(cfg, params, **kw)
+    spec = SpeculativeBatcher(cfg, params, cfg, draft, k=4, **kw)
+    assert _staggered(spec, reqs) == _staggered(plain, reqs)
+    assert spec.stats()["steps"] < plain.stats()["steps"]
+    assert spec.stats()["spec_acceptance"] > 0
