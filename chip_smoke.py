@@ -69,6 +69,23 @@ Phases, each fatal on failure:
              the slice trajectory, the gateway's own host ms per tick, and
              the interactive latency co-located over alone (max and
              median, for each order).
+3p. memory — HBM admission and the tenant lifecycle at flagship width,
+             under a MemoryManager sized to the card (``for_device``: its
+             total memory, the caching allocator's bytes in use) and a
+             budget that holds the flagship training state once, not
+             twice: a token corpus and a training image (``save_image``)
+             on disk; ``train-a`` booted warm from it (``boot_job``,
+             bitwise against the saved state) beside two (4, 1024) scorers
+             that share one published bf16 copy of its weights
+             (``WeightsRegistry``, charged once); ``train-a`` parked with a
+             paging hook, paged to pinned host memory by the balloon when a
+             second training tenant is admitted (the allocator's count falls
+             by its bytes), paged back bitwise at wake (the same fixed-batch
+             loss), trained on from a ``Prefetcher`` and checkpointed by an
+             ``AsyncCheckpointer`` while its next step runs (restored
+             bitwise). Every 2.1-2.3 launch on the tensor-core route. Prints
+             page-out/in seconds and GB/s and the checkpoint's blocked
+             time beside its write time; removes every file it wrote.
 4. numerics — the scoring forward through the flash kernel against the dense
              attention path on the same weights, the KV-cache prefill
              against the full forward, and one micro-batch's training loss
@@ -97,6 +114,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -159,6 +177,16 @@ GW_RATE, GW_BURST, GW_MAX_QUEUED = 4096.0, 2048.0, 32
 # 200 us), which the 100 us floor would hide.
 GW_TSLICE_US = 600
 GW_TRACE_CAPACITY = 1 << 16
+# Phase 3p, memory admission and the tenant lifecycle: a corpus of 4M
+# tokens from a numpy seed; the flagship training state (fp32 params and
+# AdamW moments) booted from an image; two (4, 1024) scorers on one
+# shared bf16 copy of its weights, 2 steps each; train-a 2 steps beside
+# them, train-b 2 steps while train-a is paged out, then train-a 2 steps
+# from the loader and 1 under an async checkpoint's write.
+PAGING_SEED = 8
+PAGING_CORPUS_TOKENS = 4_000_000
+PAGING_SCORE_STEPS, PAGING_TRAIN_STEPS, PAGING_B_STEPS = 2, 2, 2
+PAGING_AFTER_STEPS = 2
 H100_PEAK_BF16_FLOPS = 989e12  # dense, data sheet
 H100_PEAK_HBM_BW = 3.35e12
 
@@ -1719,6 +1747,361 @@ def write_trace_fixture(torch, gen, path: str) -> None:
           f"{stats.stall_frac:.3f}, top {stats.top_ops[:4]}", flush=True)
 
 
+# -- phase 3p ----------------------------------------------------------------
+
+
+def state_digest(torch, state) -> list:
+    """One int64 sum per leaf of the state's integer view (bf16 as int16,
+    fp32 and int32 as int32), on the device, read in one transfer; Python
+    scalars as they are. Equal digests: the same bits, leaf for leaf."""
+    from pbs_tpu_torch.utils.tree import tree_leaves
+
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    sums, scalars = [], []
+    for leaf in tree_leaves(state):
+        if isinstance(leaf, torch.Tensor):
+            sums.append(leaf.view(ints[leaf.element_size()])
+                        .sum(dtype=torch.int64).to("cuda"))
+        else:
+            scalars.append(leaf)
+    return torch.stack(sums).tolist() + scalars
+
+
+def fixed_batch_loss(torch, cfg, state, tokens) -> float:
+    """The forward-only loss of one fixed batch under a train state."""
+    from pbs_tpu_torch.models import make_eval_step
+
+    return float(make_eval_step(cfg)(state[0], tokens))
+
+
+def paging_dir():
+    """A scratch directory for 3p's corpus, images and checkpoint inside
+    the checkout (git-ignored), and the bytes free on its disk."""
+    import shutil
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_3p_", dir=root)
+    return tmp, shutil.disk_usage(tmp).free
+
+
+def build_images(torch, cfg, tmp):
+    """The corpus (PAGING_CORPUS_TOKENS from a numpy seed) and two images
+    of one manifest: ``cold`` and ``warm``, the latter holding the state
+    a cold boot of ``cold`` reaches after one step on a corpus batch —
+    built the way ``boot_job`` builds a state. Returns (the two image
+    paths, the warm state's digest and bytes, the corpus path)."""
+    import numpy as np
+
+    from pbs_tpu_torch.data import write_token_file
+    from pbs_tpu_torch.runtime import boot_job, nbytes_of, save_image
+
+    rng = np.random.default_rng(PAGING_SEED)
+    tokens = rng.integers(0, cfg.vocab, size=PAGING_CORPUS_TOKENS)
+    paths = {k: os.path.join(tmp, k) for k in ("cold", "warm")}
+    os.makedirs(paths["cold"])
+    os.makedirs(paths["warm"])
+    corpus = os.path.join(paths["cold"], "corpus.tok")
+    write_token_file(corpus, tokens)
+    os.link(corpus, os.path.join(paths["warm"], "corpus.tok"))
+    config = {k: getattr(cfg, k) for k in (
+        *FLAGSHIP, "dtype", "remat", "remat_policy", "attn_impl")}
+    kw = dict(train={"batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                     "learning_rate": TRAIN_LR, "seed": PAGING_SEED},
+              data={"kind": "corpus", "path": "corpus.tok"})
+    save_image(paths["cold"], "transformer", config, **kw)
+    builder = boot_job(paths["cold"], name="builder")
+    state, metrics = builder.step_fn(builder.state)
+    loss = float(metrics["loss"])
+    t0 = time.monotonic()
+    save_image(paths["warm"], "transformer", config, state=state, **kw)
+    save_s = time.monotonic() - t0
+    digest, nbytes = state_digest(torch, state), nbytes_of(state)
+    print(f"  image: {PAGING_CORPUS_TOKENS} corpus tokens, state "
+          f"{nbytes / 1e9:.3f} GB after one step (loss {loss:.4f}), "
+          f"saved in {save_s:.2f} s ({nbytes / save_s / 1e9:.2f} GB/s)",
+          flush=True)
+    check(math.isfinite(loss) and state[2] == 1,
+          f"image builder: one step, finite loss {loss:.4f}")
+    return paths, digest, nbytes, corpus
+
+
+def scorer_private_bytes(cfg) -> int:
+    """What a 3p scorer holds of its own: its tokens (int64) and its
+    last-position fp32 logits."""
+    return SCORE_BATCH * SCORE_SEQ * 8 + SCORE_BATCH * cfg.vocab * 4
+
+
+def shared_scorer(torch, cfg, params, tokens, name):
+    """A scoring Job over ``params`` (the shared set): its state is the
+    last-position logits of ``tokens``; it declares only its private
+    bytes."""
+    from pbs_tpu_torch.models import forward
+    from pbs_tpu_torch.runtime import Job, SchedParams
+
+    @torch.no_grad()
+    def score_fn(state):
+        logits = forward(cfg, params, tokens)[:, -1].float()
+        return logits, {"tokens": tokens.numel()}
+
+    return Job(name, step_fn=score_fn, state=None,
+               mem_bytes=scorer_private_bytes(cfg),
+               params=SchedParams(weight=256), max_steps=PAGING_SCORE_STEPS)
+
+
+def run_until(part, done, what: str, limit: int = 64) -> int:
+    """Partition rounds, one at a time, until ``done()``; returns how
+    many ran."""
+    rounds = 0
+    while not done() and rounds < limit:
+        part.run(max_rounds=1)
+        rounds += 1
+    check(done(), f"{what}: done in {rounds} rounds (at most {limit})")
+    return rounds
+
+
+def run_paging_path(torch, gen, card):
+    """Phase 3p: memory admission and the tenant lifecycle at flagship
+    width. Returns the launch counts and routes of its whole run."""
+    import shutil
+
+    from pbs_tpu_torch.ckpt import AsyncCheckpointer, restore_checkpoint
+    from pbs_tpu_torch.data import (Prefetcher, ShardedBatchSource,
+                                    TokenDataset)
+    from pbs_tpu_torch.models import cast_params, make_train_step
+    from pbs_tpu_torch.obs.perfc import perfc
+    from pbs_tpu_torch.runtime import (MemoryManager, Partition,
+                                       WeightsRegistry, boot_job, nbytes_of,
+                                       register_paging_reclaim)
+    from pbs_tpu_torch.sched import FeedbackPolicy
+    from pbs_tpu_torch.telemetry import CudaBackend
+    from pbs_tpu_torch.utils.tree import tree_leaves
+
+    t_phase = time.monotonic()
+    cfg = train_config(torch)
+    score_cfg = dataclasses.replace(cfg, remat=False)
+    state_bytes = 12 * cfg.num_params()  # fp32 params, mu, nu
+    tmp, free = paging_dir()
+    try:
+        need = 2 * state_bytes + 4 * PAGING_CORPUS_TOKENS
+        check(free >= need,
+              f"disk: {free / 1e9:.1f} GB free for 3p's image and "
+              f"checkpoint, needs {need / 1e9:.1f} GB"
+              + ("" if free >= need else
+                 f" (short by {(need - free) / 1e9:.1f} GB)"))
+        wrappers = bwd_counts()
+        reset_counts(wrappers)
+        paths, saved, saved_bytes, corpus = build_images(torch, cfg, tmp)
+
+        # 1. the card's memory as the manager reads it
+        mm0 = MemoryManager.for_device()
+        alloc = torch.cuda.memory_allocated()
+        total = torch.cuda.mem_get_info()[1]
+        print(f"  MemoryManager.for_device(): capacity {mm0.capacity} B, "
+              f"reserve {mm0.reserve} B [{card}]", flush=True)
+        check(mm0.capacity == total and mm0.reserve == alloc,
+              f"for_device: capacity {mm0.capacity} == the card's total "
+              f"{total}, reserve {mm0.reserve} == memory_allocated {alloc}")
+        reserve = mm0.reserve
+
+        # 3. image boot, warm: every leaf as saved
+        t0 = time.monotonic()
+        train_a = boot_job(paths["warm"], name="train-a")
+        torch.cuda.synchronize()
+        boot_s = time.monotonic() - t0
+        a_bytes = nbytes_of(train_a.state)
+        check(a_bytes == saved_bytes
+              and state_digest(torch, train_a.state) == saved,
+              f"train-a: warm boot in {boot_s:.2f} s, {a_bytes} B, digest "
+              f"of all {len(saved)} leaves equal to the saved state's")
+
+        # 2. one published copy of the bf16 weights for two scorers
+        weights = cast_params(train_a.state[0], torch.bfloat16)
+        w_bytes = nbytes_of(weights)
+        private = 2 * scorer_private_bytes(score_cfg)
+        # 4. the budget: train-a fits beside the scorers, a second
+        # state of its size does not
+        mm = MemoryManager(reserve + w_bytes + private + 3 * a_bytes // 2,
+                           reserve_bytes=reserve)
+        part = Partition("paging", source=CudaBackend(), memory=mm)
+        fb = FeedbackPolicy(part)
+        reg = WeightsRegistry(memory=mm)
+        reg.publish("flagship", weights)
+        del weights
+        tokens = torch.randint(0, cfg.vocab, (SCORE_BATCH, SCORE_SEQ),
+                               device="cuda", generator=gen)
+        shared = [reg.acquire("flagship") for _ in range(2)]
+        scorers = [shared_scorer(torch, score_cfg, p, tokens, n)
+                   for p, n in zip(shared, ("score-a", "score-b"))]
+        for job in scorers:
+            part.add_job(job)
+        ptrs = [[t.data_ptr() for t in tree_leaves(p)] for p in shared]
+        check(mm.account("shared:flagship").used_bytes == w_bytes
+              and reg.saved_bytes() == w_bytes and ptrs[0] == ptrs[1]
+              and shared[0] is shared[1],
+              f"shared weights: one account holds {w_bytes} B "
+              f"({w_bytes / 1e9:.3f} GB), saved_bytes "
+              f"{reg.saved_bytes()} == one set, both scorers hold the "
+              f"same tensors (data_ptr)")
+        del shared
+        part.add_job(train_a)
+        check(mm.account("train-a").used_bytes == a_bytes
+              and mm.free_bytes() < a_bytes,
+              f"admission: train-a claims {a_bytes} B; {mm.free_bytes()} "
+              f"B left, less than a second state")
+        t0 = time.monotonic()
+        rounds = run_until(
+            part, lambda: (all(j.finished() for j in scorers)
+                           and train_a.steps_retired() >= PAGING_TRAIN_STEPS),
+            "train-a beside the scorers")
+        print(f"  beside the scorers: {rounds} rounds in "
+              f"{time.monotonic() - t0:.2f} s; train-a at step "
+              f"{train_a.state[2]}", flush=True)
+        for job in (*scorers, train_a):
+            check(job.error is None and job.steps_retired() > 0,
+                  f"{job.name}: {job.steps_retired()} steps, no fault "
+                  f"({job.error})")
+        check(torch.equal(scorers[0].state, scorers[1].state)
+              and bool(torch.isfinite(scorers[0].state).all()),
+              "score-a and score-b: last-position logits of one batch "
+              "bitwise equal, finite")
+
+        # 4. paging under admission pressure
+        ds = TokenDataset(corpus)
+        fixed = torch.from_numpy(ds.window(0, TRAIN_BATCH, TRAIN_SEQ)).cuda()
+        register_paging_reclaim(part, train_a)
+        part.sleep_job(train_a)
+        before = state_digest(torch, train_a.state)
+        loss_before = fixed_batch_loss(torch, cfg, train_a.state, fixed)
+        paged0 = perfc.get("paging_out_bytes")
+        train_b = boot_job(paths["cold"], name="train-b")
+        torch.cuda.synchronize()
+        b_bytes = nbytes_of(train_b.state)
+        alloc0 = torch.cuda.memory_allocated()
+        t0 = time.monotonic()
+        part.add_job(train_b)
+        out_s = time.monotonic() - t0
+        alloc1 = torch.cuda.memory_allocated()
+        out_bytes = perfc.get("paging_out_bytes") - paged0
+        print(f"  page-out under train-b's claim: {out_bytes} B in "
+              f"{out_s:.3f} s, {out_bytes / out_s / 1e9:.2f} GB/s "
+              f"(pinned host allocation included); allocated "
+              f"{alloc0} -> {alloc1} B [{card}]", flush=True)
+        check(train_a.paged is not None
+              and mm.account("train-a").used_bytes == 0
+              and out_bytes == a_bytes == train_a.paged_bytes,
+              f"train-a paged out by the balloon: account 0, perfc "
+              f"paging_out_bytes +{out_bytes} == its state's {a_bytes} B")
+        check(alloc0 - alloc1 >= 0.99 * out_bytes,
+              f"HBM freed: memory_allocated fell by {alloc0 - alloc1} B >= "
+              f"0.99 x {out_bytes} B")
+        check(mm.account("train-b").used_bytes == b_bytes,
+              f"train-b admitted: claims {b_bytes} B")
+        train_b.max_steps = PAGING_B_STEPS
+        part.run()
+        check(train_b.error is None and train_b.finished(),
+              f"train-b: {train_b.steps_retired()} steps, no fault "
+              f"({train_b.error})")
+        part.remove_job(train_b)
+        train_b.state = None
+        del train_b
+        t0 = time.monotonic()
+        part.wake_job(train_a)
+        torch.cuda.synchronize()
+        in_s = time.monotonic() - t0
+        print(f"  page-in at wake: {a_bytes} B in {in_s:.3f} s, "
+              f"{a_bytes / in_s / 1e9:.2f} GB/s [{card}]", flush=True)
+        after = state_digest(torch, train_a.state)
+        loss_after = fixed_batch_loss(torch, cfg, train_a.state, fixed)
+        check(train_a.paged is None and after == before
+              and mm.account("train-a").used_bytes == a_bytes,
+              f"train-a paged in: digest of all {len(after)} leaves "
+              f"bitwise equal, account {a_bytes} B again")
+        check(loss_after == loss_before and math.isfinite(loss_after),
+              f"train-a: fixed-batch loss {loss_after!r} == {loss_before!r} "
+              f"before paging")
+        lines = [ln["line"] for ln in train_a.console.read()["lines"]]
+        check(f"paged out under pressure: {a_bytes} bytes to host" in lines
+              and f"paged in: {a_bytes} bytes to device" in lines,
+              "train-a's console: paged out under pressure, paged in")
+
+        # 6. train on from the loader; 5. an async checkpoint meanwhile
+        _, train_step = make_train_step(cfg, learning_rate=TRAIN_LR)
+        src = ShardedBatchSource(ds, TRAIN_BATCH, TRAIN_SEQ,
+                                 seed=PAGING_SEED)
+        want = ShardedBatchSource(ds, TRAIN_BATCH, TRAIN_SEQ,
+                                  seed=PAGING_SEED)
+        seen, losses = [], []
+
+        with Prefetcher(src, depth=2) as pf:
+            def step_from_loader(state):
+                batch = next(pf)
+                seen.append(torch.equal(batch.cpu(),
+                                        torch.from_numpy(want())))
+                state, metrics = train_step(state, batch)
+                losses.append(metrics["loss"])
+                return state, metrics
+
+            train_a.step_fn = step_from_loader
+            run_until(part, lambda: len(seen) >= PAGING_AFTER_STEPS,
+                      "train-a on the loader")
+            ckpt = os.path.join(tmp, "async")
+            digest = state_digest(torch, train_a.state)
+            ck = AsyncCheckpointer()
+            t0 = time.monotonic()
+            ck.save(ckpt, train_a.state)
+            blocked_s = time.monotonic() - t0
+            # the next step runs while the write goes on
+            run_until(part, lambda: len(seen) > PAGING_AFTER_STEPS,
+                      "train-a's step under the checkpoint write")
+            step_s = time.monotonic() - t0
+            manifest = ck.wait()
+            write_s = time.monotonic() - t0
+        losses = [float(x) for x in losses]
+        check(train_a.error is None and len(seen) >= PAGING_AFTER_STEPS + 1
+              and all(seen) and all(math.isfinite(x) for x in losses),
+              f"train-a trains on from the Prefetcher (depth 2): "
+              f"{len(seen)} batches, each equal to its numpy window; "
+              f"losses {[round(x, 4) for x in losses]} finite")
+        print(f"  async checkpoint of {manifest['bytes']} B: caller blocked "
+              f"{blocked_s:.3f} s (device-to-host snapshot), the next step "
+              f"done at {step_s:.3f} s, published at {write_s:.3f} s "
+              f"({manifest['bytes'] / write_s / 1e9:.2f} GB/s) [{card}]",
+              flush=True)
+        like = train_a.state
+        restored, _ = restore_checkpoint(ckpt, like=like)
+        got = state_digest(torch, restored)
+        del restored, like
+        check(got == digest and blocked_s < write_s,
+              f"async checkpoint restores bitwise (digest of all "
+              f"{len(got)} leaves); the caller was blocked "
+              f"{blocked_s:.3f} s of the write's {write_s:.3f} s")
+        ds.close()
+        print(f"  feedback: {json.dumps(fb.dump())}")
+        part.remove_job(train_a)
+        for job in scorers:
+            part.remove_job(job)
+            reg.release("flagship")
+        check(mm.dump()["accounts"] == {} and mm.free_bytes()
+              == mm.capacity - mm.reserve,
+              "every account closed at teardown")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not os.path.exists(tmp), f"3p's files removed ({tmp})")
+    launches = dict(zip(KERNELS, (w.launches for w in wrappers)))
+    routes = dict(zip(KERNELS, (dict(w.launches_by_route)
+                                for w in wrappers)))
+    print(f"  kernel launches {launches}, by route {routes}", flush=True)
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        n = launches[name]
+        check(n > 0 and routes[name] == {"wgmma": n, "simt": 0},
+              f"{name}: {n} launches in 3p, every one on the tensor-core "
+              f"route ({routes[name]})")
+    print(f"  phase 3p wall {time.monotonic() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return launches, routes
+
+
 # -- phase 4 -----------------------------------------------------------------
 
 
@@ -2215,6 +2598,10 @@ def main() -> int:
     g_launches, g_routes = run_gateway_path(torch, gen, cfg, params,
                                             a_tokens, card_line())
 
+    phase("3p memory: HBM admission, shared weights, an image boot, paging "
+          "under pressure, an async checkpoint, the loader")
+    p_launches, p_routes = run_paging_path(torch, gen, card_line())
+
     phase("4 numerics at width")
     check_numerics(torch, gen, cfg, params)
     del params
@@ -2234,6 +2621,9 @@ def main() -> int:
         # phase 3g(a)'s run: the same beside the gateway's Job
         r["gateway_path_launches"] = g_launches[kernel]
         r["gateway_path_launches_by_route"] = g_routes[kernel]
+        # phase 3p's run: scorers, train-a and train-b
+        r["memory_path_launches"] = p_launches[kernel]
+        r["memory_path_launches_by_route"] = p_routes[kernel]
     profile_micro_step(torch, micro_step, train_state)
     del micro_step, train_state
     time_remat_policies(torch, gen, train_cfg, train_params)

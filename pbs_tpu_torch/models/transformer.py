@@ -432,7 +432,13 @@ class AdamW:
     does: m = b1 m + (1-b1) g, v = b2 v + (1-b2) g^2, u = m/(1-b1^t) /
     (sqrt(v/(1-b2^t)) + eps) + wd p, p -= lr u. ``mu_dtype`` stores both
     moments in that dtype between steps (the reference's ``_cast_nu``
-    extends optax's first-moment ``mu_dtype`` to the second)."""
+    extends optax's first-moment ``mu_dtype`` to the second).
+
+    The state is ``{"count", "mu", "nu"}``: the leaves and leaf order of
+    optax's ``ScaleByAdamState``, with ``count`` a 0-d int32 tensor as
+    there (on the host, so reading it costs no device synchronise), so
+    a train state checkpointed by either package restores in the
+    other."""
 
     learning_rate: float
     mu_dtype: torch.dtype | None = None
@@ -441,14 +447,15 @@ class AdamW:
         def zeros(p):
             return torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
 
-        return {"count": 0, "mu": tree_map(zeros, params),
+        return {"count": torch.tensor(0, dtype=torch.int32),
+                "mu": tree_map(zeros, params),
                 "nu": tree_map(zeros, params)}
 
     @torch.no_grad()
     def update(self, grads: dict, state: dict, params: dict) -> dict:
         """Apply one step to ``params`` in place; returns the new state
         (its moment tensors updated in place too)."""
-        count = state["count"] + 1
+        count = int(state["count"]) + 1
         bc1 = 1.0 - ADAM_B1 ** count
         bc2 = 1.0 - ADAM_B2 ** count
         for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
@@ -462,7 +469,7 @@ class AdamW:
             p.add_(u * -self.learning_rate)
             m.copy_(mu)
             v.copy_(nu)
-        return dict(state, count=count)
+        return dict(state, count=torch.tensor(count, dtype=torch.int32))
 
 
 def default_optimizer(learning_rate: float,

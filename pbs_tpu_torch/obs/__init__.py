@@ -1,8 +1,10 @@
 """Observability of the port: trace rings, request spans, latency
-histograms. The reference's console, lock profiler, monitors,
-oprofile, perf counters and self-test wait for ROADMAP queue 1 items 9
-and 12."""
+histograms, per-job consoles and the perf counters. The reference's
+lock profiler, monitors, oprofile and self-test wait for ROADMAP queue
+1 items 9 and 12."""
 
+from pbs_tpu_torch.obs.console import Console, log, read_system, system_console
+from pbs_tpu_torch.obs.perfc import Perfc, perfc
 from pbs_tpu_torch.obs.spans import (
     HistBatch,
     LatencyHistograms,
@@ -16,7 +18,8 @@ from pbs_tpu_torch.obs.spans import (
 from pbs_tpu_torch.obs.trace import Ev, TraceBuffer, format_records
 
 __all__ = [
-    "Ev", "HistBatch", "LatencyHistograms", "SpanAssembler",
-    "SpanRecorder", "TraceBuffer", "bucket_edges", "format_records",
-    "hist_bucket", "hist_quantile", "load_span_artifacts",
+    "Console", "Ev", "HistBatch", "LatencyHistograms", "Perfc",
+    "SpanAssembler", "SpanRecorder", "TraceBuffer", "bucket_edges", "format_records",
+    "hist_bucket", "hist_quantile", "load_span_artifacts", "log", "perfc",
+    "read_system", "system_console",
 ]

@@ -11,9 +11,13 @@ A device step cannot be preempted mid-kernel: the scheduling quantum is
 realized as a number of steps, with the per-job time slice converted
 through the job's measured step time.
 
+Each job carries its console ring (``Job.log`` is the guest printk),
+its security label, its declared HBM working set (``mem_bytes``, which
+the partition's memory admission claims) and the paging fields the
+pager (``runtime.paging``) fills while its state lives in host memory.
 Not ported yet (ROADMAP): ``Job.foreign`` (adopting a callable that
-follows no protocol, which leans on XLA executables), the console
-ring, the label and ``mem_bytes`` admission declarations, and paging.
+follows no protocol, which leans on XLA executables); the label is
+carried but nothing checks it until xsm is ported (queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from typing import Any, Callable
 
 import numpy as np
 
+from pbs_tpu_torch.obs.console import Console
 from pbs_tpu_torch.telemetry.counters import NUM_COUNTERS, Counter
 
 
@@ -75,6 +80,8 @@ class Job:
         max_steps: int | None = None,
         n_contexts: int = 1,
         gang: bool = False,
+        label: str = "user",
+        mem_bytes: int | None = None,
         micro_per_step: int = 1,
         micro_step_fn: Callable[[Any], Any] | None = None,
         n_programs: int = 1,
@@ -88,6 +95,11 @@ class Job:
         # observed fleet average.
         self.n_programs = max(1, int(n_programs))
         self.est_compile_ns = est_compile_ns
+        # Security label for XSM checks (the FLASK domain label).
+        self.label = label
+        # Declared HBM working set; None = estimate from state at
+        # admission (runtime.memory.nbytes_of).
+        self.mem_bytes = mem_bytes
         self.step_fn = step_fn
         # Sub-step latency bounding: a job whose step is long may
         # decompose it into ``micro_per_step`` micro-steps advanced by
@@ -121,6 +133,19 @@ class Job:
         # THIS job regardless of the backend-wide default (None = use
         # the backend's).
         self.profile_every: int | None = None
+        # Per-job console ring (the xl console analog): lifecycle
+        # events land here; the workload writes via Job.log.
+        self.console = Console()
+        # xenpaging analog (runtime.paging): while non-None, the
+        # device leaves of ``state`` live in host memory and the job
+        # must stay BLOCKED; wake_job restores transparently.
+        self.paged = None
+        self.paged_bytes = 0
+        self.paged_acct_bytes = 0
+
+    def log(self, line: str) -> int:
+        """Workload-side console write (the guest printk)."""
+        return self.console.write(line)
 
     # -- contention hints (batched vcrd_op) ------------------------------
 

@@ -7,11 +7,13 @@ cooperative ``run()`` loop drives executors round-robin on one host
 thread; under a ``VirtualClock`` it is fully deterministic and jumps
 the clock to the next timer deadline when every executor is idle.
 
-Admission (with the optional compile-cache claim), run-state control,
-fault containment, the overflow sampler, the loop and ``dump()`` keep
-the reference's decision order. Not ported yet (ROADMAP): security
-labels (xsm), lifecycle hooks, trace rings, the run recorder, memory
-admission, and the file-backed ledger with its monitor sidecar. None of
+Admission (the optional compile-cache claim, then the optional HBM
+claim through a ``MemoryManager``), run-state control with the pager's
+fault path (waking a paged job restores its state first), fault
+containment, the overflow sampler, the job consoles, the loop and
+``dump()`` keep the reference's decision order. Not ported yet
+(ROADMAP): security labels (xsm), lifecycle hooks, trace rings, the run
+recorder, and the file-backed ledger with its monitor sidecar. None of
 them changes a dispatch decision.
 """
 
@@ -23,6 +25,7 @@ from typing import TYPE_CHECKING, Any, Callable
 from pbs_tpu_torch.runtime.events import EventBus, Virq
 from pbs_tpu_torch.runtime.executor import Executor
 from pbs_tpu_torch.runtime.job import ContextState, Job
+from pbs_tpu_torch.runtime.memory import nbytes_of
 from pbs_tpu_torch.runtime.timer import TimerWheel
 from pbs_tpu_torch.sched.base import Scheduler, make_scheduler
 from pbs_tpu_torch.telemetry.ledger import Ledger
@@ -31,6 +34,7 @@ from pbs_tpu_torch.utils.clock import Clock, VirtualClock
 
 if TYPE_CHECKING:
     from pbs_tpu_torch.runtime.compile_gate import CompileAdmission
+    from pbs_tpu_torch.runtime.memory import MemoryManager
 
 DEFAULT_LEDGER_SLOTS = 128
 
@@ -46,6 +50,7 @@ class Partition:
         clock: Clock | None = None,
         ledger_slots: int = DEFAULT_LEDGER_SLOTS,
         sched_params: dict[str, Any] | None = None,
+        memory: "MemoryManager | None" = None,
         compile_admission: "CompileAdmission | None" = None,
     ):
         self.name = name
@@ -63,6 +68,8 @@ class Partition:
         from pbs_tpu_torch.telemetry.sampler import OverflowSampler
 
         self.sampler = OverflowSampler(self.events)
+        # Optional HBM accounting/admission (runtime.memory).
+        self.memory = memory
         # Optional compile-cache admission (runtime.compile_gate):
         # distinct programs per partition and cumulative compile time.
         self.compile_admission = compile_admission
@@ -89,6 +96,20 @@ class Partition:
             # state beyond its own table, so rejection leaves nothing
             # to unwind (the XENMEM_claim_pages ordering).
             self.compile_admission.admit(job)
+        if self.memory is not None:
+            # Fail-fast HBM admission (XENMEM_claim_pages): account +
+            # claim the working set before touching scheduler state, so
+            # a denied job leaves nothing behind.
+            need = (job.mem_bytes if job.mem_bytes is not None
+                    else nbytes_of(job.state))
+            self.memory.open_account(job.name)
+            try:
+                self.memory.claim_or_balloon(job.name, need)
+            except Exception:
+                self.memory.close_account(job.name)
+                if self.compile_admission is not None:
+                    self.compile_admission.release(job.name)
+                raise
         try:
             for ctx in job.contexts:
                 if not self._free_slots:
@@ -96,11 +117,11 @@ class Partition:
                 ctx.ledger_slot = self._free_slots.pop()
                 self.ledger.reset(ctx.ledger_slot)
         except Exception:
-            # Unwind fully so a failed admission leaves nothing behind
-            # and the name stays retryable.
+            # Unwind fully — slots back on the freelist, account closed —
+            # so a failed admission leaves nothing behind and the name
+            # stays retryable.
             self._release_slots(job)
-            if self.compile_admission is not None:
-                self.compile_admission.release(job.name)
+            self._release_admission(job)
             raise
         # Scheduler enrollment is part of the same atomic admission.
         enrolled = False
@@ -111,6 +132,10 @@ class Partition:
             for ctx in job.contexts:
                 if ctx.state is ContextState.RUNNABLE:
                     self.scheduler.wake(ctx)
+            job.console.write(
+                f"admitted to {self.name} "
+                f"({len(job.contexts)} ctx, scheduler "
+                f"{self.scheduler.name})")
         except Exception:
             if enrolled:
                 try:
@@ -120,8 +145,7 @@ class Partition:
             if job in self.jobs:
                 self.jobs.remove(job)
             self._release_slots(job)
-            if self.compile_admission is not None:
-                self.compile_admission.release(job.name)
+            self._release_admission(job)
             raise
         return job
 
@@ -131,9 +155,17 @@ class Partition:
                 self._free_slots.append(ctx.ledger_slot)
                 ctx.ledger_slot = -1
 
-    def remove_job(self, job: Job) -> None:
+    def _release_admission(self, job: Job) -> None:
+        """Close the job's HBM account and give back its compile-cache
+        claim."""
+        if self.memory is not None:
+            self.memory.close_account(job.name)
         if self.compile_admission is not None:
             self.compile_admission.release(job.name)
+
+    def remove_job(self, job: Job) -> None:
+        job.console.write("destroyed")
+        self._release_admission(job)
         # Dead jobs must not pin their contexts via armed samples (or
         # keep getting scanned by every overflow check).
         self.sampler.disarm_job(job)
@@ -156,6 +188,13 @@ class Partition:
                 self.scheduler.sleep(ctx)
 
     def wake_job(self, job: Job) -> None:
+        if job.paged is not None:
+            # xenpaging fault path: touching a paged tenant restores
+            # its device state first (claiming HBM back; may raise
+            # OutOfDeviceMemory, leaving the job asleep+paged).
+            from pbs_tpu_torch.runtime.paging import page_in_job
+
+            page_in_job(self, job)
         for ctx in job.contexts:
             if ctx.state is ContextState.BLOCKED:
                 ctx.state = ContextState.RUNNABLE
@@ -166,6 +205,7 @@ class Partition:
         every context FAILED and notify — the partition and its other
         tenants keep running. The job's overflow samples go with it."""
         job.error = f"{type(exc).__name__}: {exc}"
+        job.console.write(f"FAULT contained: {job.error}")
         self.sampler.disarm_job(job)
         for c in job.contexts:
             if c.state is not ContextState.FAILED:

@@ -412,3 +412,71 @@ def test_speculative_engine_matches_the_plain_engine(gen):
     assert _staggered(spec, reqs) == _staggered(plain, reqs)
     assert spec.stats()["steps"] < plain.stats()["steps"]
     assert spec.stats()["spec_acceptance"] > 0
+
+
+# -- memory admission, paging and the loader on the card --------------------
+
+
+def test_device_memory_stats_reads_the_caching_allocator(gen):
+    from pbs_tpu_torch.runtime import MemoryManager, device_memory_stats
+
+    x = torch.empty(1 << 20, device="cuda")
+    stats = device_memory_stats()
+    assert set(stats) == {"bytes_in_use", "bytes_limit"}
+    assert stats["bytes_in_use"] == torch.cuda.memory_allocated()
+    assert stats["bytes_in_use"] >= x.numel() * 4
+    assert stats["bytes_limit"] == torch.cuda.mem_get_info()[1]
+    mm = MemoryManager.for_device()
+    assert mm.capacity == stats["bytes_limit"]
+    assert mm.reserve == torch.cuda.memory_allocated()
+
+
+def test_page_out_and_in_on_the_card_is_bitwise(gen):
+    """A sleeping tenant's CUDA state goes to pinned host memory (the
+    allocator's count drops by its bytes) and comes back bit for bit,
+    on its device, ordered before its next step."""
+    from pbs_tpu_torch.runtime import Job, Partition, page_out_job
+    from pbs_tpu_torch.telemetry import CudaBackend
+
+    state = {"w": torch.randn(512, 1024, device="cuda", generator=gen),
+             "b": torch.randn(777, device="cuda", generator=gen).bfloat16(),
+             "n": torch.arange(5, dtype=torch.int32, device="cuda"),
+             "step": 3}
+    want = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+            for k, v in state.items()}
+    nbytes = 512 * 1024 * 4 + 777 * 2 + 5 * 4
+    part = Partition("p", source=CudaBackend())
+    job = part.add_job(Job("t", step_fn=lambda s: dict(s, w=s["w"] * 2),
+                           state=state, max_steps=1))
+    del state
+    torch.cuda.synchronize()
+    part.sleep_job(job)
+    before = torch.cuda.memory_allocated()
+    assert page_out_job(part, job) == nbytes
+    assert before - torch.cuda.memory_allocated() >= nbytes
+    part.wake_job(job)
+    for k in ("w", "b", "n"):
+        assert job.state[k].is_cuda and job.state[k].dtype == want[k].dtype
+        assert torch.equal(job.state[k], want[k]), k
+    part.run(max_rounds=2)
+    assert torch.equal(job.state["w"], want["w"] * 2)
+
+
+def test_prefetcher_batches_on_the_card_equal_their_windows(gen, tmp_path):
+    import numpy as np
+
+    from pbs_tpu_torch.data import (Prefetcher, ShardedBatchSource,
+                                    TokenDataset, write_token_file)
+
+    path = str(tmp_path / "c.tok")
+    write_token_file(path, np.arange(50_000) % 30_000)
+    ds = TokenDataset(path)
+    src = ShardedBatchSource(ds, global_batch=2, seq_len=1024, seed=1)
+    want = ShardedBatchSource(ds, global_batch=2, seq_len=1024, seed=1)
+    with Prefetcher(src, depth=2) as pf:
+        for _ in range(6):
+            got = next(pf)
+            assert got.is_cuda and got.dtype == torch.int32
+            # a consumer-stream kernel reads it only after its copy
+            assert torch.equal((got + 0).cpu(), torch.from_numpy(want()))
+    ds.close()
