@@ -86,18 +86,34 @@ Phases, each fatal on failure:
              bitwise). Every 2.1-2.3 launch on the tensor-core route. Prints
              page-out/in seconds and GB/s and the checkpoint's blocked
              time beside its write time; removes every file it wrote.
+3e. moe    — the MoE family at the flagship's attention widths (4 experts
+             of d_ff / 4, top-2): (a) ``moe-train`` booted cold from a "moe"
+             image (capacity routing, full remat, attention through the
+             flash kernels, (2, 1024) tokens, 3 steps) beside ``moe-serve``,
+             the bf16 dropless engine on 3s's script, in one Partition
+             under FeedbackPolicy + CudaBackend: steps, ledger TOKENS,
+             finite losses, moved parameters, the drop fraction in [0, 1),
+             every request served with ``mlp_extra_mean`` 0.0, and every
+             2.1-2.3 launch on the tensor-core route, counted against
+             layers x steps x (forward + recompute); (b) an fp32 dropless
+             engine token-exact against the lockstep ``make_moe_generate``
+             (3s's near-tie rule); (c) the speculative engine, MoE target
+             and MoE noisy-head draft, exact against (b) in fewer ticks.
 4. numerics — the scoring forward through the flash kernel against the dense
              attention path on the same weights, the KV-cache prefill
-             against the full forward, and one micro-batch's training loss
+             against the full forward, one micro-batch's training loss
              and gradients through the flash kernels against the dense
-             attention path.
+             attention path, and the same for the MoE forward, loss and
+             gradients in fp32, with the routing decisions that flipped
+             between the two (a flip passes only at a near-tie).
 5. times   — each kernel, its plain version and one PyTorch library call
              computing the same function, at the main paths' shapes (2.1 at
              the serving and at the training shape), with achieved TFLOP/s
              and the fraction of the bound each kernel reaches; 2.2 and 2.3
              also on their CUDA-core route and beside the row-delta
-             reduction they read; one profiled training micro-step (device
-             time by kernel, idle share).
+             reduction they read; one profiled training micro-step and
+             one profiled MoE training step (device time by kernel, idle
+             share).
 
 ``--trace-out PATH`` also writes one profiled quantum's Chrome trace,
 trimmed to a few dozen events (the CPU tests parse such a trace from
@@ -187,6 +203,19 @@ PAGING_SEED = 8
 PAGING_CORPUS_TOKENS = 4_000_000
 PAGING_SCORE_STEPS, PAGING_TRAIN_STEPS, PAGING_B_STEPS = 2, 2, 2
 PAGING_AFTER_STEPS = 2
+# Phase 3e, the MoE family: the flagship's attention widths with 4 experts
+# of d_ff / 4 = 1408, top-2 (bench_serving.py's MoE rows, 700.6M
+# parameters in all). moe-train: the reference's capacity routing
+# (factor 1.25, groups of 4096: the 2 x 1023 routed tokens make one group
+# of capacity 1279), bf16 on fp32 masters, full remat, attention through
+# the flash kernels, (2, 1024) tokens, booted cold from a "moe" image.
+# moe-serve: dropless, 3s's script and settings.
+MOE = dict(FLAGSHIP, d_ff=FLAGSHIP["d_ff"] // 4, n_experts=4, top_k=2)
+MOE_SEED, MOE_TRAIN_STEPS = 9, 3
+# A routing decision (a token's top-2 experts in a layer) that differs
+# between two fp32 runs passes only at a near-tie: the reference run's
+# 2nd and 3rd router probabilities within MOE_ROUTE_TIE of each other.
+MOE_ROUTE_TIE = 1e-4
 H100_PEAK_BF16_FLOPS = 989e12  # dense, data sheet
 H100_PEAK_HBM_BW = 3.35e12
 
@@ -1107,25 +1136,29 @@ def time_prefill(torch, eng, prompt) -> float:
     return statistics.median(out)
 
 
-def lockstep_margin(torch, cfg, params, prompt, toks, j) -> float:
+def lockstep_margin(torch, cfg, params, prompt, toks, j, fwd=None) -> float:
     """The lockstep run's top-2 fp32 logit gap at output position j, over
     the larger logit's magnitude: a B=1 prefill, then decodes of its
-    tokens[:j], as ``make_generate`` computes them."""
+    tokens[:j], as ``make_generate`` computes them (``fwd``, the cached
+    forward ``(cfg, params, tokens, cache) -> (logits, cache, ...)``:
+    the dense one unless given)."""
     from pbs_tpu_torch.models import forward_with_cache, init_cache
 
+    fwd = fwd or forward_with_cache
     cache = init_cache(cfg, 1, max_len=len(prompt) + j + 1, device="cuda")
     with torch.no_grad():
-        logits, cache = forward_with_cache(
-            cfg, params, torch.tensor(prompt[None], device="cuda"), cache)
+        logits, cache = fwd(
+            cfg, params, torch.tensor(prompt[None], device="cuda"),
+            cache)[:2]
         for t in toks[:j]:
-            logits, cache = forward_with_cache(
-                cfg, params, torch.tensor([[t]], device="cuda"), cache)
+            logits, cache = fwd(
+                cfg, params, torch.tensor([[t]], device="cuda"), cache)[:2]
     top = logits[0, -1].topk(2).values
     return float(top[0] - top[1]) / float(top[0].abs())
 
 
 def compare_tokens(torch, cfg, params, reqs, got: dict, want: dict,
-                   what: str) -> list:
+                   what: str, fwd=None) -> list:
     """Request by request, ``got`` against ``want`` (token lists). A
     divergence passes only where the lockstep run's top-2 logits at
     that position are within ENGINE_TIE of each other (a tie two GEMM
@@ -1139,7 +1172,7 @@ def compare_tokens(torch, cfg, params, reqs, got: dict, want: dict,
             check(len(g) == len(w), f"{what}: request {i} has {len(g)} "
                                     f"tokens == {len(w)}")
             continue
-        margin = lockstep_margin(torch, cfg, params, reqs[i][0], w, j)
+        margin = lockstep_margin(torch, cfg, params, reqs[i][0], w, j, fwd)
         print(f"  {what}: request {i} diverges at token {j} ({g[j]} vs "
               f"{w[j]}); lockstep top-2 gap {margin:.3e} of |top-1|",
               flush=True)
@@ -1774,14 +1807,15 @@ def fixed_batch_loss(torch, cfg, state, tokens) -> float:
     return float(make_eval_step(cfg)(state[0], tokens))
 
 
-def paging_dir():
-    """A scratch directory for 3p's corpus, images and checkpoint inside
-    the checkout (git-ignored), and the bytes free on its disk."""
+def paging_dir(phase: str = "3p"):
+    """A scratch directory for a phase's files (3p's corpus, images and
+    checkpoint; 3e's image) inside the checkout (git-ignored), and the
+    bytes free on its disk."""
     import shutil
     import tempfile
 
     root = os.path.dirname(os.path.abspath(__file__))
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_3p_", dir=root)
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{phase}_", dir=root)
     return tmp, shutil.disk_usage(tmp).free
 
 
@@ -2102,6 +2136,275 @@ def run_paging_path(torch, gen, card):
     return launches, routes
 
 
+# -- phase 3e ----------------------------------------------------------------
+
+
+def moe_config(**over):
+    from pbs_tpu_torch.models import MoEConfig
+
+    return MoEConfig(**MOE, **over)
+
+
+def moe_train_image(torch, tmp) -> tuple:
+    """The cold "moe" training image (a manifest only) and the config it
+    boots, for the derivations beside the checks."""
+    from pbs_tpu_torch.runtime import save_image
+
+    path = os.path.join(tmp, "moe-train")
+    over = dict(dtype="bfloat16", remat=True, attn_impl="pallas")
+    save_image(path, "moe", {**MOE, **over},
+               sched={"weight": 512, "tslice_us": 100},
+               train={"batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                      "learning_rate": TRAIN_LR, "seed": MOE_SEED,
+                      "max_steps": MOE_TRAIN_STEPS})
+    return path, moe_config(**dict(over, dtype=torch.bfloat16))
+
+
+def run_moe_path(torch, gen, serve_ms_per_token, card):
+    """Phase 3e: (a) ``moe-train`` (booted cold from a "moe" image) and
+    ``moe-serve`` (the bf16 dropless engine on 3s's script) in one
+    Partition under FeedbackPolicy + CudaBackend; (b) an fp32 dropless
+    engine token-exact against the lockstep ``make_moe_generate``; (c)
+    the speculative engine with an MoE target and an MoE draft against
+    (b). Returns (launch counts and routes of (a)'s run, the training
+    job's step function and state, the fp32 MoE master params)."""
+    import shutil
+
+    from pbs_tpu_torch.models import (ContinuousBatcher, SpeculativeBatcher,
+                                      cast_params, init_moe_params,
+                                      make_continuous_serve_step,
+                                      make_moe_generate)
+    from pbs_tpu_torch.models.moe import (moe_forward_with_cache, moe_loss,
+                                          moe_slot_mlp, routing_groups)
+    from pbs_tpu_torch.models.transformer import value_and_grad
+    from pbs_tpu_torch.runtime import Job, Partition, SchedParams, boot_job
+    from pbs_tpu_torch.sched import FeedbackPolicy
+    from pbs_tpu_torch.telemetry import Counter, CudaBackend
+
+    t_phase = time.monotonic()
+    reqs, arrivals = engine_script()
+    budgets = [n for _, n in reqs]
+    n_ticks = engine_ticks(budgets, arrivals, ENGINE_SLOTS)
+    kw = dict(n_slots=ENGINE_SLOTS, prompt_bucket=ENGINE_BUCKET,
+              max_len=ENGINE_MAX_LEN, prefix_cache_size=ENGINE_PREFIX)
+
+    # (a) moe-train, booted cold from a "moe" image, beside moe-serve
+    tmp, _ = paging_dir("3e")
+    try:
+        path, tcfg = moe_train_image(torch, tmp)
+        t0 = time.monotonic()
+        train = boot_job(path, name="moe-train")
+        torch.cuda.synchronize()
+        boot_s = time.monotonic() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    T = TRAIN_BATCH * (TRAIN_SEQ - 1)
+    g, G, Cg = routing_groups(tcfg, T)
+    params = train.state[0]
+    check(train.max_steps == MOE_TRAIN_STEPS and train.params.weight == 512
+          and tuple(params["layers"]["we1"].shape)
+          == (MOE["n_layers"], MOE["n_experts"], MOE["d_model"], MOE["d_ff"])
+          and (g, G, Cg) == (T, 1, 1279),
+          f"moe-train booted cold from a \"moe\" image in {boot_s:.2f} s: "
+          f"{tcfg.num_params() / 1e6:.1f}M params, experts "
+          f"{tuple(params['layers']['we1'].shape)}, {T} routed tokens in "
+          f"{G} group of {g}, capacity {Cg} per expert")
+    spare = torch.randint(0, tcfg.vocab, (TRAIN_BATCH, TRAIN_SEQ),
+                          device="cuda", generator=gen)
+    value_and_grad(lambda p: moe_loss(tcfg, p, spare), params)  # warm-up
+    watch = {"embed": params["embed"][:8].clone(),
+             "router": params["layers"]["router"][0].clone(),
+             "we1": params["layers"]["we1"][0, 0, :8].clone(),
+             "head": params["head"][:, :8].clone()}
+    metrics, train_step = [], train.step_fn
+
+    def train_fn(state):
+        state, m = train_step(state)
+        metrics.append(m)
+        return state, m
+
+    train.step_fn = train_fn
+
+    scfg = moe_config(dtype=torch.bfloat16, dropless=True)
+    cfg32 = moe_config(dtype=torch.float32, dropless=True)
+    master = init_moe_params(cfg32, torch.Generator(device="cuda")
+                             .manual_seed(MOE_SEED + 1), device="cuda")
+    sparams = cast_params(master, torch.bfloat16)
+    # the router stays fp32: the router product runs in fp32 anyway
+    sparams["layers"]["router"] = master["layers"]["router"]
+    eng = ContinuousBatcher(scfg, sparams, mlp_fn=moe_slot_mlp(scfg), **kw)
+    serve_step = make_continuous_serve_step(
+        eng, next_requests=lambda t: [reqs[i] for i in arrivals.get(t, [])])
+    ticks = []
+
+    def serve_fn(state):
+        t = time.monotonic()
+        out = serve_step(state)
+        ticks.append(((time.monotonic() - t) * 1e3, len(eng._admitted)))
+        return out
+
+    torch.cuda.synchronize()
+    part = Partition("moe", source=CudaBackend(profile_every=0))
+    fb = FeedbackPolicy(part)
+    jobs = {"moe-train": train,
+            "moe-serve": Job("moe-serve", step_fn=serve_fn,
+                             state={"step": 0, "completed": 0},
+                             params=SchedParams(weight=256, tslice_us=100,
+                                                boost_on_wake=True),
+                             max_steps=n_ticks)}
+    for job in jobs.values():
+        part.add_job(job)
+    wrappers = bwd_counts()
+    reset_counts(wrappers)
+    t0 = time.monotonic()
+    quanta = part.run()
+    wall = time.monotonic() - t0
+    launches = dict(zip(KERNELS, (w.launches for w in wrappers)))
+    routes = dict(zip(KERNELS, (dict(w.launches_by_route)
+                                for w in wrappers)))
+    print(f"  (a) {quanta} quanta in {wall:.2f} s wall; kernel launches "
+          f"{launches}, by route {routes}", flush=True)
+    print_tenants(jobs, Counter)
+    print(f"  feedback: {json.dumps(fb.dump())}")
+    for name, job in jobs.items():
+        check(job.error is None and job.steps_retired() == job.max_steps,
+              f"{name}: {job.steps_retired()} steps retired, no fault "
+              f"({job.error})")
+        snap = part.ledger.snapshot(job.contexts[0].ledger_slot)
+        check(snap.tolist() == job.contexts[0].counters.tolist(),
+              f"{name}: ledger snapshot equals the context counters")
+    tokens = int(train.contexts[0].counters[Counter.TOKENS])
+    check(tokens == MOE_TRAIN_STEPS * T,
+          f"moe-train: ledger TOKENS {tokens} == {MOE_TRAIN_STEPS} steps x "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ - 1}")
+    losses = [float(m["loss"]) for m in metrics]
+    drops = [float(m["moe_drop_frac"]) for m in metrics]
+    auxes = [float(m["aux_loss"]) for m in metrics]
+    print(f"  moe-train: losses {[round(x, 4) for x in losses]}, aux "
+          f"{[round(x, 4) for x in auxes]}, moe_drop_frac "
+          f"{[round(x, 4) for x in drops]}", flush=True)
+    check(len(losses) == MOE_TRAIN_STEPS
+          and all(math.isfinite(x) for x in losses + auxes),
+          f"moe-train: {len(losses)} losses and aux losses, all finite")
+    check(all(0.0 <= x < 1.0 for x in drops),
+          f"moe-train: moe_drop_frac {drops} in [0, 1)")
+    moved = {"embed": max_abs(params["embed"][:8], watch["embed"]),
+             "router": max_abs(params["layers"]["router"][0],
+                               watch["router"]),
+             "we1": max_abs(params["layers"]["we1"][0, 0, :8], watch["we1"]),
+             "head": max_abs(params["head"][:, :8], watch["head"])}
+    check(all(x > 0 for x in moved.values()),
+          f"moe-train: params moved (max |delta| {moved})")
+    st = eng.stats()
+    ctx = jobs["moe-serve"].contexts[0]
+    served = int(ctx.counters[Counter.TOKENS])
+    check(st["completed"] == len(reqs) == jobs["moe-serve"].state["completed"]
+          and not eng.has_work(),
+          f"moe-serve: {st['completed']} of {len(reqs)} requests completed "
+          f"in the {n_ticks} ticks the script needs")
+    check(served == eng.tokens_emitted == sum(budgets),
+          f"moe-serve: ledger TOKENS {served} == tokens_emitted "
+          f"{eng.tokens_emitted} == the budgets' sum {sum(budgets)}")
+    check(st["mlp_extra_mean"] == 0.0,
+          f"moe-serve: mlp_extra_mean {st['mlp_extra_mean']} == 0.0 "
+          f"(dropless: no token dropped)")
+    L = tcfg.n_layers
+    derive = {"flash_fwd": (2 * L * MOE_TRAIN_STEPS,
+                            f"{L} layers x {MOE_TRAIN_STEPS} steps x 2 "
+                            f"(forward + recompute under full remat)"),
+              "flash_bwd_dq": (L * MOE_TRAIN_STEPS,
+                               f"{L} layers x {MOE_TRAIN_STEPS} steps"),
+              "flash_bwd_dkv": (L * MOE_TRAIN_STEPS,
+                                f"{L} layers x {MOE_TRAIN_STEPS} steps"),
+              "instrumented_matmul": (0, "no matmul tenant; the expert "
+                                         "products are einsums")}
+    for name, (want, how) in derive.items():
+        n = launches[name]
+        check(n == want and routes[name] == {"wgmma": n, "simt": 0},
+              f"{name}: {n} launches == {want} = {how}, every one on the "
+              f"tensor-core route ({routes[name]}); the engine launches none")
+    ms_train = (int(train.contexts[0].counters[Counter.DEVICE_TIME_NS]) / 1e6
+                / MOE_TRAIN_STEPS)
+    ms_eng = int(ctx.counters[Counter.DEVICE_TIME_NS]) / 1e6
+    print(f"  moe-train: {ms_train:.2f} ms per step (ledger device time / "
+          f"{MOE_TRAIN_STEPS}) [{card}]", flush=True)
+    print(engine_line(
+        "(a) bf16 dropless MoE engine (tenant)", eng, wall,
+        decode_tick_ms(ticks), time_prefill(torch, eng, reqs[0][0]),
+        serve_ms_per_token, card,
+        f"; ledger {ms_eng / n_ticks:.2f} ms per tick, "
+        f"{ms_eng / served:.3f} ms per token"), flush=True)
+    del eng, sparams
+    print(f"  (a) wall {time.monotonic() - t_phase:.1f} s", flush=True)
+
+    # (b) an fp32 dropless engine, token-exact against make_moe_generate
+    def fwd(cfg, p, tokens, cache):
+        return moe_forward_with_cache(cfg, p, tokens, cache)
+
+    first = {i: reqs[i] for i in range(ENGINE_FIRST)}
+    first_arrivals = {0: list(first)}
+    plain = ContinuousBatcher(cfg32, master, mlp_fn=moe_slot_mlp(cfg32), **kw)
+    b = drive_engine(torch, plain, reqs, first_arrivals)
+    b_toks = {i: c.tokens for i, c in b["done"].items()}
+    check(sorted(b_toks) == list(first)
+          and all(len(b_toks[i]) == reqs[i][1] for i in first)
+          and plain.stats()["mlp_extra_mean"] == 0.0,
+          f"(b) fp32 MoE engine: {len(b_toks)} requests, each with its "
+          f"budget, mlp_extra_mean 0.0")
+    want, drops = {}, []
+    for i, (prompt, n) in first.items():
+        out, drop = make_moe_generate(cfg32, n)(
+            master, torch.tensor(prompt[None], device="cuda"))
+        want[i] = out[0].tolist()
+        drops.append(float(drop))
+    check(all(x == 0.0 for x in drops),
+          f"(b) lockstep make_moe_generate: drop fraction 0.0 on all "
+          f"{len(drops)} requests (dropless): {drops}")
+    ties = compare_tokens(torch, cfg32, master, reqs, b_toks, want,
+                          "(b) fp32 MoE engine vs lockstep "
+                          "make_moe_generate (B=1)", fwd)
+    print(f"  (b) fp32 MoE engine token-exact against the lockstep generate "
+          f"on {len(want) - len(ties)} of {len(want)} requests, the rest "
+          f"near-ties {ties}", flush=True)
+    print(engine_line("(b) fp32 dropless MoE engine", plain, b["wall"],
+                      decode_tick_ms(b["ticks"]),
+                      time_prefill(torch, plain, reqs[0][0]),
+                      serve_ms_per_token, card), flush=True)
+    b_steps = plain.stats()["steps"]
+    del plain
+
+    # (c) the speculative engine, MoE target and MoE noisy-head draft
+    head = master["head"]
+    noise = torch.randn(head.shape, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(MOE_SEED + 2))
+    draft = dict(master, head=head + ENGINE_DRAFT_NOISE * head.std() * noise)
+    spec = SpeculativeBatcher(cfg32, master, cfg32, draft, k=ENGINE_K,
+                              mlp_fn=moe_slot_mlp(cfg32),
+                              draft_mlp_fn=moe_slot_mlp(cfg32), **kw)
+    c = drive_engine(torch, spec, reqs, first_arrivals)
+    c_toks = {i: r.tokens for i, r in c["done"].items()}
+    check(sorted(c_toks) == list(first),
+          f"(c) speculative MoE engine: {len(c_toks)} requests completed")
+    spec_ties = compare_tokens(torch, cfg32, master, reqs, c_toks, b_toks,
+                               "(c) speculative MoE vs (b)'s engine", fwd)
+    sst = spec.stats()
+    check(sst["steps"] < b_steps and sst["mlp_extra_mean"] == 0.0
+          and sst["draft_mlp_extra_mean"] == 0.0,
+          f"(c) speculative MoE engine: {sst['steps']} ticks < (b)'s "
+          f"{b_steps}; target and draft drop nothing")
+    print(engine_line("(c) fp32 speculative MoE engine, k=4", spec,
+                      c["wall"], decode_tick_ms(c["ticks"]),
+                      time_prefill(torch, spec, reqs[0][0]),
+                      serve_ms_per_token, card,
+                      f"; spec_acceptance {sst['spec_acceptance']} "
+                      f"({sst['spec_accepted']} of {sst['spec_proposed']}); "
+                      f"near-ties {spec_ties}"), flush=True)
+    del spec, draft, noise
+    print(f"  phase 3e wall {time.monotonic() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return launches, routes, train_step, train.state, master
+
+
 # -- phase 4 -----------------------------------------------------------------
 
 
@@ -2168,6 +2471,104 @@ def check_train_numerics(torch, gen, cfg, params) -> None:
     check(all(math.isfinite(v) and v < 0.05 for v in rels.values()),
           f"train gradients, flash vs dense: every leaf's relative norm "
           f"difference < 0.05 (largest {rels[worst]:.3e}, {worst})")
+
+
+def routed_run(torch, cfg, params, tokens):
+    """``moe_loss``'s value and gradients on ``tokens`` and
+    ``moe_forward``'s logits on ``tokens[:, :-1]`` (the positions the loss
+    routes), with the router probabilities every layer's
+    ``top_k_dispatch`` routed on in the forward."""
+    from pbs_tpu_torch.models import moe as moe_mod
+    from pbs_tpu_torch.models.transformer import value_and_grad
+
+    seen, inner = [], moe_mod.top_k_dispatch
+
+    def recording(probs, k, capacity):
+        seen.append(probs.detach())
+        return inner(probs, k, capacity)
+
+    moe_mod.top_k_dispatch = recording
+    try:
+        with torch.no_grad():
+            logits = moe_mod.moe_forward(cfg, params, tokens[:, :-1])[0]
+    finally:
+        moe_mod.top_k_dispatch = inner
+    (loss, _), grads = value_and_grad(
+        lambda p: moe_mod.moe_loss(cfg, p, tokens), params)
+    return logits, float(loss), grads, seen
+
+
+def route_flips(torch, want: list, got: list, k: int) -> list:
+    """Per layer, the tokens whose ordered top-k experts differ between
+    two runs' router probabilities, each with the reference run's
+    smallest gap between adjacent sorted probabilities among its top
+    k + 1 (a near-tie shows as a tiny gap)."""
+    out = []
+    for pw, pg in zip(want, got):
+        sw, iw = torch.sort(pw.reshape(-1, pw.shape[-1]), dim=-1,
+                            descending=True, stable=True)
+        ig = torch.sort(pg.reshape(-1, pg.shape[-1]), dim=-1,
+                        descending=True, stable=True)[1]
+        flipped = (iw[:, :k] != ig[:, :k]).any(dim=-1).nonzero()[:, 0]
+        gaps = (sw[:, :k] - sw[:, 1:k + 1]).min(dim=-1).values
+        out.append([(int(t), float(gaps[t])) for t in flipped])
+    return out
+
+
+def check_moe_numerics(torch, gen, master) -> None:
+    """fp32 at width: the MoE forward, one batch's loss and every
+    gradient leaf through the flash kernels against the dense attention
+    path on the same weights (moe-train's capacity routing), with the
+    routing decisions that flipped between the two. Without a flip the
+    bounds are fp32's; a flip moves its token's output, and must sit at a
+    near-tie in the first layer that has one."""
+    cfg = moe_config(dtype=torch.float32, attn_impl="pallas")
+    tokens = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ),
+                           device="cuda", generator=gen)
+    lf, loss_f, g_f, p_f = routed_run(torch, cfg, master, tokens)
+    ld, loss_d, g_d, p_d = routed_run(
+        torch, dataclasses.replace(cfg, attn_impl="xla"), master, tokens)
+    flips = route_flips(torch, p_d, p_f, cfg.top_k)
+    n_flips = [len(f) for f in flips]
+    first = next((i for i, f in enumerate(flips) if f), None)
+    decisions = TRAIN_BATCH * (TRAIN_SEQ - 1) * cfg.n_layers
+    print(f"  MoE routing, flash vs dense attention (fp32): flipped "
+          f"decisions per layer {n_flips} of {decisions // cfg.n_layers} "
+          f"each; at each flip of the first layer that has one, the dense "
+          f"run's smallest top-{cfg.top_k + 1} probability gap "
+          f"{[f'{g:.2e}' for _, g in flips[first]] if first is not None else []}",
+          flush=True)
+    if first is not None:
+        worst = max(g for _, g in flips[first])
+        check(worst < MOE_ROUTE_TIE,
+              f"MoE routing: every flip in layer {first} (the first with "
+              f"one) at a near-tie, gap {worst:.2e} < {MOE_ROUTE_TIE:g}")
+    rels = {name: float(torch.linalg.vector_norm(g - d)
+                        / torch.linalg.vector_norm(d))
+            for (name, g), (_, d) in zip(named_leaves(g_f),
+                                         named_leaves(g_d))}
+    worst = max(rels, key=rels.get)
+    rel_logits = rel_err(lf, ld)
+    rel_loss = abs(loss_f - loss_d) / abs(loss_d)
+    print(f"  |g_flash - g_dense| / |g_dense| per leaf: "
+          f"{ {k: float(f'{v:.3e}') for k, v in rels.items()} }")
+    # fp32 without a flip; with one, the bf16 bounds of the dense phase
+    b_logits, b_loss, b_grad = ((1e-3, 1e-4, 1e-3) if first is None
+                                else (None, 1e-2, 0.05))
+    finite = bool(torch.isfinite(lf).all()) and math.isfinite(loss_f)
+    check(finite and tuple(lf.shape) == (TRAIN_BATCH, TRAIN_SEQ - 1,
+                                         cfg.vocab)
+          and (b_logits is None or rel_logits < b_logits),
+          f"MoE logits, flash vs dense attention (fp32): finite, max abs "
+          f"diff {max_abs(lf, ld):.3e}, rel {rel_logits:.3e}"
+          + (f" < {b_logits:g}" if b_logits else " (a flip: not bounded)"))
+    check(rel_loss < b_loss,
+          f"MoE loss, flash vs dense (fp32): {loss_f:.6f} vs {loss_d:.6f}, "
+          f"rel {rel_loss:.2e} < {b_loss:g}")
+    check(all(math.isfinite(v) and v < b_grad for v in rels.values()),
+          f"MoE gradients, flash vs dense (fp32): every leaf's relative "
+          f"norm difference < {b_grad:g} (largest {rels[worst]:.3e}, "
+          f"{worst})")
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -2305,12 +2706,14 @@ def device_self_us(e) -> float:
                          getattr(e, "self_cuda_time_total", 0.0)))
 
 
-def profile_micro_step(torch, micro_step, state) -> None:
-    """One more training micro-step under torch.profiler: device time by
-    kernel and the device's idle share of the step's wall time, each of
-    the port's flash kernels on its own and everything else by the
-    telemetry plane's classifier (``classify_kernel``). A measurement,
-    not a check: where the profiler records no device time it says so."""
+def profile_micro_step(torch, micro_step, state,
+                       what: str = "micro-step") -> None:
+    """One more training micro-step (or ``what``) under torch.profiler:
+    device time by kernel and the device's idle share of the step's wall
+    time, each of the port's flash kernels on its own and everything
+    else by the telemetry plane's classifier (``classify_kernel``). A
+    measurement, not a check: where the profiler records no device time
+    it says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2337,7 +2740,7 @@ def profile_micro_step(torch, micro_step, state) -> None:
         g = next((k for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
                   if f"{k}_" in key), None) or classify_kernel(key)
         groups[g] += device_self_us(e)
-    print(f"  profiled micro-step: {wall_us / 1e3:.2f} ms wall (profiler "
+    print(f"  profiled {what}: {wall_us / 1e3:.2f} ms wall (profiler "
           f"on), {busy / 1e3:.2f} ms device busy, idle share "
           f"{1 - busy / wall_us:.3f}", flush=True)
     print("  device ms by group (the flash kernels, then the rest by "
@@ -2602,10 +3005,17 @@ def main() -> int:
           "under pressure, an async checkpoint, the loader")
     p_launches, p_routes = run_paging_path(torch, gen, card_line())
 
+    phase("3e MoE: a training tenant booted from a \"moe\" image beside the "
+          "dropless MoE engine; fp32 exactness and speculation")
+    (moe_launches, moe_routes, moe_step, moe_state,
+     moe_master) = run_moe_path(torch, gen, serve_ms_per_token, card_line())
+
     phase("4 numerics at width")
     check_numerics(torch, gen, cfg, params)
     del params
     check_train_numerics(torch, gen, train_cfg, train_params)
+    check_moe_numerics(torch, gen, moe_master)
+    del moe_master
 
     phase("5 times at the main paths' shapes")
     rows = time_kernels(torch, gen, launches, routes, train_launches,
@@ -2624,8 +3034,13 @@ def main() -> int:
         # phase 3p's run: scorers, train-a and train-b
         r["memory_path_launches"] = p_launches[kernel]
         r["memory_path_launches_by_route"] = p_routes[kernel]
+        # phase 3e(a)'s run: moe-train beside moe-serve
+        r["moe_path_launches"] = moe_launches[kernel]
+        r["moe_path_launches_by_route"] = moe_routes[kernel]
     profile_micro_step(torch, micro_step, train_state)
     del micro_step, train_state
+    profile_micro_step(torch, moe_step, moe_state, what="MoE training step")
+    del moe_step, moe_state
     time_remat_policies(torch, gen, train_cfg, train_params)
 
     print(card_line())

@@ -15,12 +15,16 @@ copy of the whole cache per token), and sampling draws from a
 reference; sampled tokens follow the same distribution, not the same
 stream). An int8-quantized tree (``models.quant.quantize_weights``)
 serves through the same forward, by ``wload`` and ``embed_rows``. The
-MoE serving variant is not ported yet (ROADMAP).
+cached forward and the decode loop take the FFN block as a parameter
+(``mlp_fn``, the loop's ``fwd``), so the MoE serving path
+(``models.moe.moe_forward_with_cache``, ``make_moe_generate``) shares
+them with the dense one.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Any
 
 import torch
 
@@ -68,13 +72,16 @@ def _cached_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
 
 
-def forward_with_cache(cfg: TransformerConfig, params: dict,
-                       tokens: torch.Tensor,
-                       cache: dict) -> tuple[torch.Tensor, dict]:
-    """Run ``tokens`` (B, S) through the model starting at the cache
-    position: new K/V are written into the slabs (in place), attention
-    sees the whole prefix. Returns (logits (B, S, vocab) fp32, cache
-    with the position advanced)."""
+def _forward_with_cache_impl(cfg: TransformerConfig, params: dict,
+                             tokens: torch.Tensor, cache: dict,
+                             mlp_fn=None) -> tuple[torch.Tensor, dict, Any]:
+    """The cached-forward plumbing (embed, rope slice, KV update, cached
+    attention, norms, head) over the FFN block, so the dense and MoE
+    serving paths keep one copy. ``mlp_fn(lp, h) -> (y, extra)``
+    replaces the dense SwiGLU when given; the per-layer ``extra``
+    scalars (MoE drop fractions) are summed, and without ``mlp_fn`` the
+    sum is the Python float 0.0. Returns (logits (B, S, vocab) fp32, the
+    cache with the position advanced, the extra sum)."""
     B, S = tokens.shape
     T = cache["k"].shape[2]
     dt = cfg.dtype
@@ -87,6 +94,7 @@ def forward_with_cache(cfg: TransformerConfig, params: dict,
     x = embed_rows(params["embed"], tokens, dt)
     cos_full, sin_full = rope_tables(cfg, T, device=x.device)
     cos, sin = cos_full[start:start + S], sin_full[start:start + S]
+    extra = 0.0
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
         ck, cv = cache["k"][i], cache["v"][i]
@@ -100,12 +108,28 @@ def forward_with_cache(cfg: TransformerConfig, params: dict,
         attn = _cached_attention(q, ck, cv, start, cfg)
         x = x + attn.reshape(B, S, nh * hd) @ wload(lp["wo"], dt)
         h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        gate = torch.nn.functional.silu(h @ wload(lp["w1"], dt))
-        up = h @ wload(lp["w3"], dt)
-        x = x + (gate * up) @ wload(lp["w2"], dt)
+        if mlp_fn is None:
+            gate = torch.nn.functional.silu(h @ wload(lp["w1"], dt))
+            up = h @ wload(lp["w3"], dt)
+            y = (gate * up) @ wload(lp["w2"], dt)
+        else:
+            y, e = mlp_fn(lp, h)
+            extra = extra + e
+        x = x + y
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (x @ wload(params["head"], dt)).float()
-    return logits, {"k": cache["k"], "v": cache["v"], "pos": start + S}
+    return logits, {"k": cache["k"], "v": cache["v"], "pos": start + S}, extra
+
+
+def forward_with_cache(cfg: TransformerConfig, params: dict,
+                       tokens: torch.Tensor,
+                       cache: dict) -> tuple[torch.Tensor, dict]:
+    """Run ``tokens`` (B, S) through the model starting at the cache
+    position: new K/V are written into the slabs (in place), attention
+    sees the whole prefix. Returns (logits (B, S, vocab) fp32, cache
+    with the position advanced)."""
+    logits, cache, _ = _forward_with_cache_impl(cfg, params, tokens, cache)
+    return logits, cache
 
 
 def prefill(cfg: TransformerConfig, params: dict, prompt: torch.Tensor,
@@ -124,6 +148,35 @@ def _sample(logits: torch.Tensor, generator: torch.Generator | None,
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
 
 
+def make_generate_loop(cfg: TransformerConfig, max_new_tokens: int,
+                       temperature: float, fwd):
+    """The shared decode loop (cache init, prefill, then single-token
+    decodes) over the forward ``fwd(params, tokens, cache) -> (logits,
+    cache, extra)``. Returns ``loop(params, prompt, generator) -> (toks
+    (B, max_new_tokens) int32, extra of the prefill, extra summed over
+    the decodes, P)``; wrappers decide what ``extra`` means (dense:
+    nothing; MoE: router drop fractions)."""
+
+    @torch.no_grad()
+    def loop(params: dict, prompt: torch.Tensor,
+             generator: torch.Generator | None = None):
+        B, P = prompt.shape
+        cache = init_cache(cfg, B, max_len=P + max_new_tokens,
+                           device=prompt.device)
+        logits, cache, extra0 = fwd(params, prompt, cache)
+        tok = _sample(logits[:, -1, :], generator, temperature)
+        toks, esum = [tok], 0.0
+        # max_new_tokens - 1 decode forwards produce the remaining tokens
+        for _ in range(max_new_tokens - 1):
+            logits, cache, e = fwd(params, tok[:, None], cache)
+            tok = _sample(logits[:, -1, :], generator, temperature)
+            toks.append(tok)
+            esum = esum + e
+        return torch.stack(toks, dim=1), extra0, esum, P
+
+    return loop
+
+
 def make_generate(cfg: TransformerConfig, max_new_tokens: int,
                   temperature: float = 0.0):
     """Returns ``generate(params, prompt, generator) -> (B,
@@ -132,21 +185,14 @@ def make_generate(cfg: TransformerConfig, max_new_tokens: int,
     the request class needs. The first token comes from the prefill,
     the remaining ``max_new_tokens - 1`` from single-token decodes."""
 
-    @torch.no_grad()
+    def fwd(params, tokens, cache):
+        return _forward_with_cache_impl(cfg, params, tokens, cache)
+
+    loop = make_generate_loop(cfg, max_new_tokens, temperature, fwd)
+
     def generate(params: dict, prompt: torch.Tensor,
                  generator: torch.Generator | None = None) -> torch.Tensor:
-        B, P = prompt.shape
-        cache = init_cache(cfg, B, max_len=P + max_new_tokens,
-                           device=prompt.device)
-        logits, cache = forward_with_cache(cfg, params, prompt, cache)
-        tok = _sample(logits[:, -1, :], generator, temperature)
-        toks = [tok]
-        for _ in range(max_new_tokens - 1):
-            logits, cache = forward_with_cache(cfg, params, tok[:, None],
-                                               cache)
-            tok = _sample(logits[:, -1, :], generator, temperature)
-            toks.append(tok)
-        return torch.stack(toks, dim=1)
+        return loop(params, prompt, generator)[0]
 
     return generate
 

@@ -34,9 +34,10 @@ per decode tick is the sampled tokens. Sampling draws from a
 ``torch.Generator`` seeded from ``seed``: greedy output is token-exact
 against the reference; sampled output follows the same distribution,
 not JAX's stream. The attention is the reference's dense masked einsum
-(no kernel on this path). Tensor-parallel serving (``mesh=``) waits for
-``parallel/`` (ROADMAP queue 1, items 7-8); the ``mlp_fn`` seam is
-ported, MoE serving through it waits for ``models/moe.py`` (item 6).
+(no kernel on this path). The ``mlp_fn`` seam swaps the FFN block: MoE
+serving is ``mlp_fn=models.moe.moe_slot_mlp(cfg)``, its drop fraction
+``stats()["mlp_extra_mean"]``. Tensor-parallel serving (``mesh=``)
+waits for ``parallel/`` (ROADMAP queue 1, items 7-8).
 """
 
 from __future__ import annotations

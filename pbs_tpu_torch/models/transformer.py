@@ -405,16 +405,25 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
+def value_and_grad(fn: Callable, params: dict) -> tuple[tuple, dict]:
+    """``jax.value_and_grad(fn, has_aux=True)(params)`` for ``fn(params)
+    -> (loss, aux)``: ((the detached loss, aux), a gradient tree shaped
+    like ``params``, fp32 as the master leaves). ``params`` themselves
+    are left without ``requires_grad``."""
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss, aux = fn(live)
+    it = iter(torch.autograd.grad(loss, tree_leaves(live)))
+    return (loss.detach(), aux), tree_map(lambda _: next(it), live)
+
+
 def loss_and_grads(cfg: TransformerConfig, params: dict,
                    tokens: torch.Tensor, full_seq: bool = False
                    ) -> tuple[torch.Tensor, dict]:
     """``jax.value_and_grad(next_token_loss)``: the detached loss and a
-    gradient tree shaped like ``params`` (fp32, as the master leaves).
-    ``params`` themselves are left without ``requires_grad``."""
-    live = tree_map(lambda p: p.detach().requires_grad_(), params)
-    loss = next_token_loss(cfg, live, tokens, full_seq)
-    it = iter(torch.autograd.grad(loss, tree_leaves(live)))
-    return loss.detach(), tree_map(lambda _: next(it), live)
+    gradient tree shaped like ``params``."""
+    (loss, _), grads = value_and_grad(
+        lambda p: (next_token_loss(cfg, p, tokens, full_seq), None), params)
+    return loss, grads
 
 
 # -- optimizer --------------------------------------------------------------

@@ -25,8 +25,9 @@ numpy generators, so both packages train on the same tokens. Kind
 ``"synthetic"`` draws from a ``torch.Generator`` seeded from ``seed +
 1`` folded with the step, as the reference seeds its key; the port
 never reproduces JAX PRNG streams, so synthetic tokens differ from the
-reference's. Kind ``"moe"`` images raise until MoE is ported (ROADMAP
-queue 1, item 6).
+reference's. Kind ``"moe"`` images boot the MoE family
+(``models.moe``: ``MoEConfig``, ``init_moe_params``,
+``make_moe_train_step``).
 """
 
 from __future__ import annotations
@@ -160,16 +161,15 @@ def _make_batch_fn(data: dict, image_path: str, batch: int, seq: int,
 def _build(kind: str, config: dict, train: dict, data: dict,
            image_path: str, device: Any = None):
     """(cfg, init_state_fn, step_fn) for a manifest."""
-    if kind != "transformer":  # moe — validated by read_manifest
-        raise NotImplementedError(
-            "MoE images need models/moe.py, not ported yet (ROADMAP "
-            "queue 1, item 6)")
-    from pbs_tpu_torch.models.transformer import (
+    from pbs_tpu_torch.models import (
+        MoEConfig,
         TransformerConfig,
+        init_moe_params,
         init_params,
+        make_moe_train_step,
         make_train_step,
-        resolve_device,
     )
+    from pbs_tpu_torch.models.transformer import resolve_device
 
     dev = resolve_device(device)
     cfg_kwargs = dict(config)
@@ -180,12 +180,18 @@ def _build(kind: str, config: dict, train: dict, data: dict,
     seq = int(train.get("seq", 256))
     seed = int(train.get("seed", 0))
 
-    cfg = TransformerConfig(**cfg_kwargs)
-    init_opt, train_step = make_train_step(cfg, learning_rate=lr)
+    if kind == "transformer":
+        cfg = TransformerConfig(**cfg_kwargs)
+        init_opt, train_step = make_train_step(cfg, learning_rate=lr)
+        init_fn = init_params
+    else:  # moe — validated by read_manifest
+        cfg = MoEConfig(**cfg_kwargs)
+        init_opt, train_step = make_moe_train_step(cfg, learning_rate=lr)
+        init_fn = init_moe_params
 
     def init_state():
         gen = torch.Generator(device=dev).manual_seed(seed)
-        params = init_params(cfg, gen, device=dev)
+        params = init_fn(cfg, gen, device=dev)
         return (params, init_opt(params), 0)
 
     seq = min(seq, cfg.max_seq)

@@ -480,3 +480,57 @@ def test_prefetcher_batches_on_the_card_equal_their_windows(gen, tmp_path):
             # a consumer-stream kernel reads it only after its copy
             assert torch.equal((got + 0).cpu(), torch.from_numpy(want()))
     ds.close()
+
+
+# -- the MoE family on the card -----------------------------------------------
+
+
+def test_moe_ffn_and_train_step_on_the_card_match_the_host(gen):
+    """fp32, attention through the flash kernels, full remat: the routed
+    FFN, the loss and every gradient on the card against the same
+    weights on the host's plain path (rtol 2e-4, atol 2e-5, the bound
+    of tests/test_torch_train.py; routing the same), and one training
+    step launching 2.1 twice per layer (forward and recompute) and 2.2
+    and 2.3 once, each on the CUDA-core route (fp32)."""
+    from pbs_tpu_torch.models import MoEConfig, init_moe_params
+    from pbs_tpu_torch.models.moe import (make_moe_train_step, moe_loss,
+                                          moe_mlp)
+    from pbs_tpu_torch.models.transformer import (layer_params, tree_leaves,
+                                                  tree_map, value_and_grad)
+
+    cfg = MoEConfig(vocab=256, d_model=128, n_layers=2, n_heads=4,
+                    n_kv_heads=2, d_ff=96, max_seq=128, n_experts=4,
+                    top_k=2, dtype=torch.float32, attn_impl="pallas",
+                    remat=True)
+    params = init_moe_params(cfg, gen)
+    host = tree_map(lambda t: t.cpu(), params)
+    tol = dict(rtol=2e-4, atol=2e-5)
+    x = torch.randn(2, 64, 128, device="cuda", generator=gen)
+    got = moe_mlp(cfg, x, layer_params(params, 0))
+    want = moe_mlp(cfg, x.cpu(), layer_params(host, 0))
+    torch.testing.assert_close(got[0].cpu(), want[0], **tol)
+    for g, w in zip(got[1:], want[1:]):
+        assert abs(float(g) - float(w)) <= 1e-6
+
+    toks = torch.randint(0, 256, (2, 65), device="cuda", generator=gen)
+    (loss, parts), grads = value_and_grad(
+        lambda p: moe_loss(cfg, p, toks), params)
+    (hloss, hparts), hgrads = value_and_grad(
+        lambda p: moe_loss(cfg, p, toks.cpu()), host)
+    torch.testing.assert_close(loss.cpu(), hloss, **tol)
+    assert abs(float(parts[2]) - float(hparts[2])) <= 1e-6  # drop
+    for g, w in zip(tree_leaves(grads), tree_leaves(hgrads)):
+        torch.testing.assert_close(g.cpu(), w, **tol)
+
+    wrappers = (attention.flash_attention_cuda,
+                attention.flash_attention_bwd_dq_cuda,
+                attention.flash_attention_bwd_dkv_cuda)
+    before = [_routes(w) for w in wrappers]
+    init, step = make_moe_train_step(cfg, learning_rate=1e-3)
+    state, metrics = step((params, init(params), 0), toks)
+    assert state[2] == 1 and 0.0 <= float(metrics["moe_drop_frac"]) < 1.0
+    L = cfg.n_layers
+    for w, b, n in zip(wrappers, before, (2 * L, L, L)):
+        want_routes = dict(b)
+        want_routes["simt"] += n
+        assert _routes(w) == want_routes

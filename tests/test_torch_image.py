@@ -135,11 +135,19 @@ def test_port_image_boots_warm_in_jax(tmp_path):
 
 
 def test_moe_image_kind_waits_for_moe(tmp_path):
+    """A "moe" image boots the MoE family (it raised until MoE was
+    ported) and its step trains with the MoE metrics."""
     path = str(tmp_path / "img")
     port_rt.save_image(path, "moe", {**TINY, "n_experts": 4, "top_k": 2},
                        train={"batch": 2, "seq": 32, "max_steps": 1})
-    with pytest.raises(NotImplementedError, match="item 6"):
-        port_rt.boot_job(path, device="cpu")
+    job = port_rt.boot_job(path, device="cpu")
+    assert set(job.state[0]["layers"]) >= {"router", "we1", "we2", "we3"}
+    _, metrics = job.step_fn(job.state)
+    assert set(metrics) == {"loss", "aux_loss", "moe_drop_frac", "tokens"}
+    part = _part()
+    part.add_job(job)
+    part.run(max_rounds=10)
+    assert job.steps_retired() == 1 and job.error is None
 
 
 def test_warm_image_with_missing_checkpoint_refuses_cold_boot(tmp_path):
@@ -260,6 +268,75 @@ def test_jax_image_boots_in_the_port(tmp_path):
     for g, w in zip(tree_leaves(tstate[0]),
                     jax.tree_util.tree_leaves(jstate[0])):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **PARAM_TOL)
+
+
+MOE_TINY = {**TINY, "n_experts": 4, "top_k": 2}
+
+
+def test_jax_moe_image_boots_in_the_port(tmp_path):
+    """A JAX-written warm "moe" image, attention through the flash
+    kernels and corpus data: booted bit for bit, and the first step's
+    loss and MoE metrics those of the JAX boot. Its updated parameters
+    are the port's own make_moe_train_step on the booted state and
+    batch, bit for bit. (Against the reference they are held in
+    tests/test_torch_moe.py at widths where no gradient element sits
+    near Adam's eps: here one does, and the two frameworks' fp32 sums
+    put it on either side.)"""
+    path = str(tmp_path / "img")
+    os.makedirs(path, exist_ok=True)
+    rng = np.random.default_rng(1)
+    write_token_file(os.path.join(path, "shard.tok"),
+                     rng.integers(0, 64, size=8_192))
+    kw = dict(train={"batch": 2, "seq": 32, "learning_rate": 1e-2,
+                     "seed": 4},
+              data={"kind": "corpus", "path": "shard.tok"})
+    cfg = {**MOE_TINY, "attn_impl": "pallas"}
+    ref_rt.save_image(path, "moe", cfg, **kw)
+    cold = ref_rt.boot_job(path)
+    ref_rt.save_image(path, "moe", cfg, state=cold.state, **kw)
+
+    jjob = ref_rt.boot_job(path)
+    tjob = port_rt.boot_job(path, device="cpu")
+    for g, w in zip(tree_leaves(tjob.state),
+                    jax.tree_util.tree_leaves(jjob.state)):
+        gv = g.numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
+        assert np.array_equal(gv, np.asarray(w))  # booted bit for bit
+    from pbs_tpu_torch.models import MoEConfig, make_moe_train_step
+    from pbs_tpu_torch.models.transformer import tree_map
+
+    batch = _make_batch_fn(kw["data"], path, 2, 32, 64, 4, "cpu")(0)
+    init, step = make_moe_train_step(
+        MoEConfig(**{**cfg, "dtype": torch.float32}), learning_rate=1e-2)
+    params = tree_map(torch.clone, tjob.state[0])
+    own, _ = step((params, init(params), 0), batch)
+    jstate, jm = jjob.step_fn(jjob.state)
+    tstate, tm = tjob.step_fn(tjob.state)
+    for key in ("loss", "aux_loss", "moe_drop_frac"):
+        np.testing.assert_allclose(float(tm[key]), float(jm[key]),
+                                   **LOSS_TOL, err_msg=key)
+    assert tstate[2] == int(jstate[2]) == 1
+    for g, w in zip(tree_leaves(tstate[0]), tree_leaves(own[0])):
+        assert torch.equal(g, w)
+
+
+def test_port_moe_image_boots_warm_in_jax(tmp_path):
+    """A port-written warm "moe" image boots in the JAX package with
+    every leaf bit for bit."""
+    path = str(tmp_path / "img")
+    port_rt.save_image(path, "moe", MOE_TINY, train={"batch": 2, "seq": 32})
+    job = port_rt.boot_job(path, max_steps=1, device="cpu")
+    part = _part()
+    part.add_job(job)
+    part.run(max_rounds=10)
+    port_rt.save_image(path, "moe", MOE_TINY, state=job.state,
+                       train={"batch": 2, "seq": 32})
+    jjob = ref_rt.boot_job(path, max_steps=2)
+    got = jax.tree_util.tree_leaves(jjob.state)
+    want = tree_leaves(job.state)
+    assert len(got) == len(want) and int(jjob.state[2]) == 1
+    for g, w in zip(got, want):
+        wv = w.numpy() if isinstance(w, torch.Tensor) else np.asarray(w)
+        assert np.array_equal(np.asarray(g), wv)
 
 
 # -- consoles (xl console) --------------------------------------------------

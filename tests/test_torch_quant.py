@@ -4,7 +4,9 @@ Twins of ``tests/test_quant.py`` (accuracy, memory, the serving paths
 consuming quantized trees unchanged), plus parity: ``quantize_weights``
 is bitwise equal to the reference's on the same fp32 tree,
 ``quantized_nbytes`` counts the same bytes, quantized logits agree
-within rtol = atol = 1e-4 and greedy output is token-exact. The MoE,
+within rtol = atol = 1e-4 and greedy output is token-exact. The MoE
+case quantizes the (L, E, d, f) experts and leaves the router fp32; its
+lockstep and engine output is token-exact against the reference's. The
 mesh and checkpoint-CLI cases wait for their ROADMAP items.
 """
 
@@ -176,3 +178,60 @@ def test_quant_continuous_batcher(trees):
         outs.append({c.request_id: c.tokens for c in done})
     assert outs[1] == outs[0]
     assert [len(outs[1][r]) for r in (0, 1)] == [4, 6]
+
+
+def test_quant_moe_generate():
+    """A quantized MoE tree (tests/test_quant.py:90): the experts int8,
+    bitwise the reference's, the router fp32; the lockstep MoE decode
+    and the dropless MoE engine serve it token for token with the
+    reference's, and layer_params slices the 4-D {"q","s"} leaves."""
+    from pbs_tpu.models import moe as ref_moe
+    from pbs_tpu_torch.models import moe as port_moe
+
+    fields = dict(vocab=128, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+                  d_ff=64, max_seq=64, n_experts=4, top_k=2, dropless=True)
+    jcfg = ref_moe.MoEConfig(**fields, dtype=jnp.float32)
+    tcfg = port_moe.MoEConfig(**fields, dtype=torch.float32)
+    jq = ref.quantize_weights(ref_moe.init_moe_params(
+        jcfg, jax.random.PRNGKey(0)))
+    tq = port.params_from_numpy(jax.tree.map(np.asarray, jq), "cpu")
+    assert isinstance(tq["layers"]["we1"], dict)
+    assert not isinstance(tq["layers"]["router"], dict)  # router fp32
+    assert tq["layers"]["we1"]["q"].dtype == torch.int8
+    assert tuple(tq["layers"]["we2"]["s"].shape) == (2, 4, 1, 64)
+    lp = layer_params(tq, 1)
+    assert torch.equal(lp["we1"]["q"], tq["layers"]["we1"]["q"][1])
+    assert torch.equal(lp["we1"]["s"], tq["layers"]["we1"]["s"][1])
+    requant = port.quantize_weights(port.params_from_numpy(
+        jax.tree.map(np.asarray, ref_moe.init_moe_params(
+            jcfg, jax.random.PRNGKey(0))), "cpu"))
+    for (name, a), (_, b) in zip(_leaves(requant), _leaves(tq)):
+        assert torch.equal(a, b), name
+
+    prompt = _prompt(1, (2, 8))
+    want, wdrop = jax.jit(ref_moe.make_moe_generate(jcfg, 4))(
+        jq, jnp.asarray(prompt), jax.random.PRNGKey(2))
+    toks, drop = port_moe.make_moe_generate(tcfg, 4)(
+        tq, torch.from_numpy(prompt))
+    assert toks.shape == (2, 4)
+    np.testing.assert_array_equal(toks.numpy(), np.asarray(want))
+    assert float(drop) == float(wdrop) == 0.0
+
+    outs = []
+    for eng in (ref.ContinuousBatcher(jcfg, jq, n_slots=2, prompt_bucket=8,
+                                      max_len=32,
+                                      mlp_fn=ref_moe.moe_slot_mlp(jcfg)),
+                port.ContinuousBatcher(tcfg, tq, n_slots=2, prompt_bucket=8,
+                                       max_len=32, device="cpu",
+                                       mlp_fn=port_moe.moe_slot_mlp(tcfg))):
+        for p in prompt.tolist():
+            eng.submit(p, max_new_tokens=4)
+        done = []
+        for _ in range(20):
+            done += eng.step()
+            if not eng.has_work():
+                break
+        outs.append({c.request_id: c.tokens for c in done})
+        assert eng.stats()["mlp_extra_mean"] == 0.0
+    assert outs[1] == outs[0] == {i: t for i, t in
+                                  enumerate(toks.tolist())}

@@ -13,7 +13,9 @@ where both clamp.
 Beyond the twins: a prefix-cache entry survives its slot's reuse (the
 slabs are updated in place), construction leaves a fresh engine's
 state, and the port's engine runs behind the reference's
-``gateway.backends.BatcherBackend`` exactly as the JAX engine does.
+``gateway.backends.BatcherBackend`` exactly as the JAX engine does. The
+dropless MoE engine (``mlp_fn=moe_slot_mlp(cfg)``) runs the same way
+against the reference's and the port's lockstep ``make_moe_generate``.
 """
 
 from __future__ import annotations
@@ -472,3 +474,55 @@ def test_port_engine_behind_reference_batcher_backend(model):
     assert got["bypass"] == 1
     assert sorted(rid for rid, _ in got["polls"]) == ["r0", "r1", "r2"]
     assert all(m["tokens"] in (3, 4, 5) for _, m in got["polls"])
+
+
+# -- MoE serving through the mlp_fn seam -------------------------------------
+
+MOE = dict(vocab=64, d_model=32, n_layers=2, n_heads=2, n_kv_heads=2,
+           d_ff=48, max_seq=128, n_experts=4, top_k=2, dropless=True)
+
+
+@pytest.fixture(scope="module")
+def moe_model():
+    from pbs_tpu.models import moe as ref_moe
+    from pbs_tpu_torch.models import moe as port_moe
+
+    jcfg = ref_moe.MoEConfig(**MOE, dtype=jnp.float32)
+    tcfg = port_moe.MoEConfig(**MOE, dtype=torch.float32)
+    jparams = ref_moe.init_moe_params(jcfg, jax.random.PRNGKey(0))
+    tree = jax.tree.map(np.asarray, jparams)
+    return jcfg, tcfg, jparams, port.params_from_numpy(tree, "cpu")
+
+
+def test_moe_dropless_engine_matches_reference(moe_model):
+    """The dropless MoE engine: completions and stats() equal to the
+    reference engine's (mlp_extra_mean 0.0: nothing drops), and every
+    request's tokens those of the port's lockstep make_moe_generate."""
+    from pbs_tpu.models.moe import moe_slot_mlp as ref_slot_mlp
+    from pbs_tpu_torch.models.moe import make_moe_generate, moe_slot_mlp
+
+    jcfg, tcfg, jparams, tparams = moe_model
+    prompts = [[5, 9, 2, 31, 7], [3, 1, 4], [15, 9, 2, 6], [53, 5]]
+
+    def script(eng):
+        for p in prompts[:2]:
+            eng.submit(p, max_new_tokens=6)
+        early = [c for _ in range(2) for c in eng.step()]
+        for p in prompts[2:]:
+            eng.submit(p, max_new_tokens=5)
+        out = {c.request_id: dataclasses.asdict(c) for c in early}
+        out.update(_drain(eng))
+        return out
+
+    kw = dict(n_slots=3, prompt_bucket=8, max_len=32)
+    done = _same((ref.ContinuousBatcher(jcfg, jparams, clock=FakeClock(),
+                                        mlp_fn=ref_slot_mlp(jcfg), **kw),
+                  port.ContinuousBatcher(tcfg, tparams, clock=FakeClock(),
+                                         mlp_fn=moe_slot_mlp(tcfg),
+                                         device="cpu", **kw)), script)
+    for rid, p in enumerate(prompts):
+        n = len(done[rid]["tokens"])
+        want, drop = make_moe_generate(tcfg, n)(
+            tparams, torch.tensor([p], dtype=torch.int32))
+        assert done[rid]["tokens"] == want[0].tolist(), rid
+        assert float(drop) == 0.0

@@ -10,7 +10,9 @@ JAX package's ``init_params`` trees (fp32) carried across by
 noisy copy of the target's head, or a smaller model). Every greedy
 output is also held against the reference's, and every counter
 (rounds, proposed, accepted, reverified, engine ticks, acceptance)
-must be equal. The mesh and MoE cases wait for their ROADMAP items.
+must be equal. The MoE cases run an MoE target and draft through the
+``mlp_fn``/``draft_mlp_fn`` seams and a ``target_fwd`` closure. The mesh
+cases wait for their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -403,3 +405,119 @@ def test_speculative_rejects_bad_args(gen_models):
         with pytest.raises(ValueError, match="vocab"):
             make(tcfg, port.TransformerConfig(**{**DFT, "vocab": 64},
                                               dtype=torch.float32), 8)
+
+
+# -- MoE targets and drafts (tests/test_spec_serving.py's MoE cases) ---------
+
+MOE = dict(vocab=128, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+           d_ff=96, max_seq=128, n_experts=4, top_k=2)
+
+
+def _moe(seed, **over):
+    """(reference cfg, port cfg, JAX params, port params) of an MoE
+    model at MOE's widths."""
+    from pbs_tpu.models import moe as ref_moe
+    from pbs_tpu_torch.models import moe as port_moe
+
+    jcfg = ref_moe.MoEConfig(**MOE, **over, dtype=jnp.float32)
+    tcfg = port_moe.MoEConfig(**MOE, **over, dtype=torch.float32)
+    jp = ref_moe.init_moe_params(jcfg, jax.random.PRNGKey(seed))
+    return jcfg, tcfg, jp, _cross(jp)
+
+
+def test_moe_speculative_serving_token_exact(serve_models):
+    """An MoE target (capacity 4.0, which drops nothing here) with the
+    dense draft, and an MoE noisy-head draft beside it: each speculative
+    engine is token-exact against the plain MoE engine, and the port's
+    completions and stats() equal the reference's."""
+    from pbs_tpu.models.moe import moe_slot_mlp as ref_mlp
+    from pbs_tpu_torch.models.moe import moe_slot_mlp as port_mlp
+
+    jcfg, tcfg, jp, tp = _moe(0, capacity_factor=4.0)
+    jd_moe = _noisy_head(jp, 0.01)
+    dense = (serve_models[0], serve_models[1], serve_models[2],
+             serve_models[4])  # jcfg, tcfg, JAX and port params
+    kw = dict(n_slots=2, prompt_bucket=8, max_len=64)
+    plain = port.ContinuousBatcher(tcfg, tp, mlp_fn=port_mlp(tcfg),
+                                   device="cpu", **kw)
+    for p in PROMPTS:
+        plain.submit(p, max_new_tokens=8)
+    want = drain(plain)
+    for djcfg, dtcfg, djp, dtp, moe_draft in (
+            dense + (False,), (jcfg, tcfg, jd_moe, _cross(jd_moe), True)):
+        extra = ({"draft_mlp_fn": ref_mlp(djcfg)} if moe_draft else {},
+                 {"draft_mlp_fn": port_mlp(dtcfg)} if moe_draft else {})
+        engines = (ref.SpeculativeBatcher(jcfg, jp, djcfg, djp, k=3,
+                                          mlp_fn=ref_mlp(jcfg),
+                                          clock=FakeClock(), **extra[0],
+                                          **kw),
+                   port.SpeculativeBatcher(tcfg, tp, dtcfg, dtp, k=3,
+                                           mlp_fn=port_mlp(tcfg),
+                                           clock=FakeClock(), device="cpu",
+                                           **extra[1], **kw))
+        got = []
+        for eng in engines:
+            for p in PROMPTS:
+                eng.submit(p, max_new_tokens=8)
+            got.append(drain(eng))
+        assert got[1] == got[0] == want, moe_draft
+        assert engines[1].stats() == engines[0].stats()
+        assert engines[1].stats()["mlp_extra_mean"] == 0.0
+
+
+def test_moe_drop_telemetry_surfaces(serve_models):
+    """A capacity-starved MoE draft: the draft's drop telemetry rises
+    (> 0.1) and equals the reference engine's; the dense target's own
+    mlp_extra_mean stays 0.0."""
+    from pbs_tpu.models.moe import moe_slot_mlp as ref_mlp
+    from pbs_tpu_torch.models.moe import moe_slot_mlp as port_mlp
+
+    jcfg, tcfg, jp, _, tp, _ = serve_models
+    djcfg, dtcfg, djp, dtp = _moe(1, capacity_factor=0.3)
+    kw = dict(k=3, n_slots=2, prompt_bucket=8, max_len=64)
+    engines = (ref.SpeculativeBatcher(jcfg, jp, djcfg, djp,
+                                      draft_mlp_fn=ref_mlp(djcfg),
+                                      clock=FakeClock(), **kw),
+               port.SpeculativeBatcher(tcfg, tp, dtcfg, dtp,
+                                       draft_mlp_fn=port_mlp(dtcfg),
+                                       clock=FakeClock(), device="cpu",
+                                       **kw))
+    got = []
+    for eng in engines:
+        for p in PROMPTS[:2]:
+            eng.submit(p, max_new_tokens=8)
+        got.append(drain(eng))
+    assert got[1] == got[0]
+    want, st = engines[0].stats(), engines[1].stats()
+    assert st["draft_mlp_extra_mean"] > 0.1, st
+    np.testing.assert_allclose(st["draft_mlp_extra_mean"],
+                               want["draft_mlp_extra_mean"], rtol=0,
+                               atol=1e-6)
+    assert st["mlp_extra_mean"] == want["mlp_extra_mean"] == 0.0
+
+
+def test_moe_lockstep_speculation_with_target_fwd():
+    """make_speculative_generate with an MoE target through
+    ``target_fwd`` (dropless: routing per token) and a dense draft:
+    token-exact against the reference's and against the port's own
+    make_moe_generate, with equal round statistics."""
+    from pbs_tpu.models.moe import moe_forward_with_cache as ref_fwd
+    from pbs_tpu_torch.models.moe import (make_moe_generate,
+                                          moe_forward_with_cache)
+
+    jcfg, tcfg, jp, tp = _moe(0, dropless=True)
+    jdcfg, tdcfg = _cfgs(**DFT)
+    jd = ref.init_params(jdcfg, jax.random.PRNGKey(1))
+    prompt = _prompt(2, 2)
+    want, wstats = jax.jit(ref_spec.make_speculative_generate(
+        jcfg, jdcfg, MAX_NEW, k=K,
+        target_fwd=lambda p, t, c: ref_fwd(jcfg, p, t, c)))(
+        jp, jd, jnp.asarray(prompt))
+    toks, stats = port_spec.make_speculative_generate(
+        tcfg, tdcfg, MAX_NEW, k=K,
+        target_fwd=lambda p, t, c: moe_forward_with_cache(tcfg, p, t, c))(
+        tp, _cross(jd), torch.from_numpy(prompt))
+    np.testing.assert_array_equal(toks.numpy(), np.asarray(want))
+    greedy, _ = make_moe_generate(tcfg, MAX_NEW)(tp, torch.from_numpy(prompt))
+    np.testing.assert_array_equal(toks.numpy(), greedy.numpy())
+    assert stats == _stats(wstats)
