@@ -99,6 +99,27 @@ Phases, each fatal on failure:
              engine token-exact against the lockstep ``make_moe_generate``
              (3s's near-tie rule); (c) the speculative engine, MoE target
              and MoE noisy-head draft, exact against (b) in fewer ticks.
+3c. control — the partition's control plane at flagship width: score, mm
+             and a bf16 engine on 3s's script as Jobs, each run in a
+             Partition of its own over CudaBackend: (a) credit2 on two
+             lanes of the card in two runqueues under FeedbackPolicy;
+             (b) SEDF, the engine holding a reservation (600 ms period,
+             300 ms slice) and 3t's micro-stepped training tenant in
+             extra time; (c) ARINC 653 in an explicit 100 ms major frame,
+             every SCHED_PICK on the trace rings checked to lie in its
+             tenant's own window and every overrun repaid from its own
+             windows; (d) credit under the ATC policy, then under the
+             tuned "serving" profile with a KnobChannel push that lowers
+             the band mid-run (every later quantum inside it) and an
+             inverted band refused whole; (e) an xsm denial and a
+             required hook's veto that leave no HBM claim and no ledger
+             slot, a wall watchdog that barks once at a 3 s hold of the
+             card, a crash dump with the trace tail, and a read-only
+             attach of the ledger file. Every launch of kernels 2.1-2.4
+             in (a)-(c) counted and on the tensor-core route. Prints each
+             scheduler's dump, device share against weight or window
+             share, deadline misses and debts, and the engine's TTFT,
+             latency and tick beside the card's name and power limit.
 4. numerics — the scoring forward through the flash kernel against the dense
              attention path on the same weights, the KV-cache prefill
              against the full forward, one micro-batch's training loss
@@ -216,6 +237,31 @@ MOE_SEED, MOE_TRAIN_STEPS = 9, 3
 # between two fp32 runs passes only at a near-tie: the reference run's
 # 2nd and 3rd router probabilities within MOE_ROUTE_TIE of each other.
 MOE_ROUTE_TIE = 1e-4
+# Phase 3c, the partition's control plane: score, mm and a bf16 engine on
+# 3s's script, with 3s's weights, under the other schedulers, each run in
+# a Partition of its own. (b) SEDF: a training micro-step takes 134-261 ms
+# on the card (PERF.md section 5) and cannot be preempted, so the
+# engine's period is more than twice the longest; its slice is half the
+# period. One AdamW step (3 micro-steps) of 3t's training tenant runs in
+# extra time.
+CONTROL_WEIGHTS = {"score": 256, "mm": 512, "engine": 256}
+CONTROL_SEDF_PERIOD_US, CONTROL_SEDF_SLICE_US = 600_000, 300_000
+CONTROL_SEDF_LATENCY_US = 100_000
+CONTROL_TRAIN_STEPS = 1
+# (c) ARINC 653's major frame of 100 ms, sized from PERF.md section 5: the
+# engine's 60 ms hold two to three decode ticks of 18-25 ms, score's 25 ms
+# one step of 16-20 ms, mm's 5 ms its steps of 0.4-0.6 ms, then 10 ms
+# idle. A SCHED_PICK record is written some microseconds after its
+# decision; a pick counts as inside its window when it is at most
+# CONTROL_PICK_SLACK_NS past the window's end.
+CONTROL_FRAME = [("engine", 60_000), ("score", 25_000), ("mm", 5_000),
+                 (None, 10_000)]
+CONTROL_PICK_SLACK_NS = 200_000
+# (d) the live push: the "serving" profile's cap (700 us) down to 300 us,
+# 300 ms into the run.
+CONTROL_PUSH_MAX_US, CONTROL_PUSH_AFTER_NS = 300, 300_000_000
+# (e) the wall watchdog's timeout, and how long one step holds the card.
+CONTROL_WATCHDOG_S, CONTROL_HOLD_S = 1.0, 3.0
 H100_PEAK_BF16_FLOPS = 989e12  # dense, data sheet
 H100_PEAK_HBM_BW = 3.35e12
 
@@ -2405,6 +2451,565 @@ def run_moe_path(torch, gen, serve_ms_per_token, card):
     return launches, routes, train_step, train.state, master
 
 
+# -- phase 3c ----------------------------------------------------------------
+
+
+def control_engine(torch, cfg, params, reqs, arrivals, n_ticks):
+    """A bf16 engine on 3s's script as the Job ``engine`` (one tick a
+    step), recording each tick's host ms and admissions."""
+    from pbs_tpu_torch.models import (ContinuousBatcher,
+                                      make_continuous_serve_step)
+    from pbs_tpu_torch.runtime import Job, SchedParams
+
+    eng = ContinuousBatcher(cfg, params, n_slots=ENGINE_SLOTS,
+                            prompt_bucket=ENGINE_BUCKET,
+                            max_len=ENGINE_MAX_LEN,
+                            prefix_cache_size=ENGINE_PREFIX)
+    serve_step = make_continuous_serve_step(
+        eng, next_requests=lambda t: [reqs[i] for i in arrivals.get(t, [])])
+    ticks = []
+
+    def engine_fn(state):
+        t = time.monotonic()
+        out = serve_step(state)
+        ticks.append(((time.monotonic() - t) * 1e3, len(eng._admitted)))
+        return out
+
+    job = Job("engine", step_fn=engine_fn, state={"step": 0, "completed": 0},
+              params=SchedParams(weight=CONTROL_WEIGHTS["engine"],
+                                 tslice_us=100, boost_on_wake=True),
+              max_steps=n_ticks)
+    return eng, job, ticks
+
+
+def control_tenants(torch, gen, cfg, params, reqs, arrivals, n_ticks):
+    """Fresh Jobs for score, mm and the engine (3s's weights), in that
+    order, and the engine with its tick record."""
+    from pbs_tpu_torch.runtime import Job, SchedParams
+
+    jobs = {}
+    for name, fn in (("score", scoring_tenant(torch, gen, cfg, params)),
+                     ("mm", mm_tenant(torch, gen))):
+        fn(None)  # warm outside the partition
+        jobs[name] = Job(name, step_fn=fn,
+                         params=SchedParams(weight=CONTROL_WEIGHTS[name]),
+                         max_steps=STEPS[name])
+    eng, jobs["engine"], ticks = control_engine(torch, cfg, params, reqs,
+                                                arrivals, n_ticks)
+    torch.cuda.synchronize()
+    return jobs, eng, ticks
+
+
+def control_launches(wrappers) -> tuple[dict, dict]:
+    return (dict(zip(KERNELS, (w.launches for w in wrappers))),
+            dict(zip(KERNELS, (dict(w.launches_by_route)
+                               for w in wrappers))))
+
+
+def check_control_run(what, part, jobs, eng, reqs, launches, routes,
+                      want_kernels) -> None:
+    """Every job retired its steps with no fault, its ledger words are
+    its counters, every request was served, and the kernels this run
+    names launched, all on the tensor-core route (the others not)."""
+    from pbs_tpu_torch.telemetry import Counter
+
+    for name, job in jobs.items():
+        check(job.error is None and job.steps_retired() == job.max_steps,
+              f"({what}) {name}: {job.steps_retired()} of {job.max_steps} "
+              f"steps retired, no fault ({job.error})")
+        ctx = job.contexts[0]
+        check(part.ledger.snapshot(ctx.ledger_slot).tolist()
+              == ctx.counters.tolist(),
+              f"({what}) {name}: ledger snapshot equals the context "
+              f"counters")
+    if eng is not None:
+        st = eng.stats()
+        budgets = sum(n for _, n in reqs)
+        tokens = int(jobs["engine"].contexts[0].counters[Counter.TOKENS])
+        check(st["completed"] == len(reqs)
+              == jobs["engine"].state["completed"] and not eng.has_work()
+              and tokens == eng.tokens_emitted == budgets,
+              f"({what}) engine: {st['completed']} of {len(reqs)} requests "
+              f"served, ledger TOKENS {tokens} == the budgets' sum "
+              f"{budgets}")
+    for name in KERNELS:
+        n = launches[name]
+        if name in want_kernels:
+            check(n > 0 and routes[name] == {"wgmma": n, "simt": 0},
+                  f"({what}) {name}: {n} launches, every one on the "
+                  f"tensor-core route ({routes[name]})")
+        else:
+            check(n == 0, f"({what}) {name}: {n} launches == 0")
+
+
+def shares(jobs, wall_s, weights) -> str:
+    """Each tenant's device time over the run's wall time, and its
+    device share over its weight share."""
+    from pbs_tpu_torch.telemetry import Counter
+
+    dev = {n: int(j.contexts[0].counters[Counter.DEVICE_TIME_NS]) / 1e9
+           for n, j in jobs.items()}
+    total_dev, total_w = sum(dev.values()), sum(weights.values())
+    return ", ".join(
+        f"{n} {dev[n]:.3f} s ({dev[n] / wall_s:.3f} of wall; device share "
+        f"{dev[n] / total_dev:.3f} / weight share "
+        f"{weights[n] / total_w:.3f} = "
+        f"{(dev[n] / total_dev) / (weights[n] / total_w):.3f})"
+        for n in jobs)
+
+
+def arinc_windows(frame) -> list:
+    """(start_ns, end_ns, owner) of each window in one major frame."""
+    out, t = [], 0
+    for name, dur_us in frame:
+        out.append((t, t + dur_us * 1000, name))
+        t += dur_us * 1000
+    return out
+
+
+def check_arinc_picks(part, sched, jobs, frame) -> dict:
+    """From the partition's trace rings: every SCHED_PICK of a job lies
+    in one of its own windows (or at most CONTROL_PICK_SLACK_NS past its
+    end: the record is written after the decision), measured from the
+    first frame's start; and each quantum's overrun (ran - granted) per
+    job, from the SCHED_PICK/SCHED_DESCHED pairs."""
+    from pbs_tpu_torch.obs.trace import Ev
+
+    frame_ns = sum(d for _, d in frame) * 1000
+    frame0 = sched.frame_start_ns - sched.frame_count * frame_ns
+    windows = arinc_windows(frame)
+    by_slot = {j.contexts[0].ledger_slot: n for n, j in jobs.items()}
+    recs = part.drain_traces().tolist()
+    picks, late, max_late, overrun = 0, 0, 0, {n: 0 for n in jobs}
+    open_pick = None
+    for ts, ev, slot, arg, *_ in recs:
+        if ev == int(Ev.SCHED_PICK):
+            name = by_slot[slot]
+            off = (ts - frame0) % frame_ns
+            owner = next(o for s, e, o in windows if s <= off < e)
+            if owner != name:
+                prev = [e for s, e, o in windows if o == name and e <= off]
+                lateness = off - max(prev) if prev else frame_ns
+                check(lateness <= CONTROL_PICK_SLACK_NS,
+                      f"(c) {name}: a pick {off / 1e6:.3f} ms into a frame "
+                      f"lies in {owner}'s window, {lateness / 1e3:.1f} us "
+                      f"past its own")
+                late += 1
+                max_late = max(max_late, lateness)
+            picks += 1
+            open_pick = (name, arg)
+        elif ev == int(Ev.SCHED_DESCHED) and open_pick is not None:
+            name, granted = open_pick
+            overrun[name] += max(0, arg - granted)
+            open_pick = None
+    check(picks == sum(j.contexts[0].sched_count for j in jobs.values()),
+          f"(c) {picks} SCHED_PICK records, one per dispatch, every one in "
+          f"its tenant's own window ({late} up to {max_late / 1e3:.1f} us "
+          f"late, the record after its decision)")
+    return overrun
+
+
+def control_sleep_cycles(torch) -> float:
+    """The card's ``torch.cuda._sleep`` cycles per second, measured."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    cycles = 200_000_000
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    return cycles / (start.elapsed_time(end) / 1e3)
+
+
+def run_control_path(torch, gen, cfg, params, card):
+    """Phase 3c: (a) credit2 on two lanes of the card, (b) SEDF with a
+    reservation for the engine and the training tenant in extra time,
+    (c) ARINC 653 in an explicit major frame, (d) credit under the ATC
+    policy and under the tuned "serving" profile with live knob pushes,
+    (e) xsm, hooks, the wall watchdog, a crash dump and the ledger file.
+    Returns the launch counts and routes summed over (a)-(c)."""
+    import shutil
+
+    from pbs_tpu_torch import knobs
+    from pbs_tpu_torch.knobs.channel import KnobChannel, KnobWatcher
+    from pbs_tpu_torch.obs.trace import Ev
+    from pbs_tpu_torch.runtime import (HookError, Job, LabelPolicy,
+                                       MemoryManager, Partition, SchedParams,
+                                       WallWatchdog, XsmDenied,
+                                       install_crash_handler, xsm)
+    from pbs_tpu_torch.sched import AtcFeedbackPolicy, FeedbackPolicy
+    from pbs_tpu_torch.sched.atc import (ATC_MAX_US, ATC_MIN_US,
+                                         SLICE_BASE_US, SLICE_STEP_US)
+    from pbs_tpu_torch.sched.tune import policy_from_profile
+    from pbs_tpu_torch.telemetry import Counter, CudaBackend, Ledger
+
+    t_phase = time.monotonic()
+    reqs, arrivals = engine_script()
+    n_ticks = engine_ticks([n for _, n in reqs], arrivals, ENGINE_SLOTS)
+    wrappers = bwd_counts()
+    total = {k: 0 for k in KERNELS}
+    total_routes = {k: {"wgmma": 0, "simt": 0} for k in KERNELS}
+
+    def counted(what, part, jobs, eng, want):
+        reset_counts(wrappers)
+        t0 = time.monotonic()
+        quanta = part.run()
+        wall = time.monotonic() - t0
+        launches, routes = control_launches(wrappers)
+        for k in KERNELS:
+            total[k] += launches[k]
+            for r, n in routes[k].items():
+                total_routes[k][r] += n
+        print(f"  ({what}) {quanta} quanta in {wall:.2f} s wall; kernel "
+              f"launches {launches}, by route {routes}", flush=True)
+        print_tenants(jobs, Counter)
+        check_control_run(what, part, jobs, eng, reqs, launches, routes,
+                          want)
+        return wall
+
+    def engine_summary(what, eng, ticks, wall):
+        st = eng.stats()
+        print(f"  ({what}) engine: TTFT p50 {st['ttft_p50_s'] * 1e3:.2f} / "
+              f"p99 {st['ttft_p99_s'] * 1e3:.2f} ms, latency p50 "
+              f"{st['latency_p50_s'] * 1e3:.2f} / p99 "
+              f"{st['latency_p99_s'] * 1e3:.2f} ms (host clock); decode "
+              f"tick {decode_tick_ms(ticks):.2f} ms (median) over "
+              f"{st['steps']} ticks in {wall:.2f} s [{card}]", flush=True)
+
+    # (a) credit2: two lanes on the card in two runqueues
+    jobs, eng, ticks = control_tenants(torch, gen, cfg, params, reqs,
+                                       arrivals, n_ticks)
+    lane = torch.device("cuda", 0)
+    part = Partition("control-a", source=CudaBackend(), scheduler="credit2",
+                     devices=[lane, lane],
+                     sched_params={"executors_per_runq": 1})
+    fb = FeedbackPolicy(part)
+    for job in jobs.values():
+        part.add_job(job)
+    wall = counted("a", part, jobs, eng, ("flash_fwd", "instrumented_matmul"))
+    st = part.scheduler.dump_settings()
+    print(f"  (a) credit2 settings {json.dumps(st)}")
+    for ex in part.executors:
+        print(f"  (a) lane {ex.index} (dispatches {ex.dispatch_count}): "
+              f"{json.dumps(part.scheduler.dump_executor(ex))}")
+    print(f"  (a) tickles {st['tickles']}, migrations {st['migrations']}; "
+          f"feedback {json.dumps(fb.dump())}")
+    print(f"  (a) {shares(jobs, wall, CONTROL_WEIGHTS)} [{card}]")
+    check(all(ex.dispatch_count > 0 for ex in part.executors),
+          f"(a) both lanes dispatched "
+          f"({[ex.dispatch_count for ex in part.executors]})")
+    engine_summary("a", eng, ticks, wall)
+    del jobs, eng, part
+
+    # (b) SEDF: a reservation for the engine, training in extra time
+    eng, ejob, ticks = control_engine(torch, cfg, params, reqs, arrivals,
+                                      n_ticks)
+    tenant = training_tenant(torch, gen, CONTROL_TRAIN_STEPS)
+    from pbs_tpu_torch.models.transformer import loss_and_grads
+
+    loss_and_grads(tenant["cfg"], tenant["params"], tenant["spare"])
+    torch.cuda.synchronize()
+    train = Job("train", micro_step_fn=tenant["train_fn"],
+                micro_per_step=TRAIN_MICRO,
+                state=tenant["init_state"](tenant["params"]),
+                params=SchedParams(weight=512, tslice_us=100),
+                max_steps=CONTROL_TRAIN_STEPS)
+    jobs = {"engine": ejob, "train": train}
+    part = Partition("control-b", source=CudaBackend(), scheduler="sedf")
+    for job in jobs.values():
+        part.add_job(job)
+    part.scheduler.set_reservation(
+        ejob, period_us=CONTROL_SEDF_PERIOD_US,
+        slice_us=CONTROL_SEDF_SLICE_US,
+        latency_us=CONTROL_SEDF_LATENCY_US, extratime=True)
+    wall = counted("b", part, jobs, eng,
+                   ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+    rows = {r["ctx"]: r for r in
+            part.scheduler.dump_executor(part.executors[0])["contexts"]}
+    picks = part.drain_traces().tolist()
+    train_picks = sum(1 for r in picks if r[1] == int(Ev.SCHED_PICK)
+                      and r[2] == train.contexts[0].ledger_slot)
+    for name, r in rows.items():
+        print(f"  (b) {name}: period {r['period_us']} us, slice "
+              f"{r['slice_us']} us, deadline misses {r['deadline_misses']}, "
+              f"extra time {r['extra_time_ms']} ms, blocks {r['blocks']}")
+    print(f"  (b) penalty queue: {rows['engine/0']['blocks']['pen_slices']} "
+          f"slices of engine; train dispatches: {train_picks}; "
+          f"micro-step losses "
+          f"{[round(float(x), 4) for x in tenant['losses']]}")
+    print(f"  (b) {shares(jobs, wall, {'engine': 1, 'train': 1})} [{card}]")
+    check(all(math.isfinite(float(x)) for x in tenant["losses"])
+          and len(tenant["losses"]) == CONTROL_TRAIN_STEPS * TRAIN_MICRO,
+          f"(b) train: {len(tenant['losses'])} finite micro-step losses")
+    engine_summary("b", eng, ticks, wall)
+    del jobs, eng, part, train, tenant
+
+    # (c) ARINC 653: an explicit major frame
+    jobs, eng, ticks = control_tenants(torch, gen, cfg, params, reqs,
+                                       arrivals, n_ticks)
+    part = Partition("control-c", source=CudaBackend(), scheduler="arinc653")
+    for job in jobs.values():
+        part.add_job(job)
+    sched = part.scheduler
+    sched.set_schedule(CONTROL_FRAME)
+    # Every change to a tenant's debt, with the window it happened in.
+    repaid = {n: 0 for n in jobs}
+    foreign = []
+    decide = sched.do_schedule
+
+    def do_schedule(ex, now_ns):
+        before = dict(sched.overrun_ns)
+        decision = decide(ex, now_ns)
+        _, owner, _ = sched._slot_at(now_ns)
+        for name, debt in before.items():
+            paid = debt - sched.overrun_ns.get(name, 0)
+            if paid > 0:
+                repaid[name] += paid
+                if owner != name:
+                    foreign.append((name, owner, paid))
+        return decision
+
+    sched.do_schedule = do_schedule
+    wall = counted("c", part, jobs, eng, ("flash_fwd", "instrumented_matmul"))
+    overrun = check_arinc_picks(part, sched, jobs, CONTROL_FRAME)
+    st = sched.dump_settings()
+    print(f"  (c) {st['frames']} frames of {st['major_frame_us']} us; slots "
+          f"{json.dumps(st['slots'])}")
+    print(f"  (c) overruns from the rings (ns) {overrun}; repaid in own "
+          f"windows {repaid}; debt left {st['overrun_ns']}")
+    frame_us = st["major_frame_us"]
+    window = {n: sum(d for o, d in CONTROL_FRAME if o == n) / frame_us
+              for n in jobs}
+    dev = {n: int(j.contexts[0].counters[Counter.DEVICE_TIME_NS]) / 1e9
+           for n, j in jobs.items()}
+    print("  (c) device share of wall against window share: " + ", ".join(
+        f"{n} {dev[n] / wall:.3f} / {window[n]:.3f}" for n in jobs)
+        + f" [{card}]")
+    check(not foreign, f"(c) no overrun repaid from another tenant's "
+                       f"window ({foreign})")
+    check(all(overrun[n] == repaid[n] + st["overrun_ns"][n] for n in jobs),
+          "(c) every overrun on the rings is repaid in its tenant's own "
+          "windows or still owed")
+    engine_summary("c", eng, ticks, wall)
+    del jobs, eng, part, sched
+
+    # (d) credit under the ATC policy, then the tuned "serving" profile
+    # with live knob pushes
+    jobs, eng, ticks = control_tenants(torch, gen, cfg, params, reqs,
+                                       arrivals, n_ticks)
+    part = Partition("control-d-atc", source=CudaBackend(),
+                     scheduler="credit")
+    atc = AtcFeedbackPolicy(part)
+    for job in jobs.values():
+        part.add_job(job)
+    t0 = time.monotonic()
+    part.run()
+    wall = time.monotonic() - t0
+    rows = atc.dump()
+    print(f"  (d) ATC: {json.dumps(rows)} in {wall:.2f} s")
+    # One card has no collective wait, so every contention sample is 0:
+    # the EWMA stays 0, the bucket is 0 once HISTORY samples agree (a
+    # job with fewer samples has none yet), and the law's slice at
+    # bucket 0, min(ATC_MAX_US, SLICE_BASE_US), replaces every job's
+    # starting slice through the global minimum.
+    law0 = max(ATC_MIN_US, min(ATC_MAX_US, SLICE_BASE_US - SLICE_STEP_US * 0))
+    check(all(j.error is None and j.steps_retired() == j.max_steps
+              for j in jobs.values()),
+          "(d) ATC: every job retired its steps")
+    check(law0 == ATC_MAX_US and all(r["tslice_us"] == law0 for r in rows)
+          and all(r["ewma_ns"] == 0.0 for r in rows)
+          and all(r["bucket"] in (0, None) for r in rows)
+          and any(r["bucket"] == 0 for r in rows),
+          f"(d) ATC: every EWMA 0, every applied bucket 0, every slice the "
+          f"law's {law0} us at bucket 0 (from "
+          f"{SchedParams().tslice_us} us)")
+    engine_summary("d atc", eng, ticks, wall)
+    del jobs, eng, part
+
+    tmp, _ = paging_dir("3c")
+    try:
+        jobs, eng, ticks = control_tenants(torch, gen, cfg, params, reqs,
+                                           arrivals, n_ticks)
+        part = Partition("control-d", source=CudaBackend(),
+                         scheduler="credit")
+        fb = policy_from_profile(part, "serving")
+        band0 = (fb.min_us, fb.max_us)
+        path = os.path.join(tmp, "knobs.led")
+        writer = KnobChannel.create(path)
+        watcher = KnobWatcher(KnobChannel.attach(path))
+        applied = []
+
+        def apply(changed, _values):
+            applied.append((part.clock.now_ns(), fb.apply_knobs(changed)))
+
+        watcher.add(apply)
+        part.timers.arm(part.clock.now_ns() + 1_000_000,
+                        lambda now: watcher.poll(), period_ns=1_000_000,
+                        name="knob_watch")
+        for job in jobs.values():
+            part.add_job(job)
+        t0 = time.monotonic()
+        part.run(until_ns=part.clock.now_ns() + CONTROL_PUSH_AFTER_NS)
+        gen_push = writer.push(
+            {"sched.feedback.tslice_max_us": CONTROL_PUSH_MAX_US})
+        part.run()
+        wall = time.monotonic() - t0
+        recs = part.drain_traces().tolist()
+        check(applied and applied[0][1] == {"max_us": CONTROL_PUSH_MAX_US}
+              and (fb.min_us, fb.max_us) == (band0[0], CONTROL_PUSH_MAX_US),
+              f"(d) the push (generation {gen_push}) applied mid-run: band "
+              f"{band0} -> ({fb.min_us}, {fb.max_us})")
+        t_apply = applied[0][0]
+        before = [r[3] // 1000 for r in recs
+                  if r[1] == int(Ev.SCHED_PICK) and r[0] < t_apply]
+        after = [r[3] // 1000 for r in recs
+                 if r[1] == int(Ev.SCHED_PICK) and r[0] >= t_apply]
+        check(after and all(fb.min_us <= q <= fb.max_us for q in after)
+              and all(fb.min_us <= j.params.tslice_us <= fb.max_us
+                      for j in jobs.values()),
+              f"(d) every quantum after the push in the new band: "
+              f"{len(after)} picks, {min(after)}-{max(after)} us (before: "
+              f"{len(before)} picks, {min(before, default=0)}-"
+              f"{max(before, default=0)} us)")
+        for name, job in jobs.items():
+            check(job.error is None and job.steps_retired() == job.max_steps,
+                  f"(d) {name}: {job.steps_retired()} steps retired")
+        # an inverted band is refused whole, by the channel and the policy
+        raw = open(path, "rb").read()
+        view = (fb.min_us, fb.max_us, fb.window_len)
+        refused = []
+        for push in (lambda: writer.push(
+                {"sched.feedback.tslice_min_us": 600,
+                 "sched.feedback.tslice_max_us": 200}),
+                lambda: fb.apply_knobs(
+                    {"sched.feedback.tslice_min_us": 600,
+                     "sched.feedback.tslice_max_us": 200})):
+            try:
+                push()
+            except knobs.KnobError as e:
+                refused.append(str(e))
+        check(len(refused) == 2 and open(path, "rb").read() == raw
+              and watcher.poll() is None
+              and (fb.min_us, fb.max_us, fb.window_len) == view,
+              f"(d) an inverted band refused whole by the channel and by "
+              f"the policy ({refused})")
+        engine_summary("d profile", eng, ticks, wall)
+        del jobs, eng, part
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (e) xsm, hooks, the wall watchdog, a crash dump, the ledger file
+    tmp, _ = paging_dir("3c")
+    try:
+        mem = MemoryManager.for_device()
+        part = Partition("control-e", source=CudaBackend(), memory=mem,
+                         ledger_path=os.path.join(tmp, "ledger"),
+                         trace_dir=os.path.join(tmp, "traces"))
+        install_crash_handler(part, os.path.join(tmp, "crash"))
+        part.hooks.on("job-add", lambda ev, env: 1 / 0)  # optional
+        part.hooks.on("job-add", lambda ev, env: (_ for _ in ()).throw(
+            RuntimeError("no dataset mount"))
+            if env["PBST_JOB"] == "vetoed" else None, required=True)
+        mm_fn = mm_tenant(torch, gen)
+        free0 = sorted(part._free_slots)
+        xsm.set_policy(LabelPolicy(default_allow=True)
+                       .deny("tenant", "job.create", "restricted"))
+        try:
+            try:
+                part.add_job(Job("denied", step_fn=mm_fn, max_steps=1,
+                                 label="restricted", mem_bytes=1 << 30),
+                             subject="tenant")
+                denied = None
+            except XsmDenied as e:
+                denied = str(e)
+        finally:
+            xsm.set_policy(xsm.DummyPolicy())
+        check(denied is not None and "denied" not in mem.dump()["accounts"]
+              and sorted(part._free_slots) == free0,
+              f"(e) xsm: {denied}; no HBM claim, no ledger slot taken")
+        try:
+            part.add_job(Job("vetoed", step_fn=mm_fn, max_steps=1,
+                             mem_bytes=1 << 30))
+            vetoed = None
+        except HookError as e:
+            vetoed = str(e)
+        meta = json.load(open(os.path.join(tmp, "ledger.meta.json")))
+        check(vetoed is not None and "vetoed" not in mem.dump()["accounts"]
+              and sorted(part._free_slots) == free0 and not meta["slots"],
+              f"(e) a required job-add hook failing unwinds the admission "
+              f"({vetoed}); the sidecar names no slot")
+        hz = control_sleep_cycles(torch)
+        steps = [0]
+
+        def hold_fn(state):
+            torch.cuda._sleep(int(CONTROL_HOLD_S * hz))
+            torch.cuda.synchronize()
+            return state
+
+        def flaky_fn(state):
+            steps[0] += 1
+            if steps[0] == 2:
+                raise RuntimeError("tenant fault at its second step")
+            return mm_fn(state)
+
+        jobs = {"mm": Job("mm", step_fn=mm_fn, max_steps=STEPS["mm"],
+                          mem_bytes=1 << 28),
+                "hold": Job("hold", step_fn=hold_fn, max_steps=1),
+                "flaky": Job("flaky", step_fn=flaky_fn, max_steps=4)}
+        for job in jobs.values():
+            part.add_job(job)
+        check(part.hooks.failures == 2 + len(jobs),
+              f"(e) optional hook failures counted: {part.hooks.failures} "
+              f"({json.dumps(part.hooks.dump())})")
+        barks = []
+        wd = WallWatchdog(part, timeout_s=CONTROL_WATCHDOG_S, poll_s=0.05,
+                          on_bark=lambda p, idle: barks.append(idle))
+        t0 = time.monotonic()
+        with wd:
+            part.run()
+        wall = time.monotonic() - t0
+        check(wd.barks == 1 and len(barks) == 1
+              and barks[0] >= CONTROL_WATCHDOG_S,
+              f"(e) the wall watchdog barked {wd.barks} time(s) at "
+              f"{[round(b, 3) for b in barks]} s idle, a "
+              f"{CONTROL_HOLD_S:.0f} s hold of the card "
+              f"({hz / 1e9:.3f} G sleep cycles/s), run {wall:.2f} s")
+        dumps = os.listdir(os.path.join(tmp, "crash"))
+        doc = json.load(open(os.path.join(tmp, "crash", dumps[0]))) \
+            if len(dumps) == 1 else {}
+        tail = doc.get("trace_tail", [])
+        check(len(dumps) == 1 and doc.get("failed_job") == "flaky"
+              and doc["partition"]["scheduler"]["name"] == "credit"
+              and any(j["job"] == "mm" and j["contexts"][0]["counters"]
+                      for j in doc["jobs"])
+              and any("SCHED_PICK" in ln for ln in tail)
+              and any("SCHED_DESCHED" in ln for ln in tail),
+              f"(e) one crash dump for flaky ({dumps}): keys "
+              f"{sorted(doc)}, {len(tail)} trace lines")
+        mon = Ledger.file_backed(os.path.join(tmp, "ledger"), readonly=True)
+        check(all(mon.snapshot(j.contexts[0].ledger_slot).tolist()
+                  == j.contexts[0].counters.tolist() for j in jobs.values()),
+              "(e) a read-only attach of the ledger file reads the "
+              "contexts' counters word for word")
+        check(jobs["mm"].steps_retired() == STEPS["mm"]
+              and jobs["hold"].steps_retired() == 1
+              and jobs["flaky"].error is not None,
+              "(e) mm and hold retired their steps beside the contained "
+              "fault")
+        del part, jobs
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for k in KERNELS:
+        check(total[k] > 0 and total_routes[k] == {"wgmma": total[k],
+                                                   "simt": 0},
+              f"{k}: {total[k]} launches over (a)-(c), every one on the "
+              f"tensor-core route ({total_routes[k]})")
+    print(f"  phase 3c wall {time.monotonic() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return total, total_routes
+
+
 # -- phase 4 -----------------------------------------------------------------
 
 
@@ -3010,6 +3615,12 @@ def main() -> int:
     (moe_launches, moe_routes, moe_step, moe_state,
      moe_master) = run_moe_path(torch, gen, serve_ms_per_token, card_line())
 
+    phase("3c control plane: credit2, SEDF and ARINC 653 over the tenants, "
+          "the ATC policy and live knob pushes, xsm, hooks, the watchdog, "
+          "crash dumps")
+    c_launches, c_routes = run_control_path(torch, gen, cfg, params,
+                                            card_line())
+
     phase("4 numerics at width")
     check_numerics(torch, gen, cfg, params)
     del params
@@ -3037,6 +3648,9 @@ def main() -> int:
         # phase 3e(a)'s run: moe-train beside moe-serve
         r["moe_path_launches"] = moe_launches[kernel]
         r["moe_path_launches_by_route"] = moe_routes[kernel]
+        # phase 3c's runs (a)-(c): credit2, SEDF and ARINC 653
+        r["control_path_launches"] = c_launches[kernel]
+        r["control_path_launches_by_route"] = c_routes[kernel]
     profile_micro_step(torch, micro_step, train_state)
     del micro_step, train_state
     profile_micro_step(torch, moe_step, moe_state, what="MoE training step")

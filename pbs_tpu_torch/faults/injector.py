@@ -23,10 +23,9 @@ wall-clock interleaving of streams — two runs with the same seed and
 the same per-stream histories produce the same digest even though their
 threads raced differently (the gate ``pbst chaos`` asserts).
 
-The port's copy of ``pbs_tpu.faults.injector``, word for word but for
-its two locks, which are plain ``threading.Lock``s (the port has no lock
-profiler): the same plan, seed and per-stream history give the same
-fault trace and digest in either package. Of the seams named above the
+The port's copy of ``pbs_tpu.faults.injector``, word for word: the
+same plan, seed and per-stream history give the same fault trace and
+digest in either package. Of the seams named above the
 port hosts one so far, ``telemetry.counters`` (``telemetry/source.py``).
 """
 
@@ -36,10 +35,10 @@ import dataclasses
 import hashlib
 import json
 import random
-import threading
 from typing import Any
 
 from pbs_tpu_torch.faults.plan import FaultPlan
+from pbs_tpu_torch.obs.lockprof import ProfiledLock
 
 
 class InjectedFault(RuntimeError):
@@ -77,7 +76,7 @@ class FaultInjector:
     def __init__(self, plan: FaultPlan, trace_path: str | None = None):
         self.plan = plan.validate()
         self.trace_path = trace_path
-        self._lock = threading.Lock()
+        self._lock = ProfiledLock("fault_inject")
         self._streams: dict[tuple[str, str], _Stream] = {}
         self._by_point: dict[str, list[tuple[int, Any]]] = {}
         for i, s in enumerate(self.plan.specs):
@@ -151,7 +150,7 @@ class FaultInjector:
 # -- process-global registry ------------------------------------------------
 
 _active: FaultInjector | None = None
-_install_lock = threading.Lock()
+_install_lock = ProfiledLock("fault_install")
 
 
 def install(plan: FaultPlan, trace_path: str | None = None) -> FaultInjector:

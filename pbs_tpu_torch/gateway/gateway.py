@@ -312,12 +312,12 @@ class Gateway:
 
     def apply_member_knobs(self, changed: dict, values: dict) -> list:
         """The reference adopts the scheduler-profile slice of a knob
-        push here, reading the typed knob registry's profile map
-        (``knobs.profile.PARAM_KNOBS``). The port has a flat table of
-        defaults; the registry and the autopilot that pushes are
+        push here, delivered by a federation member's own watcher, and
+        re-rates its backends by the profile model. The federation,
+        its per-member watchers and the autopilot that pushes are
         ROADMAP queue 1 item 12, so this raises."""
         raise NotImplementedError(
-            "member knob adoption needs the typed knob registry and the "
+            "member knob adoption needs the federation and the "
             "autopilot (ROADMAP queue 1 item 12)")
 
     # -- tenants ---------------------------------------------------------

@@ -1,0 +1,329 @@
+"""File-backed knob channel: the port of ``pbs_tpu.knobs.channel``.
+
+The live-value transport for the registry (knobs/registry.py), built on
+the same protocol as the telemetry ledger (telemetry/ledger.py): a
+fixed little-endian u64 word layout in an mmap'd file, a seqlock
+version word that goes odd while a write is in progress, and lock-free
+retried reader snapshots. The layout is the reference's word for word,
+so a push from either package is read by the other's watcher.
+
+Word layout (all ``<u8``):
+
+    [0] magic       — KNOB_MAGIC ("PBSTKNOB")
+    [1] abi         — CHANNEL_ABI
+    [2] version     — seqlock: odd while a push is writing
+    [3] generation  — applied pushes; poll() keys on it
+    [4] n_knobs     — slot count
+    [5:5+n]         — one value word per knob, in the sidecar's order:
+                      int knobs as two's-complement i64, float knobs
+                      as float64 bit patterns
+
+A ``<path>.meta.json`` sidecar (written once, atomically, at create)
+records the slot order and each knob's kind, so a reader never guesses
+the layout and a channel created under an older registry still reads
+correctly (missing knobs fall back to their declared defaults). A
+channel the reference created also carries the two knobs the port does
+not declare (``registry.UNDECLARED``): their slots keep their place
+(decoded by the sidecar's kind), their values never surface and no push
+can touch them.
+
+**Atomicity contract**: ``push`` validates the WHOLE update against
+the registry — unknown names, malformed values, out-of-range values,
+inverted bands — before the seqlock write begins. A rejected push
+raises :class:`KnobError` with every problem and leaves the file
+byte-identical: generation does not move, watchers see nothing.
+
+**Scoped pushes** (the reference's canary transport, a
+``<path>.scope.json`` sidecar that limits which federation members may
+adopt a knob) belong with the federation, ROADMAP queue 1 item 12, and
+are not ported: :meth:`KnobChannel.attach` and :class:`KnobWatcher`
+refuse a channel that carries a scope sidecar, rather than apply a
+canary-scoped value as if it were global.
+
+**Writer concurrency**: single-writer like the telemetry ledger's pure
+Python path — one control plane owns ``push``; readers are always
+safe (the retry loop tolerates torn reads by construction).
+"""
+
+from __future__ import annotations
+
+import json
+import mmap
+import os
+import struct
+from typing import Any, Callable
+
+from pbs_tpu_torch.knobs import registry
+from pbs_tpu_torch.knobs.registry import KnobError
+
+KNOB_MAGIC = int.from_bytes(b"PBSTKNOB", "little")
+CHANNEL_ABI = 1
+HEADER_WORDS = 5
+_W_MAGIC, _W_ABI, _W_VERSION, _W_GEN, _W_N = range(HEADER_WORDS)
+
+
+def _pack_value(kind: str, value: int | float) -> int:
+    """Value -> u64 word: i64 two's complement for ints, float64 bits
+    for floats."""
+    if kind == "int":
+        return int(value) & 0xFFFFFFFFFFFFFFFF
+    return struct.unpack("<Q", struct.pack("<d", float(value)))[0]
+
+
+def _unpack_value(kind: str, word: int) -> int | float:
+    if kind == "int":
+        return word - (1 << 64) if word >= (1 << 63) else word
+    return struct.unpack("<d", struct.pack("<Q", word))[0]
+
+
+def _refuse_scoped(path: str) -> None:
+    if os.path.exists(path + ".scope.json"):
+        raise KnobError(
+            [f"channel {path} carries a scope sidecar (a canary push); "
+             "scoped adoption is not ported (ROADMAP queue 1 item 12)"])
+
+
+class KnobChannel:
+    """One knob file: the writer end (``create``) or a reader attach.
+
+    All values ride the registry's declarations; the channel itself
+    stores only the (name-ordered) value words.
+    """
+
+    def __init__(self, path: str, names: list[str], mm, writable: bool,
+                 kinds: dict[str, str] | None = None):
+        self.path = path
+        self.names = list(names)
+        kinds = kinds or {}
+        self._kinds = {n: kinds[n] if n in kinds else registry.knob(n).kind
+                       for n in self.names}
+        self._index = {n: i for i, n in enumerate(self.names)}
+        # Slots of the reference's knobs the port leaves undeclared:
+        # kept in the layout, never surfaced as values.
+        self._hidden = frozenset(
+            n for n in self.names if not registry.exists(n))
+        self._mm = mm
+        self.writable = writable
+
+    # -- construction ----------------------------------------------------
+
+    @classmethod
+    def create(cls, path: str,
+               initial: dict[str, Any] | None = None) -> "KnobChannel":
+        """Create (or recreate) a channel holding every registry knob.
+        ``initial`` overrides the declared defaults, validated like any
+        push."""
+        names = registry.names()
+        values = registry.snapshot()
+        if initial:
+            values.update(registry.validate_set(initial, base=values))
+        meta = {
+            "version": 1,
+            "abi": CHANNEL_ABI,
+            "knobs": [{"name": n, "kind": registry.knob(n).kind,
+                       "unit": registry.knob(n).unit}
+                      for n in names],
+        }
+        tmp = path + ".meta.json.tmp"
+        with open(tmp, "w") as f:
+            json.dump(meta, f, indent=1, sort_keys=True)
+            f.write("\n")
+        os.replace(tmp, path + ".meta.json")
+        nbytes = (HEADER_WORDS + len(names)) * 8
+        fd = os.open(path, os.O_RDWR | os.O_CREAT, 0o644)
+        try:
+            os.ftruncate(fd, nbytes)
+            mm = mmap.mmap(fd, nbytes)
+        finally:
+            os.close(fd)
+        ch = cls(path, names, mm, writable=True)
+        words = [KNOB_MAGIC, CHANNEL_ABI, 0, 0, len(names)]
+        words += [_pack_value(ch._kinds[n], values[n]) for n in names]
+        mm[:nbytes] = struct.pack(f"<{len(words)}Q", *words)
+        mm.flush()
+        return ch
+
+    @classmethod
+    def attach(cls, path: str, writable: bool = False) -> "KnobChannel":
+        """Open an existing channel. Reader attaches are always safe;
+        ``writable=True`` makes this end a (single) writer."""
+        try:
+            with open(path + ".meta.json") as f:
+                meta = json.load(f)
+        except (OSError, json.JSONDecodeError) as e:
+            raise KnobError(
+                [f"cannot read knob channel sidecar {path}.meta.json: "
+                 f"{e}"]) from None
+        _refuse_scoped(path)
+        names = [k["name"] for k in meta.get("knobs", [])]
+        unknown = [n for n in names if not registry.exists(n)
+                   and n not in registry.UNDECLARED]
+        if unknown:
+            raise KnobError(
+                [f"channel {path} carries knobs this registry does "
+                 f"not declare: {unknown[:5]}"])
+        flags = os.O_RDWR if writable else os.O_RDONLY
+        fd = os.open(path, flags)
+        try:
+            size = os.fstat(fd).st_size
+            want = (HEADER_WORDS + len(names)) * 8
+            if size < want:
+                raise KnobError(
+                    [f"channel {path} truncated: {size} < {want} bytes"])
+            mm = mmap.mmap(fd, want,
+                           prot=(mmap.PROT_READ | mmap.PROT_WRITE
+                                 if writable else mmap.PROT_READ))
+        finally:
+            os.close(fd)
+        ch = cls(path, names, mm, writable=writable,
+                 kinds={k["name"]: k["kind"] for k in meta["knobs"]
+                        if k["name"] in registry.UNDECLARED})
+        hdr = ch._words(0, HEADER_WORDS)
+        if hdr[_W_MAGIC] != KNOB_MAGIC or hdr[_W_ABI] != CHANNEL_ABI:
+            raise KnobError(
+                [f"{path} is not a knob channel (magic/abi mismatch)"])
+        if hdr[_W_N] != len(names):
+            raise KnobError(
+                [f"{path}: slot count {hdr[_W_N]} != sidecar "
+                 f"{len(names)}"])
+        return ch
+
+    # -- raw words -------------------------------------------------------
+
+    def _words(self, off: int, n: int) -> tuple[int, ...]:
+        return struct.unpack_from(f"<{n}Q", self._mm, off * 8)
+
+    def _store(self, off: int, value: int) -> None:
+        struct.pack_into("<Q", self._mm, off * 8, value)
+
+    # -- reader side -----------------------------------------------------
+
+    @property
+    def generation(self) -> int:
+        return self._words(_W_GEN, 1)[0]
+
+    def snapshot(self, max_retries: int = 64
+                 ) -> tuple[int, dict[str, int | float]]:
+        """Torn-free ``(generation, {name: value})`` — the telemetry
+        ledger's retry contract."""
+        n = len(self.names)
+        for _ in range(max_retries):
+            v0, gen = self._words(_W_VERSION, 2)
+            if v0 & 1:
+                continue
+            words = self._words(HEADER_WORDS, n) if n else ()
+            v1 = self._words(_W_VERSION, 1)[0]
+            if v0 == v1:
+                return gen, {
+                    name: _unpack_value(self._kinds[name], words[i])
+                    for i, name in enumerate(self.names)
+                    if name not in self._hidden
+                }
+        raise KnobError(
+            [f"channel {self.path}: snapshot retries exhausted "
+             "(writer wedged mid-push?)"])
+
+    def get(self, name: str) -> int | float:
+        if name not in self._index or name in self._hidden:
+            # Declared after this channel was created: the declared
+            # default is the truthful current value (and an undeclared
+            # name raises as unknown).
+            return registry.get(name)
+        _, values = self.snapshot()
+        return values[name]
+
+    def poll(self, last_generation: int
+             ) -> tuple[int, dict[str, int | float]] | None:
+        """None if nothing changed since ``last_generation``, else the
+        fresh (generation, values) snapshot — the watch primitive.
+        Cheap when idle: one header read, no value copy."""
+        if self.generation == last_generation:
+            return None
+        return self.snapshot()
+
+    # -- writer side -----------------------------------------------------
+
+    def push(self, updates: dict[str, Any]) -> int:
+        """Atomic hot-reload: validate EVERYTHING against the registry
+        (unknown/malformed/out-of-range/inverted-band -> KnobError with
+        every problem, file untouched), then publish under one seqlock
+        round and bump the generation. Returns the new generation."""
+        if not self.writable:
+            raise KnobError(
+                [f"channel {self.path} attached read-only"])
+        if self._words(_W_VERSION, 1)[0] & 1:
+            # A writer died mid-push (version left odd). Writing on
+            # top would make the seqlock parity lie to readers — an
+            # in-progress write marked "stable". Refuse explicitly;
+            # the snapshot() below would also refuse, but with a
+            # less actionable message.
+            raise KnobError(
+                [f"channel {self.path} is wedged (a writer crashed "
+                 "mid-push); recreate it with `pbst knobs init`"])
+        _, current = self.snapshot()
+        coerced = registry.validate_set(updates, base=current)
+        missing = [n for n in coerced if n not in self._index]
+        if missing:
+            # The registry grew since this channel file was created;
+            # a push touching the new knob needs a recreated channel.
+            raise KnobError(
+                [f"channel {self.path} predates knob(s) {missing}; "
+                 "recreate it (pbst knobs init)"])
+        v0, gen = self._words(_W_VERSION, 2)
+        self._store(_W_VERSION, v0 + 1)  # odd: push in progress
+        for name, value in sorted(coerced.items()):
+            self._store(HEADER_WORDS + self._index[name],
+                        _pack_value(self._kinds[name], value))
+        self._store(_W_GEN, gen + 1)
+        self._store(_W_VERSION, v0 + 2)  # even: stable
+        self._mm.flush()
+        return gen + 1
+
+    def close(self) -> None:
+        self._mm.close()
+
+
+class KnobWatcher:
+    """Deterministic poll-and-apply bridge from a channel to live
+    consumers (virtual-clock friendly: the owner calls :meth:`poll`
+    from its own loop — a partition timer — so application points are a
+    function of the run's own timeline, never of wall-clock threads).
+
+    Appliers are ``fn(changed: dict, values: dict)``; each poll calls
+    every applier with the knobs that changed since the LAST poll plus
+    the full current view. Appliers must be atomic on their own consumer
+    (validate-then-apply), mirroring the channel contract.
+
+    The reference's ``member=`` filter for scoped pushes is not ported
+    (ROADMAP queue 1 item 12): a channel that carries a scope sidecar is
+    refused at construction and at every poll that sees a new
+    generation, since a scoped push writes its sidecar before its
+    values.
+    """
+
+    def __init__(self, channel: KnobChannel):
+        _refuse_scoped(channel.path)
+        self.channel = channel
+        self._gen, self._last = channel.snapshot()
+        self._appliers: list[Callable[[dict, dict], None]] = []
+        self.applied = 0  # generations applied (observability)
+
+    def add(self, fn: Callable[[dict, dict], None]) -> None:
+        self._appliers.append(fn)
+
+    def poll(self) -> dict[str, int | float] | None:
+        """Apply any pending generation; returns the changed-knob dict
+        (empty for a push that changed no value) or None when nothing
+        moved."""
+        got = self.channel.poll(self._gen)
+        if got is None:
+            return None
+        _refuse_scoped(self.channel.path)
+        gen, values = got
+        changed = {n: v for n, v in values.items()
+                   if self._last.get(n) != v}
+        self._gen, self._last = gen, dict(values)
+        self.applied += 1
+        for fn in self._appliers:
+            fn(changed, values)
+        return changed

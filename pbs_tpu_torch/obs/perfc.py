@@ -7,21 +7,20 @@ keys 'p'/'P' (``keyhandler.c:556-559``) and the ``xenperf`` CLI
 internals, distinct from the per-job telemetry ledger.
 
 The port of ``pbs_tpu.obs.perfc``: the same counter names land here
-(``mem_claims``, ``paging_out_bytes``, ``weights_published``, ...). The
-lock is a plain ``threading.Lock`` until the lock profiler is ported
-(ROADMAP queue 1, item 9).
+(``mem_claims``, ``paging_out_bytes``, ``weights_published``, ...),
+behind a ``ProfiledLock`` as in the reference.
 """
 
 from __future__ import annotations
 
 import collections
-import threading
+from pbs_tpu_torch.obs.lockprof import ProfiledLock
 
 
 class Perfc:
     def __init__(self):
         self._c: dict[str, int] = collections.defaultdict(int)
-        self._lock = threading.Lock()
+        self._lock = ProfiledLock("perfc")
 
     def incr(self, name: str, by: int = 1) -> None:
         with self._lock:

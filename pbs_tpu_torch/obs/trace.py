@@ -28,6 +28,7 @@ import struct
 import numpy as np
 
 from pbs_tpu_torch import knobs
+from pbs_tpu_torch.utils.params import integer_param
 
 TRACE_HEADER_WORDS = 4
 TRACE_REC_WORDS = 8
@@ -49,10 +50,8 @@ _PACK_FMTS = tuple("<" + "Q" * (2 + k) for k in range(7))
 _ZERO_TAIL = tuple(bytes((6 - k) * 8) for k in range(7))
 
 # ``tbuf_size=`` boot param analog (xen/common/trace.c): default ring
-# capacity in records for rings whose creator doesn't size them. The
-# reference resolves it through its boot-param registry; no caller of
-# the port leaves a ring unsized, so here it is a constant.
-TBUF_SIZE = 4096
+# capacity in records for rings whose creator doesn't size them.
+_tbuf_size = integer_param("tbuf_size", 4096)
 
 _NATIVE_MISSING = (
     "the native C ring and ledger tiers are not ported (ROADMAP queue 1 "
@@ -151,7 +150,7 @@ class TraceBuffer:
         # the only ones the port has; True and "ctypes" raise.
         refuse_native(native)
         self.capacity = capacity = (
-            capacity if capacity is not None else TBUF_SIZE)
+            capacity if capacity is not None else _tbuf_size.value)
         nwords = TRACE_HEADER_WORDS + capacity * TRACE_REC_WORDS
         if buf is None:
             buf = bytearray(nwords * 8)
@@ -195,7 +194,7 @@ class TraceBuffer:
             cap = int(np.frombuffer(mm, dtype="<u8", count=3)[2])
             tb = cls(cap, buf=mm, native=native, _attach=True)
         else:
-            capacity = capacity if capacity is not None else TBUF_SIZE
+            capacity = capacity if capacity is not None else _tbuf_size.value
             nbytes = (TRACE_HEADER_WORDS + capacity * TRACE_REC_WORDS) * 8
             fd = os.open(path, os.O_RDWR | os.O_CREAT, 0o644)
             try:

@@ -9,9 +9,9 @@ with telemetry save/restore, run, account.
 There is no device preemption, so a quantum is realized as N steps, N
 derived from the policy's nanosecond slice and the context's measured
 per-step time. The dispatch arithmetic and its order are the
-reference's, with its compile-admission charge and overflow-sampler
-check at the quantum boundary; the trace and recorder taps are not
-ported yet (ROADMAP).
+reference's, with its compile-admission charge, its ``SCHED_PICK``/
+``SCHED_DESCHED`` trace records and its overflow-sampler check at the
+quantum boundary; the run recorder's tap is not ported (ROADMAP).
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from typing import TYPE_CHECKING
 import numpy as np
 
 from pbs_tpu_torch import knobs
+from pbs_tpu_torch.obs.trace import Ev
 from pbs_tpu_torch.runtime.job import ContextState, ExecutionContext
 from pbs_tpu_torch.telemetry.counters import NUM_COUNTERS, Counter
 
@@ -94,6 +95,9 @@ class Executor:
         self.dispatch_count += 1
         if ctx.ledger_slot >= 0:
             part.ledger.resume(ctx.ledger_slot, now)
+        if part.trace_enabled:
+            part.trace_emit(self.index, Ev.SCHED_PICK, ctx.ledger_slot,
+                            quantum_ns)
 
         # Sub-step latency bounding: a job with micro_per_step > 1 is
         # dispatched in micro units, so a long step no longer floors
@@ -127,7 +131,7 @@ class Executor:
                 part.ledger.suspend(
                     ctx.ledger_slot, np.zeros(NUM_COUNTERS, dtype=np.uint64))
             self.current = None
-            part.fail_job(ctx.job, exc)
+            part.fail_job(ctx.job, exc, ctx=ctx, lane=self.index)
             return
 
         # -- context switch out: pmu_save_regs --------------------------
@@ -147,6 +151,9 @@ class Executor:
         part.progress_epoch += 1
 
         end = part.clock.now_ns()
+        if part.trace_enabled:
+            part.trace_emit(self.index, Ev.SCHED_DESCHED, ctx.ledger_slot,
+                            ran_ns)
         part.timers.fire_due(end)
         part.scheduler.descheduled(self, ctx, ran_ns, end)
         # Overflow check at the quantum boundary (pmu_ihandler analog):

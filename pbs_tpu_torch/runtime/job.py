@@ -15,9 +15,9 @@ Each job carries its console ring (``Job.log`` is the guest printk),
 its security label, its declared HBM working set (``mem_bytes``, which
 the partition's memory admission claims) and the paging fields the
 pager (``runtime.paging``) fills while its state lives in host memory.
-Not ported yet (ROADMAP): ``Job.foreign`` (adopting a callable that
-follows no protocol, which leans on XLA executables); the label is
-carried but nothing checks it until xsm is ported (queue 1, item 9).
+The partition's xsm checks read the label. Not ported yet (ROADMAP):
+``Job.foreign`` (adopting a callable that follows no protocol, which
+leans on XLA executables).
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ import numpy as np
 
 from pbs_tpu_torch.obs.console import Console
 from pbs_tpu_torch.telemetry.counters import NUM_COUNTERS, Counter
+from pbs_tpu_torch.utils.params import integer_param
 
 
 class ContextState(enum.Enum):
@@ -42,10 +43,9 @@ class ContextState(enum.Enum):
     FAILED = "failed"  # contained fault (MCE-containment analog)
 
 
-#: Default per-job slice in µs: CSCHED_DEFAULT_TSLICE_US
-#: (sched_credit.c:52), the reference package's ``sched_credit_tslice_us``
-#: boot-param default.
-DEFAULT_TSLICE_US = 100
+# Boot-param analog of ``sched_credit_tslice_us=`` (sched_credit.c:126-127):
+# overrides the default per-job slice for jobs that don't set one.
+_tslice_param = integer_param("sched_credit_tslice_us", 100)
 
 
 @dataclasses.dataclass
@@ -55,7 +55,9 @@ class SchedParams:
     weight: int = 256  # CSCHED_DEFAULT_WEIGHT (sched_credit.c)
     cap: int = 0  # percent of one executor; 0 = uncapped
     # Per-job time slice in µs; the feedback policy mutates this.
-    tslice_us: int = DEFAULT_TSLICE_US
+    # CSCHED_DEFAULT_TSLICE_US = 100 (sched_credit.c:52).
+    tslice_us: int = dataclasses.field(
+        default_factory=lambda: _tslice_param.value)
     # Latency-sensitive jobs get BOOST priority on wake (serving).
     boost_on_wake: bool = True
 

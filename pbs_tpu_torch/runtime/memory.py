@@ -24,11 +24,11 @@ default. Estimates for a job come from the byte size of its state.
 from __future__ import annotations
 
 import dataclasses
-import threading
 from typing import Any, Callable
 
 import torch
 
+from pbs_tpu_torch.obs.lockprof import ProfiledLock
 from pbs_tpu_torch.obs.perfc import perfc
 
 
@@ -93,7 +93,7 @@ class MemoryManager:
         self.reserve = int(reserve_bytes)
         self._accounts: dict[str, MemoryAccount] = {}
         self._reclaim: dict[str, Callable[[int], int]] = {}
-        self._lock = threading.Lock()
+        self._lock = ProfiledLock("memory_manager")
 
     @classmethod
     def for_device(cls, device: Any = None,

@@ -11,32 +11,47 @@ Admission (the optional compile-cache claim, then the optional HBM
 claim through a ``MemoryManager``), run-state control with the pager's
 fault path (waking a paged job restores its state first), fault
 containment, the overflow sampler, the job consoles, the loop and
-``dump()`` keep the reference's decision order. Not ported yet
-(ROADMAP): security labels (xsm), lifecycle hooks, trace rings, the run
-recorder, and the file-backed ledger with its monitor sidecar. None of
-them changes a dispatch decision.
+``dump()`` keep the reference's decision order, and so do the security
+label checks (``runtime.xsm``) at admission and removal, the lifecycle
+hooks (``runtime.hooks``; a required ``job-add`` hook failing unwinds
+the whole admission), the per-executor trace rings (file-backed under
+``trace_dir=``) with their batching, and the file-backed ledger
+(``ledger_path=``) with its monitor sidecar. The scheduler defaults to
+the ``sched=`` boot parameter. Not ported yet (ROADMAP): the run
+recorder, which replays into the reference's simulator.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
 from typing import TYPE_CHECKING, Any, Callable
 
+from pbs_tpu_torch.obs.trace import Ev, EmitBatch, TraceBuffer, merge_records
+from pbs_tpu_torch.runtime import xsm
 from pbs_tpu_torch.runtime.events import EventBus, Virq
 from pbs_tpu_torch.runtime.executor import Executor
-from pbs_tpu_torch.runtime.job import ContextState, Job
+from pbs_tpu_torch.runtime.hooks import HookError, HookRegistry
+from pbs_tpu_torch.runtime.job import ContextState, Job, SchedParams
 from pbs_tpu_torch.runtime.memory import nbytes_of
 from pbs_tpu_torch.runtime.timer import TimerWheel
 from pbs_tpu_torch.sched.base import Scheduler, make_scheduler
 from pbs_tpu_torch.telemetry.ledger import Ledger
 from pbs_tpu_torch.telemetry.source import TelemetrySource
 from pbs_tpu_torch.utils.clock import Clock, VirtualClock
+from pbs_tpu_torch.utils.params import string_param
 
 if TYPE_CHECKING:
     from pbs_tpu_torch.runtime.compile_gate import CompileAdmission
+    from pbs_tpu_torch.runtime.job import ExecutionContext
     from pbs_tpu_torch.runtime.memory import MemoryManager
 
 DEFAULT_LEDGER_SLOTS = 128
+
+# ``sched=`` boot param (schedule.c:65-70): the scheduler a partition
+# gets when its creator doesn't pick one explicitly.
+_sched_param = string_param("sched", "credit")
 
 
 class Partition:
@@ -44,11 +59,13 @@ class Partition:
         self,
         name: str,
         source: TelemetrySource,
-        scheduler: str = "credit",
+        scheduler: str | None = None,
         n_executors: int = 1,
         devices: list[Any] | None = None,
         clock: Clock | None = None,
         ledger_slots: int = DEFAULT_LEDGER_SLOTS,
+        ledger_path: str | None = None,
+        trace_dir: str | None = None,
         sched_params: dict[str, Any] | None = None,
         memory: "MemoryManager | None" = None,
         compile_admission: "CompileAdmission | None" = None,
@@ -57,7 +74,20 @@ class Partition:
         self.source = source
         self.clock = clock if clock is not None else source.clock
         self.timers = TimerWheel()
-        self.ledger = Ledger(ledger_slots)
+        # File-backed ledger lets external monitors read live telemetry
+        # lock-free across processes.
+        self._ledger_path = ledger_path
+        if ledger_path is not None:
+            self.ledger = Ledger.file_backed(ledger_path, ledger_slots)
+        else:
+            self.ledger = Ledger(ledger_slots)
+        # Per-executor lockless trace rings (per-CPU rings, trace.c).
+        self.traces: list[TraceBuffer] = []
+        # Master trace switch (the tb_init_done analog): drivers that
+        # consume no ring turn it off so dispatch events skip the ring.
+        self.trace_enabled = True
+        # Optional per-ring staging batches (enable_trace_batching).
+        self._trace_batches: list[EmitBatch] | None = None
         # Async signaling fabric (event_channel.c analog); delivered by
         # the run loop between quanta.
         self.events = EventBus()
@@ -73,24 +103,48 @@ class Partition:
         # Optional compile-cache admission (runtime.compile_gate):
         # distinct programs per partition and cumulative compile time.
         self.compile_admission = compile_admission
+        # Lifecycle hook scripts (the /etc/xen/scripts hotplug analog):
+        # required job-add hooks gate admission.
+        self.hooks = HookRegistry()
         self._free_slots = list(range(ledger_slots - 1, -1, -1))
         self.jobs: list[Job] = []
-        # Monotone quantum counter.
+        # Monotone quantum counter; WallWatchdog reads it out-of-band.
         self.progress_epoch = 0
         # Hook invoked on contained job failures (crash-dump wiring).
         self.on_job_failure: Callable[[Job, BaseException], None] | None = None
         self.executors: list[Executor] = []
         self.scheduler: Scheduler = make_scheduler(
-            scheduler, self, **(sched_params or {}))
+            scheduler if scheduler is not None else _sched_param.value,
+            self, **(sched_params or {}))
+        # File-backed rings let an external monitor attach live;
+        # otherwise rings live in process memory. Absolute path: the
+        # meta sidecar publishes it for monitors that run elsewhere.
+        self._trace_dir = (
+            os.path.abspath(trace_dir) if trace_dir is not None else None)
+        if self._trace_dir is not None:
+            os.makedirs(self._trace_dir, exist_ok=True)
         devices = devices or [None] * n_executors
         for i, dev in enumerate(devices):
             ex = Executor(self, i, device=dev)
             self.executors.append(ex)
+            if self._trace_dir is not None:
+                self.traces.append(TraceBuffer.file_backed(
+                    os.path.join(self._trace_dir, f"trace{i}.ring")))
+            else:
+                self.traces.append(TraceBuffer())
             self.scheduler.executor_added(ex)
+        # Overflow crossings land in ring 0 as TELEM_OVERFLOW in every
+        # mode (trace content must not depend on whether trace batching
+        # is enabled): the sampler stages a quantum's firings and
+        # flushes at the end of each check() call.
+        if self.traces:
+            self.sampler.bind_trace(
+                EmitBatch(self.traces[0], capacity=64), self.clock)
 
     # -- admission (domain_create analog, xen/common/domain.c) -----------
 
-    def add_job(self, job: Job) -> Job:
+    def add_job(self, job: Job, subject: str = xsm.SYSTEM) -> Job:
+        xsm.xsm_check(subject, "job.create", job.label)
         if self.compile_admission is not None:
             # Fail-fast compile-cache claim FIRST: it touches no shared
             # state beyond its own table, so rejection leaves nothing
@@ -123,7 +177,9 @@ class Partition:
             self._release_slots(job)
             self._release_admission(job)
             raise
-        # Scheduler enrollment is part of the same atomic admission.
+        # Scheduler enrollment is part of the same atomic admission: a
+        # job_added/wake failure or a required job-add hook failing
+        # unwinds jobs-list membership, the ledger slots and the claims.
         enrolled = False
         try:
             self.jobs.append(job)
@@ -132,6 +188,12 @@ class Partition:
             for ctx in job.contexts:
                 if ctx.state is ContextState.RUNNABLE:
                     self.scheduler.wake(ctx)
+            self._publish_meta()
+            # Hotplug: a REQUIRED job-add hook failing aborts the whole
+            # admission (the vif-attach-fails semantics) via the unwind
+            # below; optional failures are contained inside fire().
+            self.hooks.fire("job-add", self._hook_env(job),
+                            console=job.console)
             job.console.write(
                 f"admitted to {self.name} "
                 f"({len(job.contexts)} ctx, scheduler "
@@ -146,8 +208,34 @@ class Partition:
                 self.jobs.remove(job)
             self._release_slots(job)
             self._release_admission(job)
+            try:
+                # A required-hook failure lands AFTER the sidecar was
+                # published: republish so monitors never attribute the
+                # freed slots to a job that was never admitted.
+                self._publish_meta()
+            except Exception:  # noqa: BLE001 — unwind must complete
+                pass
             raise
         return job
+
+    def create_job(
+        self,
+        name: str,
+        step_fn: Callable | None = None,
+        state: Any = None,
+        params: SchedParams | None = None,
+        **kw: Any,
+    ) -> Job:
+        job = Job(name, step_fn=step_fn, state=state, params=params, **kw)
+        return self.add_job(job)
+
+    def _hook_env(self, job: Job, **extra: str) -> dict[str, str]:
+        return {
+            "PBST_JOB": job.name,
+            "PBST_PARTITION": self.name,
+            "PBST_LABEL": job.label,
+            **extra,
+        }
 
     def _release_slots(self, job: Job) -> None:
         for ctx in job.contexts:
@@ -163,7 +251,15 @@ class Partition:
         if self.compile_admission is not None:
             self.compile_admission.release(job.name)
 
-    def remove_job(self, job: Job) -> None:
+    def remove_job(self, job: Job, subject: str = xsm.SYSTEM) -> None:
+        xsm.xsm_check(subject, "job.destroy", job.label)
+        try:
+            # Teardown hooks run while the job still exists (the detach
+            # script sees the device); failure cannot block destruction.
+            self.hooks.fire("job-remove", self._hook_env(job),
+                            console=job.console)
+        except HookError:
+            pass
         job.console.write("destroyed")
         self._release_admission(job)
         # Dead jobs must not pin their contexts via armed samples (or
@@ -172,6 +268,7 @@ class Partition:
         self.scheduler.job_removed(job)
         self.jobs.remove(job)
         self._release_slots(job)
+        self._publish_meta()
 
     def job(self, name: str) -> Job:
         for j in self.jobs:
@@ -182,10 +279,18 @@ class Partition:
     # -- run-state control (vcpu_sleep/wake, schedule.c) -----------------
 
     def sleep_job(self, job: Job) -> None:
+        changed = False
         for ctx in job.contexts:
             if ctx.runnable():
                 ctx.state = ContextState.BLOCKED
                 self.scheduler.sleep(ctx)
+                changed = True
+        if changed:
+            try:
+                self.hooks.fire("job-sleep", self._hook_env(job),
+                                console=job.console)
+            except HookError:
+                pass  # run-state changes cannot be vetoed
 
     def wake_job(self, job: Job) -> None:
         if job.paged is not None:
@@ -195,22 +300,45 @@ class Partition:
             from pbs_tpu_torch.runtime.paging import page_in_job
 
             page_in_job(self, job)
+        changed = False
         for ctx in job.contexts:
             if ctx.state is ContextState.BLOCKED:
                 ctx.state = ContextState.RUNNABLE
                 self.scheduler.wake(ctx)
+                changed = True
+        if changed:
+            try:
+                self.hooks.fire("job-wake", self._hook_env(job),
+                                console=job.console)
+            except HookError:
+                pass
 
-    def fail_job(self, job: Job, exc: BaseException) -> None:
+    def fail_job(self, job: Job, exc: BaseException,
+                 ctx: "ExecutionContext | None" = None,
+                 lane: int = 0) -> None:
         """Contain a fault to one job (the MCE-containment model): mark
-        every context FAILED and notify — the partition and its other
-        tenants keep running. The job's overflow samples go with it."""
+        every context FAILED, notify, dump — the partition and its other
+        tenants keep running. The job's overflow samples go with it.
+        ``ctx``/``lane`` identify the faulting context and executor so
+        the postmortem trace names the right victim."""
         job.error = f"{type(exc).__name__}: {exc}"
         job.console.write(f"FAULT contained: {job.error}")
         self.sampler.disarm_job(job)
+        try:
+            self.hooks.fire(
+                "job-fail",
+                self._hook_env(job, PBST_ERROR=job.error),
+                console=job.console)
+        except HookError:
+            pass  # containment must complete regardless
         for c in job.contexts:
             if c.state is not ContextState.FAILED:
                 c.state = ContextState.FAILED
                 self.scheduler.sleep(c)
+        if ctx is None and job.contexts:
+            ctx = job.contexts[0]
+        self.trace_emit(lane, Ev.JOB_FAILED,
+                        ctx.ledger_slot if ctx is not None else 0)
         self.events.send_virq(Virq.JOB_FAILED)
         if self.on_job_failure is not None:
             self.on_job_failure(job, exc)
@@ -268,9 +396,84 @@ class Partition:
                     self.timers.fire_due(self.clock.now_ns())
                 else:
                     time.sleep(min(0.001, max(0.0, (deadline - self.clock.now_ns()) / 1e9)))
+        # Refresh the monitor sidecar so adapted tslice/weights are
+        # visible after the run; staged trace batches land in the rings
+        # so attached monitors see the full stream.
+        self.flush_traces()
+        self._publish_meta()
         return quanta
 
     # -- observability ---------------------------------------------------
+
+    def _publish_meta(self) -> None:
+        """Sidecar slot map so external monitors can label ledger slots
+        (the xenstore-registered device metadata analog)."""
+        if self._ledger_path is None:
+            return
+        meta = {
+            "partition": self.name,
+            "scheduler": self.scheduler.name,
+            "trace_dir": self._trace_dir,
+            "n_rings": len(self.traces),
+            # Counter-source provenance: sources that can say what they
+            # are do, so a monitor never reports sim-sourced numbers as
+            # live.
+            "source": (self.source.describe()
+                       if hasattr(self.source, "describe") else
+                       {"tier": type(self.source).__name__}),
+            "slots": {
+                str(ctx.ledger_slot): {
+                    "ctx": ctx.name,
+                    "job": job.name,
+                    "weight": job.params.weight,
+                    "cap": job.params.cap,
+                    "tslice_us": job.params.tslice_us,
+                }
+                for job in self.jobs
+                for ctx in job.contexts
+                if ctx.ledger_slot >= 0
+            },
+        }
+        tmp = self._ledger_path + ".meta.json.tmp"
+        with open(tmp, "w") as f:
+            json.dump(meta, f, indent=1)
+        os.replace(tmp, self._ledger_path + ".meta.json")
+
+    def enable_trace_batching(self, capacity: int = 256,
+                              flush_ns: int = 1_000_000) -> None:
+        """Stage trace events per ring through :class:`EmitBatch` (one
+        vectorized ``emit_many`` per watermark instead of a scalar emit
+        per event). Only for single-threaded drivers that own every
+        producer, because staged records reach the ring at flush
+        granularity."""
+        self._trace_batches = [
+            EmitBatch(t, capacity=capacity, flush_ns=flush_ns)
+            for t in self.traces
+        ]
+
+    def flush_traces(self) -> None:
+        if self._trace_batches is not None:
+            for b in self._trace_batches:
+                b.flush()
+
+    def trace_emit(self, exi: int, event: int, *args: int) -> None:
+        if self.trace_enabled and 0 <= exi < len(self.traces):
+            if self._trace_batches is not None:
+                self._trace_batches[exi].emit(
+                    self.clock.now_ns(), event, *args)
+            else:
+                self.traces[exi].emit(self.clock.now_ns(), event, *args)
+
+    def peek_traces(self, max_records: int = 4096):
+        """Non-destructive tail of all rings, merged and time-sorted —
+        for postmortems/snapshots that must not race a live consumer."""
+        self.flush_traces()
+        return merge_records([t.peek(max_records) for t in self.traces])
+
+    def drain_traces(self, max_records: int = 4096):
+        """xentrace analog: drain all rings, merged and time-sorted."""
+        self.flush_traces()
+        return merge_records([t.consume(max_records) for t in self.traces])
 
     def dump(self) -> dict[str, Any]:
         """The 'r'/'z' console-key dump surface (``keyhandler.c:543-563``,

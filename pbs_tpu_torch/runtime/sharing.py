@@ -22,9 +22,9 @@ just physically true.
 from __future__ import annotations
 
 import dataclasses
-import threading
 from typing import Any
 
+from pbs_tpu_torch.obs.lockprof import ProfiledLock
 from pbs_tpu_torch.obs.perfc import perfc
 from pbs_tpu_torch.runtime.memory import nbytes_of
 from pbs_tpu_torch.utils.tree import tree_leaves
@@ -39,7 +39,7 @@ SHARED_PREFIX = "shared:"
 # registered id can never be recycled onto an unrelated object while
 # it is in the map (id() reuse after gc was a real bug here).
 _shared_leaves: dict[int, tuple[Any, int]] = {}
-_shared_ids_lock = threading.Lock()
+_shared_ids_lock = ProfiledLock("shared_leaves")
 
 
 def is_shared_leaf(leaf: Any) -> bool:
@@ -90,7 +90,7 @@ class WeightsRegistry:
     def __init__(self, memory=None):
         self.memory = memory
         self._sets: dict[str, SharedWeights] = {}
-        self._lock = threading.Lock()
+        self._lock = ProfiledLock("weights_registry")
 
     def publish(self, name: str, params: Any) -> SharedWeights:
         """Register a weight set (claims its HBM once). Publishing an

@@ -2,9 +2,11 @@
 
 The port of ``pbs_tpu.sched.feedback``: the same windows, thresholds,
 grow/shrink arithmetic and stale-counter fallback, decision for
-decision. The knob channel (``from_profile``/``from_knobs``/
-``apply_knobs``) and the live hardware-counter constructor are not
-ported yet (ROADMAP). The reference's PMU-feedback loop
+decision, with the knob surface (``from_profile``/``from_knobs``/
+``apply_knobs``: tuned profiles and live pushes through
+``knobs.channel``). The live hardware-counter constructor
+(``from_source``) is not ported yet (ROADMAP). The reference's
+PMU-feedback loop
 (``xen-4.2.1/xen/common/sched_credit.c``):
 
 - ``csched_metric_tick`` (1 ms, ``sched_credit.c:450-465``): sample each
@@ -53,9 +55,9 @@ if TYPE_CHECKING:
     from pbs_tpu_torch.runtime.job import Job
     from pbs_tpu_torch.runtime.partition import Partition
 
-# Constants from the reference (BASELINE.md), from the port's knob
-# table (pbs_tpu_torch/knobs.py) — the same values the JAX package's
-# registry declares.
+# Constants from the reference (BASELINE.md), declared in the knob
+# registry (knobs/registry.py) — the defaults ARE the reference values,
+# and a live policy is retuned through ``apply_knobs``.
 METRIC_TICK_PERIOD_NS = knobs.default("sched.feedback.metric_tick_period_ns")
 WINDOW = knobs.default("sched.feedback.window")
 STABLE_LO = knobs.default("sched.feedback.stable_lo")
@@ -160,12 +162,107 @@ class FeedbackPolicy:
 
             fallback_us = SchedParams().tslice_us
         self.fallback_us = self._clamp(int(fallback_us))
+        #: Live hardware-counter provenance, set by the reference's
+        #: ``from_source`` (not ported yet); never read on the steering
+        #: path.
+        self.hw_source = None
         self.states: dict[str, JobMetricState] = {}
         now = partition.clock.now_ns()
         self.timer = partition.timers.arm(
             now + tick_ns, self._metric_tick, period_ns=tick_ns,
             name="csched_metric_tick",
         )
+
+    #: Profile keys `from_profile` accepts — exactly the constructor
+    #: knobs the reference's tuner searches.
+    TUNABLE_PARAMS = (
+        "min_us", "max_us", "window", "stall_threshold",
+        "grow_step_us", "shrink_sub_us", "qdelay_threshold_ns",
+        "gw_hot_after",
+    )
+
+    #: Registry policy key (knobs/profile.py PARAM_KNOBS): which knob
+    #: family maps onto this policy's constructor params.
+    KNOB_POLICY = "feedback"
+
+    @classmethod
+    def from_profile(cls, partition: "Partition",
+                     profile: dict) -> "FeedbackPolicy":
+        """Build a policy from a tuned profile document (the
+        ``sched/tuned/*.json`` format): unknown keys are rejected so a
+        stale profile fails loudly instead of silently running
+        reference constants."""
+        params = dict(profile.get("params", profile))
+        unknown = set(params) - set(cls.TUNABLE_PARAMS)
+        if unknown:
+            raise KeyError(
+                f"profile carries unknown policy params "
+                f"{sorted(unknown)}; tunable: {list(cls.TUNABLE_PARAMS)}")
+        return cls(partition, **params)
+
+    @classmethod
+    def from_knobs(cls, partition: "Partition",
+                   values: dict) -> "FeedbackPolicy":
+        """Build a policy from registry-named knob values (the knob
+        channel's snapshot surface) — the load path a
+        tuned-profile-as-knob-file takes."""
+        from pbs_tpu_torch.knobs import profile as knob_profile
+
+        return cls(partition,
+                   **knob_profile.knobs_to_params(cls.KNOB_POLICY,
+                                                  values))
+
+    def apply_knobs(self, values: dict) -> dict:
+        """Atomic live reconfiguration from a knob push (KnobWatcher
+        applier shape is ``lambda changed, _vals:
+        policy.apply_knobs(changed)``). ``values`` is keyed by registry
+        knob name; knobs outside this policy's mapping are ignored.
+
+        Validate-then-apply: the whole update is checked (the channel
+        already range-checked it; the band sanity re-check here guards
+        direct callers), then every field lands — and every live job's
+        slice plus the stale-fallback value are re-clamped into the
+        new band immediately, so "tslice within the armed band" stays
+        an invariant ACROSS a reconfiguration, not just between them.
+        Returns the constructor-param view of what changed."""
+        from pbs_tpu_torch.knobs import profile as knob_profile
+        from pbs_tpu_torch.knobs.registry import KnobError
+
+        params = knob_profile.knobs_to_params(self.KNOB_POLICY,
+                                              values)
+        params = {p: v for p, v in params.items()
+                  if p in self.TUNABLE_PARAMS}
+        if not params:
+            return {}
+        new_min = int(params.get("min_us", self.min_us))
+        new_max = int(params.get("max_us", self.max_us))
+        new_window = int(params.get("window", self.window_len))
+        if new_min > new_max:
+            raise KnobError(
+                [f"tslice band inverted: min {new_min} > max "
+                 f"{new_max} (push rejected, policy untouched)"])
+        if new_window < 1:
+            raise KnobError([f"window {new_window} < 1"])
+        self.min_us, self.max_us = new_min, new_max
+        # window_len moving resets each job's filter lazily: the next
+        # _submilli_update sees the length mismatch, reallocates, and
+        # restarts the fill — a band change never steers on a window
+        # sampled under the old config's phase semantics.
+        self.window_len = new_window
+        if "stall_threshold" in params:
+            self.stall_threshold = float(params["stall_threshold"])
+        if "grow_step_us" in params:
+            self.grow_step_us = int(params["grow_step_us"])
+        if "shrink_sub_us" in params:
+            self.shrink_sub_us = int(params["shrink_sub_us"])
+        if "qdelay_threshold_ns" in params:
+            self.qdelay_threshold_ns = int(params["qdelay_threshold_ns"])
+        if "gw_hot_after" in params:
+            self.gw_hot_after = int(params["gw_hot_after"])
+        self.fallback_us = self._clamp(self.fallback_us)
+        for job in self.partition.jobs:
+            job.params.tslice_us = self._clamp(job.params.tslice_us)
+        return params
 
     def state_of(self, job: "Job") -> JobMetricState:
         st = self.states.get(job.name)

@@ -9,7 +9,11 @@ counter stays *suspended* until the user rearms with ``VPERFCTR_IRESUME``
 (``linux-3.2.30/drivers/perfctr/virtual.c:348-420``, the
 ``PERFCTROP_ISUSPEND`` pairing).
 
-TPU re-expression: there is no counter interrupt — telemetry counters
+The port's copy of ``pbs_tpu.telemetry.sampler``: the same arming,
+crossing and rearm rules, and the same ``TELEM_OVERFLOW`` trace records
+(``bind_trace``).
+
+Re-expression on an accelerator: there is no counter interrupt — telemetry counters
 advance at quantum boundaries when the executor folds the quantum's
 deltas into the context (``runtime/executor.py``). So "overflow" is a
 threshold crossing detected at deschedule time; delivery is
@@ -23,11 +27,6 @@ the next threshold ``period`` past the *current* value.
 Event payloads don't fit an edge-triggered doorbell (the virq is just
 "something fired", like the pending bit), so the sampler keeps a
 drainable event queue — the ``siginfo`` analog.
-
-The port's copy of ``pbs_tpu.telemetry.sampler``: the same arming,
-crossing and rearm rules. The reference also stages each crossing into
-a trace ring (``bind_trace``); the port has no trace rings yet
-(ROADMAP), so that channel is not here.
 """
 
 from __future__ import annotations
@@ -90,6 +89,22 @@ class OverflowSampler:
         self._by_ctx: dict[int, dict[int, _Sample]] = {}
         self._ids = itertools.count(1)
         self._queue: list[OverflowEvent] = []
+        # Optional batched trace channel (Ev.TELEM_OVERFLOW): wired by
+        # Partition.enable_trace_batching so a quantum's firings cost
+        # one staged ring write, not one emit per crossing.
+        self._trace_batch = None
+        self._clock = None
+
+    def bind_trace(self, batch, clock) -> None:
+        """Attach an ``EmitBatch`` (or None to detach) + clock: every
+        crossing then also lands in the trace ring as TELEM_OVERFLOW."""
+        # Lazy import: obs/__init__ reaches back into telemetry (the
+        # oprofile leg), so a module-level import here would cycle.
+        from pbs_tpu_torch.obs.trace import Ev
+
+        self._ev_overflow = int(Ev.TELEM_OVERFLOW)
+        self._trace_batch = batch
+        self._clock = clock
 
     # -- arming (VPERFCTR_CONTROL with si_signo set) ---------------------
 
@@ -177,8 +192,18 @@ class OverflowSampler:
                     value=value,
                     seq=s.fired,
                 ))
+                if self._trace_batch is not None:
+                    self._trace_batch.emit(
+                        self._clock.now_ns(), self._ev_overflow,
+                        ctx.ledger_slot, s.sample_id, int(s.counter),
+                        value)
                 n += 1
         if n:
+            if self._trace_batch is not None:
+                # Flush per check(): one batched ring write per quantum
+                # with crossings, and identical trace content whether or
+                # not the partition batches its scheduler events.
+                self._trace_batch.flush()
             self._events.send_virq(Virq.TELEMETRY)
         return n
 

@@ -534,3 +534,106 @@ def test_moe_ffn_and_train_step_on_the_card_match_the_host(gen):
         want_routes = dict(b)
         want_routes["simt"] += n
         assert _routes(w) == want_routes
+
+
+# -- the partition's control plane on the card (chip_smoke phase 3c) ----------
+
+
+def _kernel_jobs(gen, steps=6):
+    """A matmul tenant (kernel 2.4) and a flash tenant (kernel 2.1), bf16
+    on the tensor-core route, as Jobs."""
+    from pbs_tpu_torch.runtime import Job, SchedParams
+
+    a = torch.randn(512, 512, device="cuda", generator=gen).bfloat16()
+    b = torch.randn(512, 512, device="cuda", generator=gen).bfloat16()
+    q, k, v = _qkv(gen, 2, 512, 8, 4, 128, torch.bfloat16)
+
+    def mm_fn(state):
+        out, raw = matmul.instrumented_matmul(a, b, 128, 128, 128)
+        return out, matmul.scale_stats(raw, 128, 128, 128).metrics()
+
+    def flash_fn(state):
+        return attention.flash_attention(q, k, v, causal=True)
+
+    return [Job("mm", step_fn=mm_fn, params=SchedParams(weight=512),
+                max_steps=steps),
+            Job("flash", step_fn=flash_fn, params=SchedParams(weight=256),
+                max_steps=steps)]
+
+
+def _wrapper_routes():
+    return (_routes(matmul.instrumented_matmul_cuda),
+            _routes(attention.flash_attention_cuda))
+
+
+def test_credit2_drives_the_kernels_on_two_lanes_of_one_card(gen):
+    from pbs_tpu_torch.runtime import Partition
+    from pbs_tpu_torch.telemetry import CudaBackend
+
+    lane = torch.device("cuda", 0)
+    part = Partition("c2", source=CudaBackend(), scheduler="credit2",
+                     devices=[lane, lane],
+                     sched_params={"executors_per_runq": 1})
+    jobs = [part.add_job(j) for j in _kernel_jobs(gen)]
+    before = _wrapper_routes()
+    part.run()
+    after = _wrapper_routes()
+    assert all(j.error is None and j.steps_retired() == 6 for j in jobs)
+    assert all(ex.dispatch_count > 0 for ex in part.executors)
+    for b, a in zip(before, after):
+        assert a["wgmma"] - b["wgmma"] == 6 and a["simt"] == b["simt"]
+
+
+def test_arinc653_picks_start_in_their_own_windows_on_the_card(gen):
+    from pbs_tpu_torch.obs.trace import Ev
+    from pbs_tpu_torch.runtime import Partition
+    from pbs_tpu_torch.telemetry import CudaBackend
+
+    frame = [("mm", 4_000), ("flash", 4_000), (None, 2_000)]
+    part = Partition("a653", source=CudaBackend(), scheduler="arinc653")
+    jobs = {j.name: part.add_job(j) for j in _kernel_jobs(gen, steps=20)}
+    part.scheduler.set_schedule(frame)
+    part.run()
+    sched = part.scheduler
+    frame_ns = 10_000_000
+    frame0 = sched.frame_start_ns - sched.frame_count * frame_ns
+    by_slot = {j.contexts[0].ledger_slot: n for n, j in jobs.items()}
+    starts = {"mm": 0, "flash": 4_000_000}
+    picks = [r for r in part.drain_traces().tolist()
+             if r[1] == int(Ev.SCHED_PICK)]
+    assert len(picks) == sum(j.contexts[0].sched_count
+                             for j in jobs.values())
+    for ts, _, slot, *_ in picks:
+        off = (ts - frame0) % frame_ns - starts[by_slot[slot]]
+        # inside its own 4 ms window, or the record's few microseconds
+        # after a decision at the window's very end
+        assert 0 <= off < 4_000_000 + 200_000, (by_slot[slot], off)
+    assert all(j.steps_retired() == 20 for j in jobs.values())
+
+
+def test_wall_watchdog_barks_once_at_a_card_hold(gen):
+    from pbs_tpu_torch.runtime import Job, Partition, WallWatchdog
+    from pbs_tpu_torch.telemetry import CudaBackend
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(100_000_000)
+    end.record()
+    end.synchronize()
+    hz = 100_000_000 / (start.elapsed_time(end) / 1e3)
+
+    def hold(state):
+        torch.cuda._sleep(int(1.0 * hz))
+        torch.cuda.synchronize()
+        return state
+
+    part = Partition("wd", source=CudaBackend())
+    part.add_job(_kernel_jobs(gen)[0])
+    part.add_job(Job("hold", step_fn=hold, max_steps=1))
+    barks = []
+    wd = WallWatchdog(part, timeout_s=0.3, poll_s=0.02,
+                      on_bark=lambda p, idle: barks.append(idle))
+    with wd:
+        part.run()
+    assert wd.barks == 1 and barks[0] >= 0.3

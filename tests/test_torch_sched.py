@@ -147,10 +147,18 @@ def test_memory_bound_grows_compute_bound_stays():
 
 
 def test_knob_table_matches_the_registry():
-    for name, value in port_knobs.DEFAULTS.items():
-        assert pbs_tpu.knobs.default(name) == value, name
+    """The port's typed registry declares every knob of the reference's
+    (name, kind, unit, range, default, doc, native symbol) but the two
+    roofline peaks of the accelerator the reference models."""
+    ref = {k.name: k for k in pbs_tpu.knobs.all_knobs()}
+    port = {k.name: k for k in port_knobs.all_knobs()}
+    assert set(ref) - set(port) == set(port_knobs.registry.UNDECLARED)
+    assert set(port) <= set(ref)
+    for name, knob in port.items():
+        assert knob.as_dict() == ref[name].as_dict(), name
+        assert port_knobs.default(name) == pbs_tpu.knobs.default(name)
     assert port_rt.SchedParams().tslice_us == ref_rt.SchedParams().tslice_us
-    with pytest.raises(KeyError, match="unknown knob"):
+    with pytest.raises(port_knobs.KnobError, match="unknown knob"):
         port_knobs.default("telemetry.source.peak_flops")
 
 

@@ -219,14 +219,20 @@ def test_taxonomy_and_formatting_match():
 @pytest.mark.parametrize("native", NATIVE)
 def test_tbuf_size_param_resolves_like_the_reference(monkeypatch, tmp_path,
                                                      native):
-    """An unsized ring gets the reference's default ``tbuf_size``."""
+    """An unsized ring gets the ``tbuf_size`` boot param, declared in the
+    port's registry with the reference's name and default."""
     monkeypatch.delenv("PBST_TBUF_SIZE", raising=False)
-    assert port_trace.TBUF_SIZE == ref_trace._tbuf_size.value
+    from pbs_tpu_torch.utils import params as port_params
+
+    assert port_params.get("tbuf_size") is port_trace._tbuf_size
+    assert port_trace._tbuf_size.default == ref_trace._tbuf_size.default
+    assert port_trace._tbuf_size.value == ref_trace._tbuf_size.value
     assert (port_trace.TraceBuffer(native=native).capacity
             == ref_trace.TraceBuffer(native=native).capacity)
     rings = [mod.TraceBuffer.file_backed(str(tmp_path / name), native=native)
              for name, mod in (("port", port_trace), ("ref", ref_trace))]
-    assert rings[0].capacity == rings[1].capacity == port_trace.TBUF_SIZE
+    assert rings[0].capacity == rings[1].capacity == \
+        port_trace._tbuf_size.value
 
 
 # -- the span chain -----------------------------------------------------
