@@ -120,6 +120,23 @@ Phases, each fatal on failure:
              scheduler's dump, device share against weight or window
              share, deadline misses and debts, and the engine's TTFT,
              latency and tick beside the card's name and power limit.
+3r. record — record, replay and tune: 3c's tenants (3c's weights and
+             cuts) in a credit Partition whose source is the host counter
+             plane, ``HwCounterSource(inner=CudaBackend())``, steered by
+             ``FeedbackPolicy.from_source``, with the run recorder on and a
+             counter window sampled once a round: (a) checks one quantum
+             record per dispatch (against the trace ring), one tick record
+             per feedback decision, the recorded deltas summing to the
+             ledger bit for bit and every 2.1/2.4 launch on the tensor-core
+             route, and prints the counter ladder (absent events and why)
+             and CudaBackend's own device time beside the overlaid one;
+             (b) replays the trace offline under credit (every counter
+             total reproduced), credit2 and SEDF (every step retired) and
+             scores the window's sim-vs-real fidelity; (c) tunes the
+             feedback policy by successive halving on a simulator workload
+             built from the card's step times and stall fractions, writes
+             the winner as a profile in a scratch directory and replays its
+             check digest; (d) re-runs the tenants with the winner armed.
 4. numerics — the scoring forward through the flash kernel against the dense
              attention path on the same weights, the KV-cache prefill
              against the full forward, one micro-batch's training loss
@@ -262,6 +279,16 @@ CONTROL_PICK_SLACK_NS = 200_000
 CONTROL_PUSH_MAX_US, CONTROL_PUSH_AFTER_NS = 300, 300_000_000
 # (e) the wall watchdog's timeout, and how long one step holds the card.
 CONTROL_WATCHDOG_S, CONTROL_HOLD_S = 1.0, 3.0
+# Phase 3r, record, replay and tune: 3c's tenants with 3c's weights and
+# cuts, recorded live under credit; the simulator workload built from
+# their recorded step times (registered for the phase only, never
+# checked in), its tenants' step times jittered as the catalog's are.
+RECORD_WORKLOAD = "card-3r"
+RECORD_JITTER = 0.05
+# A live run stops after this many scheduling rounds (it drains in a few
+# hundred); the counter window keeps this many samples.
+RECORD_MAX_ROUNDS = 100_000
+RECORD_WINDOW_CAPACITY = 1 << 16
 H100_PEAK_BF16_FLOPS = 989e12  # dense, data sheet
 H100_PEAK_HBM_BW = 3.35e12
 
@@ -3010,6 +3037,469 @@ def run_control_path(torch, gen, cfg, params, card):
     return total, total_routes
 
 
+# -- phase 3r ----------------------------------------------------------------
+
+
+def own_delta_backend(device):
+    """A ``CudaBackend`` on ``device`` that also sums, per job, the counter
+    deltas it returns (``own_totals``), before ``HwCounterSource``
+    overlays its host tier's slots into the same array
+    (``hwtelem/sources.py``, ``_overlay``). On the card a task-clock tier
+    puts the host process's CPU time where ``CudaBackend``'s device time
+    was; this keeps the card's own numbers beside it."""
+    from pbs_tpu_torch.telemetry import CudaBackend
+
+    class OwnDeltaBackend(CudaBackend):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.own_totals: dict = {}
+
+        def _keep(self, ctx, deltas):
+            total = self.own_totals.get(ctx.job.name)
+            if total is None:
+                total = self.own_totals[ctx.job.name] = deltas * 0
+            total += deltas
+            return deltas
+
+        def execute(self, ctx, n_steps):
+            return self._keep(ctx, super().execute(ctx, n_steps))
+
+        def execute_micro(self, ctx, n_micro):
+            return self._keep(ctx, super().execute_micro(ctx, n_micro))
+
+    return OwnDeltaBackend(device=device)
+
+
+def record_run(what, make_tenants, device, make_tier, path, policy_for,
+               counted):
+    """One live run of phase 3r: the tenants in a credit Partition whose
+    source is ``HwCounterSource`` over a ``CudaBackend`` on ``device``
+    (:func:`own_delta_backend`), steered by
+    ``policy_for(part, source)``, with the run recorder writing ``path``;
+    a second ``HwCounterSource`` with no inner is sampled into an
+    ``HwRecorder`` once per ``part.run(max_rounds=1)`` round. Checks one
+    ``quantum`` record per dispatched quantum (against the trace ring's
+    SCHED_DESCHED records and each context's dispatches), ``tick``
+    records that account for every grow, shrink and reset the policy
+    counted (``policy.dump()``) and number no more than its metric ticks,
+    each job's recorded deltas summing to
+    its ledger words bit for bit, every step retired and every request
+    served. ``counted(what)`` is entered just before the first round and
+    left just after the last."""
+    import numpy as np
+
+    from pbs_tpu_torch.hwtelem import HwCounterSource, HwRecorder
+    from pbs_tpu_torch.obs.trace import Ev
+    from pbs_tpu_torch.runtime import Partition
+    from pbs_tpu_torch.sim import TraceRecorder
+    from pbs_tpu_torch.telemetry import Counter
+    from pbs_tpu_torch.telemetry.counters import NUM_COUNTERS
+
+    jobs, eng, ticks = make_tenants()
+    start = {n: dict(weight=j.params.weight, cap=j.params.cap,
+                     tslice_us=j.params.tslice_us,
+                     boost_on_wake=j.params.boost_on_wake)
+             for n, j in jobs.items()}
+    inner = own_delta_backend(device)
+    src = HwCounterSource(inner=inner, tier=make_tier())
+    feed = HwCounterSource(tier=make_tier())
+    part = Partition(f"record-{what}", source=src, scheduler="credit")
+    policy = policy_for(part, src)
+    for job in jobs.values():
+        part.add_job(job)
+    rec = TraceRecorder(path)
+    rec.meta(scheduler="credit", n_executors=1, source=src.describe(),
+             jobs=[{"name": n, "weight": j.params.weight,
+                    "cap": j.params.cap, "tslice_us": j.params.tslice_us,
+                    "n_contexts": len(j.contexts),
+                    "avg_step_ns": int(j.contexts[0].avg_step_ns)}
+                   for n, j in jobs.items()])
+    part.recorder = rec
+    window = HwRecorder(tier=feed.tier.name if feed.tier is not None
+                        else "none", capacity=RECORD_WINDOW_CAPACITY)
+    feed.sample()  # the baseline: sample 0 charges the first round
+    rounds = quanta = 0
+    with counted(what):
+        t0 = time.monotonic()
+        while rounds < RECORD_MAX_ROUNDS:
+            n = part.run(max_rounds=1)
+            rounds, quanta = rounds + 1, quanta + n
+            window.sample(feed.clock.now_ns(), feed.sample())
+            if n == 0 and not part.pending_work():
+                break
+        wall = time.monotonic() - t0
+    rec.close()
+    policy.timer.stop()
+    src.close()
+    feed.close()
+    recs = rec.records()
+    by_slot = {j.contexts[0].ledger_slot: n for n, j in jobs.items()}
+    desched = {n: 0 for n in jobs}
+    for r in part.drain_traces().tolist():
+        if r[1] == int(Ev.SCHED_DESCHED):
+            desched[by_slot[r[2]]] += 1
+    check(not part.pending_work() and sum(desched.values()) == quanta,
+          f"({what}) the run drained in {rounds} rounds: {quanta} quanta, "
+          f"{sum(desched.values())} SCHED_DESCHED records on the ring")
+    print(f"  ({what}) {quanta} quanta in {wall:.2f} s wall, "
+          f"{len(recs)} trace records; window: {len(window.window().samples)}"
+          f" samples from the {window.tier} tier, {window.dropped} dropped")
+    print(f"  {'tenant':<6} {'steps':>5} {'quanta':>6} {'ticks':>5} "
+          f"{'device_ms(card)':>15} {'device_ms(hw)':>13} "
+          f"{'stall_ms(card)':>14} {'stall_ms(hw)':>12} {'tslice_us':>9}")
+    for n, job in jobs.items():
+        ctx = job.contexts[0]
+        qrecs = [r for r in recs if r["kind"] == "quantum" and r["job"] == n]
+        trecs = [r for r in recs if r["kind"] == "tick" and r["job"] == n]
+        n_ticks = len(trecs)
+        sums = np.zeros(NUM_COUNTERS, dtype=np.uint64)
+        for r in qrecs:
+            for k, v in r["c"].items():
+                sums[Counter[k.upper()]] += np.uint64(v)
+        mine = inner.own_totals[n]
+        print(f"  {n:<6} {job.steps_retired():>5} {len(qrecs):>6} "
+              f"{n_ticks:>5} "
+              f"{int(mine[Counter.DEVICE_TIME_NS]) / 1e6:>15.3f} "
+              f"{int(ctx.counters[Counter.DEVICE_TIME_NS]) / 1e6:>13.3f} "
+              f"{int(mine[Counter.HBM_STALL_NS]) / 1e6:>14.3f} "
+              f"{int(ctx.counters[Counter.HBM_STALL_NS]) / 1e6:>12.3f} "
+              f"{job.params.tslice_us:>9}", flush=True)
+        check(job.error is None and job.steps_retired() == job.max_steps,
+              f"({what}) {n}: {job.steps_retired()} of {job.max_steps} "
+              f"steps retired, no fault ({job.error})")
+        check(len(qrecs) == desched[n] == ctx.sched_count,
+              f"({what}) {n}: {len(qrecs)} quantum records == "
+              f"{desched[n]} SCHED_DESCHED on the ring == "
+              f"{ctx.sched_count} dispatches")
+        # Every grow, shrink and reset the policy counts happens in a
+        # feedback decision, one at most of each per decision, so the
+        # recorded stream steps each count by 0 or 1 and ends on the
+        # policy's own; a decision that changed one and left no record
+        # shows as a step of 2 or a short end.
+        counts = ("grows", "shrinks", "resets")
+        mine_st = next(d for d in policy.dump() if d["job"] == n)
+        seen = dict.fromkeys(counts, 0)
+        steps_ok = True
+        for r in trecs:
+            steps_ok &= all(r[k] - seen[k] in (0, 1) for k in counts)
+            seen = {k: r[k] for k in counts}
+        metric_ticks = policy.state_of(job).ticks
+        check(steps_ok and seen == {k: mine_st[k] for k in counts}
+              and n_ticks <= metric_ticks,
+              f"({what}) {n}: {n_ticks} tick records of {metric_ticks} "
+              f"metric ticks account for the policy's {seen} one "
+              f"decision at a time")
+        check(sums.tolist()
+              == part.ledger.snapshot(ctx.ledger_slot).tolist()
+              == ctx.counters.tolist(),
+              f"({what}) {n}: the recorded deltas sum to the ledger words "
+              f"bit for bit")
+    if eng is not None:
+        st = eng.stats()
+        check(st["completed"] == jobs["engine"].state["completed"]
+              and not eng.has_work(),
+              f"({what}) engine: {st['completed']} requests served")
+    return dict(jobs=jobs, eng=eng, ticks=ticks, wall=wall,
+                own=inner.own_totals,
+                start=start, recs=recs, window=window.window(), policy=policy,
+                src=src.describe())
+
+
+def contended_shares(recs) -> dict:
+    """Per job, its share of the device time dispatched before the first
+    job finished (every tenant runnable), and its finish time (ms from
+    the first quantum), from a run's quantum records."""
+    q = [r for r in recs if r["kind"] == "quantum"]
+    t0 = min(r["t"] for r in q)
+    last: dict = {}
+    for r in q:
+        last[r["job"]] = max(last.get(r["job"], 0), r["end"])
+    t_end = min(last.values())
+    dev = {n: sum(r["c"].get("device_time_ns", 0) for r in q
+                  if r["job"] == n and r["end"] <= t_end) for n in last}
+    total = max(1, sum(dev.values()))
+    return {n: (dev[n] / total, (last[n] - t0) / 1e6) for n in sorted(last)}
+
+
+def replay_runs(live) -> dict:
+    """Phase 3r (b): the recorded run replayed offline under credit (its
+    own scheduler: every counter total reproduces, RUNQ_WAIT_NS aside, as
+    ``tests/test_sim_trace.py`` holds it), then under credit2 and SEDF
+    (every recorded step retires, no ReplayError)."""
+    from pbs_tpu_torch.sim import TraceRecorder, recorded_steps, \
+        replay_partition
+    from pbs_tpu_torch.telemetry import Counter
+
+    steps = recorded_steps(live["recs"])
+    out = {}
+    for sched in ("credit", "credit2", "sedf"):
+        part = replay_partition(live["recs"], scheduler=sched)
+        rec = TraceRecorder()
+        part.recorder = rec
+        t0 = time.monotonic()
+        quanta = part.run()
+        host_ms = (time.monotonic() - t0) * 1e3
+        check(all(part.job(n).steps_retired() == s for n, s in steps.items()),
+              f"(b) {sched}: every recorded step retired ({steps}) in "
+              f"{quanta} quanta, {part.clock.now_ns() / 1e6:.3f} virtual ms "
+              f"({host_ms:.1f} host ms)")
+        if sched == "credit":
+            for n, job in live["jobs"].items():
+                got = part.job(n).contexts[0].counters
+                want = job.contexts[0].counters
+                check(all(int(got[c]) == int(want[c]) for c in Counter
+                          if c is not Counter.RUNQ_WAIT_NS),
+                      f"(b) credit: {n}'s replayed counters equal its "
+                      f"recorded totals")
+        out[sched] = contended_shares(rec.records())
+        print(f"  (b) {sched}: device share before the first finish, and "
+              f"finish ms: " + ", ".join(
+                  f"{n} {s:.3f} at {t:.1f}" for n, (s, t)
+                  in out[sched].items()), flush=True)
+    return out
+
+
+def fidelity_axes(live) -> dict:
+    """Phase 3r (b), last: the sim-vs-real fidelity report on (a)'s
+    counter window; an axis the tier could not measure is absent."""
+    from pbs_tpu_torch.hwtelem import fidelity_report
+
+    w = live["window"]
+    rep = fidelity_report(w, seed=0)
+    check(rep["window"]["samples"] == len(w.samples)
+          and rep["window"]["tier"] == w.tier
+          and rep["axes"]["miss_rate"]["absent"]
+          == (w.totals().get("cache-references", 0) <= 0),
+          f"(b) fidelity over {len(w.samples)} samples of the {w.tier} "
+          f"tier; miss_rate absent: {rep['axes']['miss_rate']['absent']}")
+    for name, ax in rep["axes"].items():
+        pred = ax.get("predicted_x1e6", ax.get("predicted"))
+        meas = ax.get("measured_x1e6", ax.get("measured"))
+        print(f"  (b) fidelity {name}: predicted {pred}, measured {meas}, "
+              f"rel err {ax['rel_err_x1e6'] / 1e6:.4f}"
+              + (" (absent)" if ax.get("absent") else ""))
+    print(f"  (b) fidelity {rep['fidelity_x1e6'] / 1e6:.4f}, floor "
+          f"{rep['floor_x1e6'] / 1e6:.2f}, margin "
+          f"{rep['margin_x1e6'] / 1e6:+.4f}", flush=True)
+    return rep
+
+
+def tune_on_recorded(live, tmp) -> dict:
+    """Phase 3r (c): a simulator workload whose tenants are steady
+    profiles built from (a)'s own (card) numbers — step time
+    DEVICE_TIME_NS / STEPS_RETIRED and stall fraction HBM_STALL_NS /
+    DEVICE_TIME_NS, each tenant's starting SchedParams — tuned by
+    successive halving over the quick space; the winner written as a
+    profile into ``tmp`` and replayed by ``check_profile``; the winner,
+    the reference constants and the copied "serving" profile scored on
+    the same workload."""
+    from pbs_tpu_torch.runtime import SchedParams
+    from pbs_tpu_torch.sched import tune
+    from pbs_tpu_torch.sim.workload import (TenantSpec, register_workload,
+                                            unregister_workload)
+    from pbs_tpu_torch.telemetry import Counter, SimProfile
+
+    tenants = []
+    for n, d in live["own"].items():
+        dev = int(d[Counter.DEVICE_TIME_NS])
+        steps = int(d[Counter.STEPS_RETIRED])
+        stall = int(d[Counter.HBM_STALL_NS])
+        tenants.append((n, dev // max(1, steps), stall / max(1, dev)))
+        print(f"  (c) {n}: step {dev / max(1, steps) / 1e6:.3f} ms, stall "
+              f"fraction {stall / max(1, dev):.4f} (CudaBackend's own), "
+              f"start {live['start'][n]}")
+
+    def build(seed, n_tenants, horizon_ns):
+        return [TenantSpec(name=n, params=SchedParams(**live["start"][n]),
+                           profile=SimProfile.steady(
+                               step_time_ns=step_ns, stall_frac=frac,
+                               collective_wait_ns=0, jitter=RECORD_JITTER))
+                for n, step_ns, frac in tenants]
+
+    register_workload(RECORD_WORKLOAD, build)
+    try:
+        t0 = time.monotonic()
+        frontier = tune.successive_halving(
+            RECORD_WORKLOAD, "feedback",
+            configs=tune.QUICK_SPACE["feedback"], rungs=tune.QUICK_RUNGS)
+        search_s = time.monotonic() - t0
+        path = tune.write_profile(RECORD_WORKLOAD, frontier, tuned_dir=tmp)
+        verdict = tune.check_profile(RECORD_WORKLOAD, tmp)
+        check(verdict["ok"],
+              f"(c) the written profile replays its check digest "
+              f"{verdict['got_digest'][:16]} (score "
+              f"{verdict['got_score_x1e6'] / 1e6:+.6f})")
+        names = ("winner", "reference", "serving profile")
+        params = [frontier["winner"]["params"],
+                  tune.QUICK_SPACE["feedback"][0],
+                  tune.load_profile("serving")["params"]]
+        scores = tune.evaluate_params(RECORD_WORKLOAD, "feedback", params)
+    finally:
+        unregister_workload(RECORD_WORKLOAD)
+    print(f"  (c) successive halving over {len(tune.QUICK_SPACE['feedback'])}"
+          f" configs in {search_s:.2f} s: rungs "
+          f"{json.dumps(frontier['rungs'])}")
+    for name, p, s in zip(names, params, scores):
+        print(f"  (c) {name}: score {s:+.6f} {json.dumps(p, sort_keys=True)}")
+    print(f"  (c) profile {os.path.basename(path)}: "
+          f"{json.dumps(tune.load_profile(RECORD_WORKLOAD, tmp)['check'])}",
+          flush=True)
+    return dict(frontier=frontier, scores=dict(zip(names, scores)),
+                params=dict(zip(names, params)), tenants=tenants)
+
+
+def record_summary(what, live, card) -> dict:
+    """A live run's device share over weight share, from CudaBackend's own
+    device time and from the overlaid one, and, with an engine, its TTFT,
+    latency and decode tick."""
+    from pbs_tpu_torch.telemetry import Counter
+
+    weights = {n: s["weight"] for n, s in live["start"].items()}
+    total_w = sum(weights.values())
+    out = {}
+    for label, dev in (
+            ("card", {n: int(live["own"][n][Counter.DEVICE_TIME_NS])
+                      for n in weights}),
+            ("hw", {n: int(j.contexts[0].counters[Counter.DEVICE_TIME_NS])
+                    for n, j in live["jobs"].items()})):
+        total = max(1, sum(dev.values()))
+        out[label] = {n: (dev[n] / total) / (weights[n] / total_w)
+                      for n in weights}
+        print(f"  ({what}) device share ({label}) / weight share: "
+              + ", ".join(f"{n} {dev[n] / total:.3f} / "
+                          f"{weights[n] / total_w:.3f} = {out[label][n]:.3f}"
+                          for n in weights) + f" [{card}]")
+    if live["eng"] is not None:
+        st = live["eng"].stats()
+        out["engine"] = st
+        out["tick_ms"] = decode_tick_ms(live["ticks"])
+        print(f"  ({what}) engine: TTFT p50 {st['ttft_p50_s'] * 1e3:.2f} / "
+              f"p99 {st['ttft_p99_s'] * 1e3:.2f} ms, latency p50 "
+              f"{st['latency_p50_s'] * 1e3:.2f} / p99 "
+              f"{st['latency_p99_s'] * 1e3:.2f} ms (host clock); decode "
+              f"tick {out['tick_ms']:.2f} ms (median) in "
+              f"{live['wall']:.2f} s [{card}]", flush=True)
+    return out
+
+
+def record_replay_tune(make_tenants, device, make_tier, tmp, card,
+                       counted=None) -> dict:
+    """Phase 3r, (a)-(d), on whatever the callers hand it: the card's
+    tenants over ``CudaBackend`` and the host's counter ladder here, toy
+    tenants on the host and a scripted tier in the CPU twin
+    (``tests/test_torch_record.py``). ``counted(what)``, a context
+    manager, is entered just before each live run's first round and left
+    just after its last (the card counts kernel launches in it)."""
+    import contextlib
+
+    from pbs_tpu_torch.hwtelem import probe_report
+    from pbs_tpu_torch.knobs.profile import roundtrip_params
+    from pbs_tpu_torch.sched import FeedbackPolicy, tune
+
+    counted = counted or (lambda what: contextlib.nullcontext())
+    tier = make_tier()
+    rep = probe_report(None if tier is None else [tier])
+    print(f"  hwtelem ladder: active {rep['active']}")
+    for t in rep["tiers"]:
+        print(f"    {t['tier']}: "
+              + (f"events {t['events']}" if t["available"]
+                 else f"unavailable ({t['reason']})"))
+        for ev, why in t["degraded"].items():
+            print(f"      {ev} absent: {why}")
+
+    # (a) record, live
+    live = record_run(
+        "a", make_tenants, device, make_tier,
+        os.path.join(tmp, "record-a.jsonl"),
+        lambda part, src: FeedbackPolicy.from_source(part, src), counted)
+    print(f"  (a) source {json.dumps(live['src'])}; feedback "
+          f"{json.dumps(live['policy'].dump())}")
+    check(live["policy"].hw_source is not None,
+          "(a) the policy was armed by FeedbackPolicy.from_source")
+    a = record_summary("a", live, card)
+
+    # (b) replay, offline
+    shares_by = replay_runs(live)
+    fid = fidelity_axes(live)
+
+    # (c) tune on the card's own numbers
+    tuned = tune_on_recorded(live, tmp)
+
+    # (d) arm the winner: its written profile through the knob round
+    # trip (the load path of ``tune.policy_from_profile``), on (a)'s
+    # constructor, so that the two runs differ in the tuned params alone
+    prof = tune.load_profile(RECORD_WORKLOAD, tmp)
+    winner = roundtrip_params(prof["policy"], dict(prof["params"]))
+    armed = record_run(
+        "d", make_tenants, device, make_tier,
+        os.path.join(tmp, "record-d.jsonl"),
+        lambda part, src: FeedbackPolicy.from_source(part, src, **winner),
+        counted)
+    win = tuned["frontier"]["winner"]["params"]
+    pol, pol_a = armed["policy"], live["policy"]
+    got = {p: getattr(pol, "window_len" if p == "window" else p)
+           for p in win}
+    check(got == win and pol.stale_after == pol_a.stale_after
+          and pol.hw_source is not None
+          and pol.fallback_us == pol_a.fallback_us,
+          f"(d) the winner armed through its profile on (a)'s "
+          f"constructor: {json.dumps(got, sort_keys=True)}, stale after "
+          f"{pol.stale_after} ticks as in (a), fallback "
+          f"{pol.fallback_us} us")
+    print(f"  (d) feedback {json.dumps(pol.dump())}")
+    d = record_summary("d", armed, card)
+    return dict(live=live, armed=armed, shares=shares_by, fidelity=fid,
+                tuned=tuned, engine={"a": a, "d": d})
+
+
+def run_record_path(torch, gen, cfg, params, card):
+    """Phase 3r on the card: 3c's tenants (score, mm and a bf16 engine on
+    3s's script, weights 256 / 512 / 256) recorded live under credit and
+    FeedbackPolicy over ``HwCounterSource(inner=CudaBackend())``, replayed
+    offline, tuned on and re-run with the winner armed. Returns the launch
+    counts and routes summed over the two live runs."""
+    import contextlib
+    import shutil
+
+    t_phase = time.monotonic()
+    reqs, arrivals = engine_script()
+    n_ticks = engine_ticks([n for _, n in reqs], arrivals, ENGINE_SLOTS)
+    wrappers = bwd_counts()
+    total = {k: 0 for k in KERNELS}
+    total_routes = {k: {"wgmma": 0, "simt": 0} for k in KERNELS}
+
+    @contextlib.contextmanager
+    def counted(what):
+        reset_counts(wrappers)
+        yield
+        launches, routes = control_launches(wrappers)
+        print(f"  ({what}) kernel launches {launches}, by route {routes}")
+        for k in KERNELS:
+            total[k] += launches[k]
+            for r, n in routes[k].items():
+                total_routes[k][r] += n
+            n = launches[k]
+            if k in ("flash_fwd", "instrumented_matmul"):
+                check(n > 0 and routes[k] == {"wgmma": n, "simt": 0},
+                      f"({what}) {k}: {n} launches under HwCounterSource "
+                      f"over a cuda CudaBackend, every one on the "
+                      f"tensor-core route ({routes[k]})")
+            else:
+                check(n == 0, f"({what}) {k}: {n} launches == 0")
+
+    tmp, _ = paging_dir("3r")
+    try:
+        record_replay_tune(
+            lambda: control_tenants(torch, gen, cfg, params, reqs, arrivals,
+                                    n_ticks),
+            "cuda", lambda: None, tmp, card, counted=counted)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  phase 3r wall {time.monotonic() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return total, total_routes
+
+
 # -- phase 4 -----------------------------------------------------------------
 
 
@@ -3621,6 +4111,12 @@ def main() -> int:
     c_launches, c_routes = run_control_path(torch, gen, cfg, params,
                                             card_line())
 
+    phase("3r record, replay and tune: a live run recorded through the "
+          "host counter plane, replayed offline under three schedulers, a "
+          "tune search on its numbers, the winner armed")
+    r_launches, r_routes = run_record_path(torch, gen, cfg, params,
+                                           card_line())
+
     phase("4 numerics at width")
     check_numerics(torch, gen, cfg, params)
     del params
@@ -3651,6 +4147,9 @@ def main() -> int:
         # phase 3c's runs (a)-(c): credit2, SEDF and ARINC 653
         r["control_path_launches"] = c_launches[kernel]
         r["control_path_launches_by_route"] = c_routes[kernel]
+        # phase 3r's live runs (a) and (d): recorded under HwCounterSource
+        r["record_path_launches"] = r_launches[kernel]
+        r["record_path_launches_by_route"] = r_routes[kernel]
     profile_micro_step(torch, micro_step, train_state)
     del micro_step, train_state
     profile_micro_step(torch, moe_step, moe_state, what="MoE training step")

@@ -11,10 +11,14 @@ Device-free by construction: backends arrive already built (the port's
 :class:`SimServeBackend`); the gateway itself imports no torch, so
 admission/fairness/routing test and run anywhere.
 
-Not ported yet (ROADMAP queue 1 item 12): the federation, the gateway
-chaos harnesses, the write-ahead journal beyond the rid namespace,
-crash recovery, process federation and its supervisor. Looking up one
-of their names here raises ``AttributeError`` naming that item.
+The chaos harnesses' admission contract per catalog tenant,
+``quota_for``, resolves lazily from ``gateway.chaos`` (as the
+reference's does), with the arrival model the hardware-counter plane's
+serving pump drives. Not ported yet (ROADMAP queue 1 item 12): the
+federation, the gateway chaos harnesses themselves, the write-ahead
+journal beyond the rid namespace, crash recovery, process federation
+and its supervisor. Looking up one of their names here raises
+``AttributeError`` naming that item.
 """
 
 from pbs_tpu_torch.gateway.admission import (
@@ -42,7 +46,7 @@ from pbs_tpu_torch.gateway.gateway import (
 #: The reference's names this package does not have yet.
 NOT_PORTED = frozenset({
     "FederatedGateway", "HashRing", "Lease", "LeaseBroker", "LeasedBucket",
-    "run_gateway_chaos", "run_federation_chaos", "quota_for",
+    "run_gateway_chaos", "run_federation_chaos",
     "stock_crash_plan", "GatewayJournal", "JournalCorrupt", "ProcessKill",
     "read_journal", "recover_gateway", "recover_federation",
     "ProcessFederation", "run_process_chaos", "stock_process_kill_plan",
@@ -51,6 +55,12 @@ NOT_PORTED = frozenset({
 
 
 def __getattr__(name: str):
+    if name == "quota_for":
+        # The chaos module pulls in the sim workload catalog; keep that
+        # off the gateway's import path.
+        from pbs_tpu_torch.gateway import chaos
+
+        return chaos.quota_for
     if name in NOT_PORTED:
         raise AttributeError(
             f"pbs_tpu_torch.gateway.{name} is not ported: the federation, "
@@ -75,5 +85,6 @@ __all__ = [
     "SubmitResult",
     "TenantQuota",
     "TokenBucket",
+    "quota_for",
     "sched_feedback_sink",
 ]

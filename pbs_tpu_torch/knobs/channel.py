@@ -55,6 +55,7 @@ from typing import Any, Callable
 
 from pbs_tpu_torch.knobs import registry
 from pbs_tpu_torch.knobs.registry import KnobError
+from pbs_tpu_torch.utils.seqlock import read_attempts
 
 KNOB_MAGIC = int.from_bytes(b"PBSTKNOB", "little")
 CHANNEL_ABI = 1
@@ -205,9 +206,11 @@ class KnobChannel:
     def snapshot(self, max_retries: int = 64
                  ) -> tuple[int, dict[str, int | float]]:
         """Torn-free ``(generation, {name: value})`` — the telemetry
-        ledger's retry contract."""
+        ledger's retry contract, waiting out a live writer that holds
+        the version odd (``utils.seqlock.read_attempts``; ``max_retries``
+        is the reference's signature, time bounds the wait)."""
         n = len(self.names)
-        for _ in range(max_retries):
+        for _ in read_attempts():
             v0, gen = self._words(_W_VERSION, 2)
             if v0 & 1:
                 continue

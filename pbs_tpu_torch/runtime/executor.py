@@ -10,8 +10,9 @@ There is no device preemption, so a quantum is realized as N steps, N
 derived from the policy's nanosecond slice and the context's measured
 per-step time. The dispatch arithmetic and its order are the
 reference's, with its compile-admission charge, its ``SCHED_PICK``/
-``SCHED_DESCHED`` trace records and its overflow-sampler check at the
-quantum boundary; the run recorder's tap is not ported (ROADMAP).
+``SCHED_DESCHED`` trace records, its run-recorder tap
+(``partition.recorder.on_quantum``) and its overflow-sampler check at
+the quantum boundary.
 """
 
 from __future__ import annotations
@@ -154,6 +155,9 @@ class Executor:
         if part.trace_enabled:
             part.trace_emit(self.index, Ev.SCHED_DESCHED, ctx.ledger_slot,
                             ran_ns)
+        if part.recorder is not None:
+            part.recorder.on_quantum(
+                self.index, ctx, quantum_ns, n_units, deltas, now, end)
         part.timers.fire_due(end)
         part.scheduler.descheduled(self, ctx, ran_ns, end)
         # Overflow check at the quantum boundary (pmu_ihandler analog):

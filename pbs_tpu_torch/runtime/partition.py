@@ -17,8 +17,10 @@ hooks (``runtime.hooks``; a required ``job-add`` hook failing unwinds
 the whole admission), the per-executor trace rings (file-backed under
 ``trace_dir=``) with their batching, and the file-backed ledger
 (``ledger_path=``) with its monitor sidecar. The scheduler defaults to
-the ``sched=`` boot parameter. Not ported yet (ROADMAP): the run
-recorder, which replays into the reference's simulator.
+the ``sched=`` boot parameter. ``Partition.recorder`` is the run
+recorder's seat: a ``sim.trace.TraceRecorder`` there gets one record per
+dispatched quantum and per feedback decision, so a live run replays
+offline in the simulator (``sim.trace.replay_partition``).
 """
 
 from __future__ import annotations
@@ -98,6 +100,10 @@ class Partition:
         from pbs_tpu_torch.telemetry.sampler import OverflowSampler
 
         self.sampler = OverflowSampler(self.events)
+        # Optional quantum/tick recorder (sim.trace.TraceRecorder): when
+        # set, every dispatched quantum and feedback tick is appended as
+        # a JSONL record so the run can be replayed in the simulator.
+        self.recorder = None
         # Optional HBM accounting/admission (runtime.memory).
         self.memory = memory
         # Optional compile-cache admission (runtime.compile_gate):

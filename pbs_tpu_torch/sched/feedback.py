@@ -4,9 +4,9 @@ The port of ``pbs_tpu.sched.feedback``: the same windows, thresholds,
 grow/shrink arithmetic and stale-counter fallback, decision for
 decision, with the knob surface (``from_profile``/``from_knobs``/
 ``apply_knobs``: tuned profiles and live pushes through
-``knobs.channel``). The live hardware-counter constructor
-(``from_source``) is not ported yet (ROADMAP). The reference's
-PMU-feedback loop
+``knobs.channel``), the live hardware-counter constructor
+(``from_source``, over ``hwtelem.HwCounterSource``) and the run
+recorder's ``tick`` tap. The reference's PMU-feedback loop
 (``xen-4.2.1/xen/common/sched_credit.c``):
 
 - ``csched_metric_tick`` (1 ms, ``sched_credit.c:450-465``): sample each
@@ -162,9 +162,11 @@ class FeedbackPolicy:
 
             fallback_us = SchedParams().tslice_us
         self.fallback_us = self._clamp(int(fallback_us))
-        #: Live hardware-counter provenance, set by the reference's
-        #: ``from_source`` (not ported yet); never read on the steering
-        #: path.
+        #: Live hardware-counter provenance: set by :meth:`from_source`
+        #: so observability surfaces can name the ladder tier feeding
+        #: this policy. Never read on the steering path — counters
+        #: arrive through the partition's TelemetrySource like any
+        #: other backend.
         self.hw_source = None
         self.states: dict[str, JobMetricState] = {}
         now = partition.clock.now_ns()
@@ -199,6 +201,33 @@ class FeedbackPolicy:
                 f"profile carries unknown policy params "
                 f"{sorted(unknown)}; tunable: {list(cls.TUNABLE_PARAMS)}")
         return cls(partition, **params)
+
+    @classmethod
+    def from_source(cls, partition: "Partition", source,
+                    **params) -> "FeedbackPolicy":
+        """Build a policy for a partition fed by a LIVE hwtelem counter
+        source (``hwtelem.HwCounterSource``). Identical steering to the
+        plain constructor — real counters flow through the same
+        ``TelemetrySource`` protocol — but ``stale_after`` defaults
+        from the ``hwtelem.stale_threshold`` knob (real ladders go
+        quiet in ways the sim never does: a cgroup controller unmounts,
+        perf fds die on cgroup migration), and the source is stashed
+        for provenance so monitors can name the active tier. Raises if
+        ``source`` is not the partition's telemetry source or the seam
+        it wraps — a policy steering on counters from a DIFFERENT
+        source than the one it reports would be the exact silent-sim
+        confusion this plane exists to kill."""
+        inner = getattr(partition.source, "inner", None)
+        if partition.source is not source and inner is not source \
+                and getattr(source, "inner", None) is not partition.source:
+            raise ValueError(
+                f"source {type(source).__name__} is not partition "
+                f"{partition.name!r}'s telemetry source (nor wraps it)")
+        params.setdefault("stale_after",
+                          int(knobs.get("hwtelem.stale_threshold")))
+        policy = cls(partition, **params)
+        policy.hw_source = source
+        return policy
 
     @classmethod
     def from_knobs(cls, partition: "Partition",
@@ -327,6 +356,11 @@ class FeedbackPolicy:
         if steps > 0:
             job.nspi = float(dev_ns) / float(steps)
         self._submilli_update(job, st, float(coll_ns), steps)
+        # Tick record for the sim trace (sim.trace): captures the
+        # adaptation decision stream so live runs replay offline.
+        rec = self.partition.recorder
+        if rec is not None:
+            rec.on_feedback(self.partition.clock.now_ns(), job, st)
 
     # -- gateway queue-delay channel (docs/GATEWAY.md) -------------------
 

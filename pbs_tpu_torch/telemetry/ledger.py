@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 
 from pbs_tpu_torch.telemetry.counters import NUM_COUNTERS
+from pbs_tpu_torch.utils.seqlock import read_attempts
 
 HEADER_WORDS = 2
 SLOT_WORDS = HEADER_WORDS + 2 * NUM_COUNTERS  # 38
@@ -36,7 +37,6 @@ _V = 0  # version word
 _T = 1  # tsc_start word
 _SUMS = HEADER_WORDS
 _START = HEADER_WORDS + NUM_COUNTERS
-
 
 class Ledger:
     """A contiguous array of seqlock counter slots, one per context.
@@ -143,8 +143,11 @@ class Ledger:
     def snapshot(self, slot: int, max_retries: int = 64) -> np.ndarray:
         """Lock-free consistent read of a slot's counter sums: read the
         version, copy the sums, re-read the version; retry if a write
-        was in progress (odd) or intervened (changed)."""
-        for _ in range(max_retries):
+        was in progress (odd) or intervened (changed), yielding to the
+        writer between attempts for up to ``utils.seqlock.SNAPSHOT_WAIT_S``
+        (``max_retries`` is the reference's signature; time bounds the
+        wait)."""
+        for _ in read_attempts():
             v0 = int(self._arr[slot, _V])
             if v0 & 1:
                 continue
@@ -157,7 +160,8 @@ class Ledger:
     def snapshot_many(self, slots, max_retries: int = 64) -> np.ndarray:
         """Vectorized :meth:`snapshot` over a slot set; returns
         ``(len(slots), NUM_COUNTERS)`` u64 sums. The seqlock contract is
-        checked per retry round across all requested slots."""
+        checked per retry round across all requested slots, on
+        ``utils.seqlock.read_attempts``' schedule."""
         idx = np.asarray(list(slots), dtype=np.intp)
         if idx.size == 0:
             return np.empty((0, NUM_COUNTERS), dtype="<u8")
@@ -167,7 +171,7 @@ class Ledger:
             raise IndexError(
                 f"ledger slots {list(map(int, idx))}: slot out of "
                 f"range [0, {self.num_slots})")
-        for _ in range(max_retries):
+        for _ in read_attempts():
             v0 = self._arr[idx, _V].copy()
             if (v0 & 1).any():
                 continue

@@ -2,7 +2,8 @@
 
 The port's copy of ``pbs_tpu.utils.stats``, estimator for estimator.
 One canonical nearest-rank percentile so every latency surface
-(the serving engine's SLO stats) reports the same estimator.
+(the serving engine's SLO stats, the simulator's wait quantiles)
+reports the same estimator.
 Nearest-rank is deliberate: it returns an observed sample (never an
 interpolated value that no request experienced), which is what latency
 SLOs are written against.
@@ -30,3 +31,14 @@ def nearest_rank(values: Iterable[float], q: float) -> float:
         return 0.0
     k = math.ceil(q * len(v)) - 1
     return v[max(0, min(len(v) - 1, k))]
+
+
+def nearest_rank_sorted(sorted_values, q: float) -> float:
+    """:func:`nearest_rank` over an ALREADY-SORTED sequence (list or 1-D
+    numpy array) — the vectorized-consumer form: sort once, read many
+    quantiles. Same estimator byte-for-byte; callers own the sort."""
+    n = len(sorted_values)
+    if n == 0:
+        return 0.0
+    k = math.ceil(q * n) - 1
+    return float(sorted_values[max(0, min(n - 1, k))])

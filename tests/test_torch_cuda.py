@@ -584,6 +584,43 @@ def test_credit2_drives_the_kernels_on_two_lanes_of_one_card(gen):
         assert a["wgmma"] - b["wgmma"] == 6 and a["simt"] == b["simt"]
 
 
+def test_record_and_replay_kernel_tenants_on_the_card(gen, tmp_path):
+    """chip_smoke phase 3r in small: the kernel tenants run under
+    ``HwCounterSource`` over a cuda ``CudaBackend`` with the run recorder
+    on, every launch on the tensor-core route; the trace replays offline
+    to the recorded counter totals."""
+    from pbs_tpu_torch.hwtelem import HwCounterSource
+    from pbs_tpu_torch.runtime import Partition
+    from pbs_tpu_torch.sched import FeedbackPolicy
+    from pbs_tpu_torch.sim import TraceRecorder, load_trace, replay_partition
+    from pbs_tpu_torch.telemetry import Counter, CudaBackend
+
+    src = HwCounterSource(inner=CudaBackend())
+    part = Partition("rec", source=src, scheduler="credit")
+    fb = FeedbackPolicy.from_source(part, src)
+    path = str(tmp_path / "rec.jsonl")
+    part.recorder = TraceRecorder(path)
+    jobs = [part.add_job(j) for j in _kernel_jobs(gen)]
+    before = _wrapper_routes()
+    part.run()
+    fb.timer.stop()
+    part.recorder.close()
+    src.close()
+    after = _wrapper_routes()
+    for b, a in zip(before, after):
+        assert a["wgmma"] - b["wgmma"] == 6 and a["simt"] == b["simt"]
+    recs = load_trace(path)
+    assert sum(1 for r in recs if r["kind"] == "quantum") == \
+        sum(j.contexts[0].sched_count for j in jobs)
+    replay = replay_partition(recs)
+    replay.run()
+    for job in jobs:
+        got = replay.job(job.name).contexts[0].counters
+        want = job.contexts[0].counters
+        assert all(int(got[c]) == int(want[c]) for c in Counter
+                   if c is not Counter.RUNQ_WAIT_NS), job.name
+
+
 def test_arinc653_picks_start_in_their_own_windows_on_the_card(gen):
     from pbs_tpu_torch.obs.trace import Ev
     from pbs_tpu_torch.runtime import Partition

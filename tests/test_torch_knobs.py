@@ -727,11 +727,15 @@ def test_policy_from_profile_twin(workload):
 
 
 def test_tune_search_waits_for_the_simulator():
-    for fn in (PORT.tune.successive_halving, PORT.tune.evaluate_params,
-               PORT.tune.check_block, PORT.tune.check_profile,
-               PORT.tune.write_profile):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            fn("stable")
+    """The search scored on the simulator, which the port now has: a
+    check block over the reference constants equals the reference's
+    (``tests/test_torch_tune.py`` holds the rest of the search)."""
+    params = dict(REF.tune.QUICK_SPACE["feedback"][0])
+    got = PORT.tune.check_block("stable", "feedback", params, n_reps=1)
+    want = REF.tune.check_block("stable", "feedback", params, n_reps=1)
+    assert got.pop("tier") == "python"
+    want.pop("tier")
+    assert got == want
     assert PORT.tune.TUNED_WORKLOADS == REF.tune.TUNED_WORKLOADS
     assert PORT.tune.PROFILE_VERSION == REF.tune.PROFILE_VERSION
     assert PORT.tune.profile_path("x", "/d") == REF.tune.profile_path(
