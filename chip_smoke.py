@@ -137,6 +137,31 @@ Phases, each fatal on failure:
              built from the card's step times and stall fractions, writes
              the winner as a profile in a scratch directory and replays its
              check digest; (d) re-runs the tenants with the winner armed.
+3n. native — the native runtime under the main path: (a) the port's C
+             runtime and its fastcall module, built by g++ in phase 1 beside
+             nvcc, and the tier they reach; (b) 3c's tenants and cuts under
+             credit and FeedbackPolicy in a Partition with a file-backed
+             ledger and rings, the engine's latency histograms fed through a
+             HistBatch each tick: every ledger, ring and histogram on a
+             native tier, every step retired and request served, the ledger
+             words the counters; prints quanta, wall, ledger device time
+             and the host time per quantum (wall minus device time, over
+             quanta), the 2.1/2.4 launches by route and the runtime calls
+             per quantum; (c) a monitor process attached to the ledger file
+             and a file-backed Doorbell fed by the bus bridge (an overflow
+             sample on the engine's TOKENS, rearmed at each virq): no
+             snapshot tears, its final sums are the ledger's, its doorbell
+             counts are the virqs the bus raised and delivered; (d) ns per
+             op of those calls on the Python, ctypes and fastcall tiers on
+             the card host's CPU (best of rounds after a warm one), and
+             each tier's cost of one quantum's calls; (e) the five tuned
+             profiles' check digests on the native sim core, and 3r's
+             recorded workload under credit on the Python and native
+             tiers, reports and digests identical, with simulated seconds
+             per wall second; (f) 3p's corpus and loader through
+             ``pbst_gather_rows``, every batch's bytes against the numpy
+             gather. Every earlier phase's partitions (and 3g's gateway)
+             are checked to run on the native tiers too.
 4. numerics — the scoring forward through the flash kernel against the dense
              attention path on the same weights, the KV-cache prefill
              against the full forward, one micro-batch's training loss
@@ -636,6 +661,7 @@ def run_main_path(torch, gen, cfg, params):
 
     be = CudaBackend()
     part = Partition("smoke", source=be)
+    check_native(part)
     fb = FeedbackPolicy(part)
     jobs = {
         "serve": Job("serve", step_fn=serve_fn, state=serve_state,
@@ -792,6 +818,7 @@ def run_train_path(torch, gen, serve_cfg, serve_params):
 
     be = CudaBackend()
     part = Partition("train", source=be)
+    check_native(part)
     fb = FeedbackPolicy(part)
     jobs = {
         "train": Job("train", micro_step_fn=train_fn,
@@ -940,6 +967,7 @@ def run_measured_path(torch, gen, cfg, params, built) -> tuple:
     gate = CompileAdmission(CompileBudget(
         max_programs=4, budget_ns=MEASURED_COMPILE_BUDGET_NS))
     part = Partition("measured", source=be, compile_admission=gate)
+    check_native(part)
     fb = FeedbackPolicy(part)
 
     def params_(weight):
@@ -1319,6 +1347,7 @@ def run_engine_path(torch, gen, cfg, params, serve_ms_per_token, card):
         fn(None)
     torch.cuda.synchronize()
     part = Partition("engine", source=CudaBackend(profile_every=0))
+    check_native(part)
     fb = FeedbackPolicy(part)
     jobs = {
         "engine": Job("engine", step_fn=engine_fn,
@@ -1558,6 +1587,9 @@ def gateway_job(cfg, params, reqs, arrivals, fb, max_steps):
     gw = Gateway([be],
                  quotas=gateway_quotas(TenantQuota), clock=MonotonicClock(),
                  trace_capacity=GW_TRACE_CAPACITY, feedback_sink=sink)
+    check("python" not in (gw.trace.tier, gw.hist.ledger.tier),
+          f"gateway: ring on the {gw.trace.tier} tier, histograms on "
+          f"{gw.hist.ledger.tier}")
 
     def submit(tenant, i, cost):
         prompt, n = reqs[i]
@@ -1726,6 +1758,7 @@ def run_gateway_path(torch, gen, cfg, params, a_tokens, card):
     for what in ("(a) co-located", "(b) alone", "(b) alone, again",
                  "(a) co-located, again"):
         part = Partition("gateway", source=CudaBackend(profile_every=0))
+        check_native(part)
         fb = FeedbackPolicy(part)
         job, gw, eng, rec = gateway_job(cfg, params, reqs, arrivals, fb,
                                         bound)
@@ -2031,6 +2064,7 @@ def run_paging_path(torch, gen, card):
         mm = MemoryManager(reserve + w_bytes + private + 3 * a_bytes // 2,
                            reserve_bytes=reserve)
         part = Partition("paging", source=CudaBackend(), memory=mm)
+        check_native(part)
         fb = FeedbackPolicy(part)
         reg = WeightsRegistry(memory=mm)
         reg.publish("flagship", weights)
@@ -2318,6 +2352,7 @@ def run_moe_path(torch, gen, serve_ms_per_token, card):
 
     torch.cuda.synchronize()
     part = Partition("moe", source=CudaBackend(profile_every=0))
+    check_native(part)
     fb = FeedbackPolicy(part)
     jobs = {"moe-train": train,
             "moe-serve": Job("moe-serve", step_fn=serve_fn,
@@ -2711,6 +2746,7 @@ def run_control_path(torch, gen, cfg, params, card):
     part = Partition("control-a", source=CudaBackend(), scheduler="credit2",
                      devices=[lane, lane],
                      sched_params={"executors_per_runq": 1})
+    check_native(part)
     fb = FeedbackPolicy(part)
     for job in jobs.values():
         part.add_job(job)
@@ -2744,6 +2780,7 @@ def run_control_path(torch, gen, cfg, params, card):
                 max_steps=CONTROL_TRAIN_STEPS)
     jobs = {"engine": ejob, "train": train}
     part = Partition("control-b", source=CudaBackend(), scheduler="sedf")
+    check_native(part)
     for job in jobs.values():
         part.add_job(job)
     part.scheduler.set_reservation(
@@ -2776,6 +2813,7 @@ def run_control_path(torch, gen, cfg, params, card):
     jobs, eng, ticks = control_tenants(torch, gen, cfg, params, reqs,
                                        arrivals, n_ticks)
     part = Partition("control-c", source=CudaBackend(), scheduler="arinc653")
+    check_native(part)
     for job in jobs.values():
         part.add_job(job)
     sched = part.scheduler
@@ -2827,6 +2865,7 @@ def run_control_path(torch, gen, cfg, params, card):
                                        arrivals, n_ticks)
     part = Partition("control-d-atc", source=CudaBackend(),
                      scheduler="credit")
+    check_native(part)
     atc = AtcFeedbackPolicy(part)
     for job in jobs.values():
         part.add_job(job)
@@ -2860,6 +2899,7 @@ def run_control_path(torch, gen, cfg, params, card):
                                            arrivals, n_ticks)
         part = Partition("control-d", source=CudaBackend(),
                          scheduler="credit")
+        check_native(part)
         fb = policy_from_profile(part, "serving")
         band0 = (fb.min_us, fb.max_us)
         path = os.path.join(tmp, "knobs.led")
@@ -2933,6 +2973,7 @@ def run_control_path(torch, gen, cfg, params, card):
         part = Partition("control-e", source=CudaBackend(), memory=mem,
                          ledger_path=os.path.join(tmp, "ledger"),
                          trace_dir=os.path.join(tmp, "traces"))
+        check_native(part)
         install_crash_handler(part, os.path.join(tmp, "crash"))
         part.hooks.on("job-add", lambda ev, env: 1 / 0)  # optional
         part.hooks.on("job-add", lambda ev, env: (_ for _ in ()).throw(
@@ -3014,7 +3055,8 @@ def run_control_path(torch, gen, cfg, params, card):
               and any("SCHED_DESCHED" in ln for ln in tail),
               f"(e) one crash dump for flaky ({dumps}): keys "
               f"{sorted(doc)}, {len(tail)} trace lines")
-        mon = Ledger.file_backed(os.path.join(tmp, "ledger"), readonly=True)
+        mon = Ledger.file_backed(os.path.join(tmp, "ledger"), readonly=True,
+                                 native=True)
         check(all(mon.snapshot(j.contexts[0].ledger_slot).tolist()
                   == j.contexts[0].counters.tolist() for j in jobs.values()),
               "(e) a read-only attach of the ledger file reads the "
@@ -3104,6 +3146,7 @@ def record_run(what, make_tenants, device, make_tier, path, policy_for,
     src = HwCounterSource(inner=inner, tier=make_tier())
     feed = HwCounterSource(tier=make_tier())
     part = Partition(f"record-{what}", source=src, scheduler="credit")
+    check_native(part)
     policy = policy_for(part, src)
     for job in jobs.values():
         part.add_job(job)
@@ -3284,6 +3327,37 @@ def fidelity_axes(live) -> dict:
     return rep
 
 
+def recorded_workload(live, what: str):
+    """The simulator workload of a recorded run: one steady tenant per
+    job, its step time DEVICE_TIME_NS / STEPS_RETIRED and stall fraction
+    HBM_STALL_NS / DEVICE_TIME_NS from the run's own (card) numbers, its
+    starting SchedParams the run's. Returns the tenants (name, step ns,
+    stall fraction) and the catalog builder."""
+    from pbs_tpu_torch.runtime import SchedParams
+    from pbs_tpu_torch.sim.workload import TenantSpec
+    from pbs_tpu_torch.telemetry import Counter, SimProfile
+
+    tenants = []
+    for n, d in live["own"].items():
+        dev = int(d[Counter.DEVICE_TIME_NS])
+        steps = int(d[Counter.STEPS_RETIRED])
+        stall = int(d[Counter.HBM_STALL_NS])
+        tenants.append((n, dev // max(1, steps), stall / max(1, dev)))
+        print(f"  {what} {n}: step {dev / max(1, steps) / 1e6:.3f} ms, "
+              f"stall fraction {stall / max(1, dev):.4f} (CudaBackend's "
+              f"own), start {live['start'][n]}")
+    start = {n: dict(live["start"][n]) for n, _, _ in tenants}
+
+    def build(seed, n_tenants, horizon_ns):
+        return [TenantSpec(name=n, params=SchedParams(**start[n]),
+                           profile=SimProfile.steady(
+                               step_time_ns=step_ns, stall_frac=frac,
+                               collective_wait_ns=0, jitter=RECORD_JITTER))
+                for n, step_ns, frac in tenants]
+
+    return tenants, build
+
+
 def tune_on_recorded(live, tmp) -> dict:
     """Phase 3r (c): a simulator workload whose tenants are steady
     profiles built from (a)'s own (card) numbers — step time
@@ -3293,29 +3367,11 @@ def tune_on_recorded(live, tmp) -> dict:
     profile into ``tmp`` and replayed by ``check_profile``; the winner,
     the reference constants and the copied "serving" profile scored on
     the same workload."""
-    from pbs_tpu_torch.runtime import SchedParams
     from pbs_tpu_torch.sched import tune
-    from pbs_tpu_torch.sim.workload import (TenantSpec, register_workload,
+    from pbs_tpu_torch.sim.workload import (register_workload,
                                             unregister_workload)
-    from pbs_tpu_torch.telemetry import Counter, SimProfile
 
-    tenants = []
-    for n, d in live["own"].items():
-        dev = int(d[Counter.DEVICE_TIME_NS])
-        steps = int(d[Counter.STEPS_RETIRED])
-        stall = int(d[Counter.HBM_STALL_NS])
-        tenants.append((n, dev // max(1, steps), stall / max(1, dev)))
-        print(f"  (c) {n}: step {dev / max(1, steps) / 1e6:.3f} ms, stall "
-              f"fraction {stall / max(1, dev):.4f} (CudaBackend's own), "
-              f"start {live['start'][n]}")
-
-    def build(seed, n_tenants, horizon_ns):
-        return [TenantSpec(name=n, params=SchedParams(**live["start"][n]),
-                           profile=SimProfile.steady(
-                               step_time_ns=step_ns, stall_frac=frac,
-                               collective_wait_ns=0, jitter=RECORD_JITTER))
-                for n, step_ns, frac in tenants]
-
+    tenants, build = recorded_workload(live, "(c)")
     register_workload(RECORD_WORKLOAD, build)
     try:
         t0 = time.monotonic()
@@ -3489,7 +3545,7 @@ def run_record_path(torch, gen, cfg, params, card):
 
     tmp, _ = paging_dir("3r")
     try:
-        record_replay_tune(
+        out = record_replay_tune(
             lambda: control_tenants(torch, gen, cfg, params, reqs, arrivals,
                                     n_ticks),
             "cuda", lambda: None, tmp, card, counted=counted)
@@ -3497,7 +3553,597 @@ def run_record_path(torch, gen, cfg, params, card):
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"  phase 3r wall {time.monotonic() - t_phase:.1f} s [{card}]",
           flush=True)
-    return total, total_routes
+    return total, total_routes, out["live"]
+
+
+# -- phase 3n ----------------------------------------------------------------
+
+#: Phase 3n's doorbell block: one channel per port the bus bridge forwards
+#: (every virq sits below it) and, last, the one the parent rings when its
+#: run has ended.
+NATIVE_DB_CHANNELS = 64
+NATIVE_STOP = NATIVE_DB_CHANNELS - 1
+#: The engine's served tokens per overflow virq in 3n(b): each crossing
+#: raises Virq.TELEMETRY, which rings the doorbell the monitor waits on.
+NATIVE_SAMPLE_PERIOD = 48
+#: Latency histograms of 3n's engine (ledger slots).
+NATIVE_HIST_SLOTS = 32
+#: 3n(d), the reference perf bench's method: a warm round, then the best
+#: ns per op over this many timed rounds of NATIVE_BENCH_OPS ops each,
+#: cyclic GC collected before and paused inside each round.
+NATIVE_BENCH_ROUNDS = 5
+NATIVE_BENCH_OPS = 4_000
+#: Samples one histogram flush lands in 3n(d)'s record_many.
+NATIVE_HIST_BATCH = 4
+#: 3n(e): the recorded workload's simulated horizon per tier.
+NATIVE_SIM_HORIZON_NS = 20 * 10 ** 9
+#: 3n(f): batches drawn through the loader against the numpy gather, and
+#: gathers of one batch's windows per timed round.
+NATIVE_GATHER_BATCHES = 6
+NATIVE_GATHER_TIMED = 500
+
+#: The monitor process of 3n(c): attaches the partition's file-backed
+#: ledger read-only and the doorbell block, waits on the doorbell and
+#: snapshots every slot on each wakeup; a snapshot tears if any counter
+#: reads lower than in the one before (the counters only grow). Prints
+#: one JSON line when attached and one when the parent's stop channel
+#: rings; that ring (or, failing it, its own deadline) is how it ends.
+NATIVE_MONITOR = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+from pbs_tpu_torch.runtime.doorbell import Doorbell
+from pbs_tpu_torch.telemetry.ledger import Ledger
+led = Ledger.file_backed(sys.argv[2], readonly=True, native=True)
+db = Doorbell.file_backed(sys.argv[3], attach=True)
+chan, stop = int(sys.argv[4]), int(sys.argv[5])
+slots = list(range(led.num_slots))
+print(json.dumps({"ledger": led.tier, "doorbell": db._nat is not None}),
+      flush=True)
+seq = db.seq()
+last = led.snapshot_many(slots).copy()
+wakeups = snaps = torn = virqs = 0
+deadline = time.monotonic() + 600
+while time.monotonic() < deadline and not db.pending(stop):
+    s = db.wait(seq, timeout_s=1.0)
+    if s == seq:
+        continue
+    seq, wakeups = s, wakeups + 1
+    virqs += db.take(chan)
+    snap = led.snapshot_many(slots)
+    snaps += 1
+    torn += int((snap < last).any())
+    last = snap.copy()
+virqs += db.take(chan)
+final = led.snapshot_many(slots)
+torn += int((final < last).any())
+print(json.dumps({"wakeups": wakeups, "snapshots": snaps + 1, "torn": torn,
+                  "virqs": virqs, "stopped": bool(db.take(stop)),
+                  "sums": final.tolist()}), flush=True)
+"""
+
+
+def native_build() -> dict:
+    """The port's native runtime and its fastcall module, built from
+    ``pbs_tpu_torch/runtime/csrc`` with the host's g++ (phase 1 runs this
+    beside nvcc): kind -> (seconds, path or None, error or None); 0.0
+    seconds when the digest-named artifact was already built."""
+    from pbs_tpu_torch.runtime import native
+
+    out = {}
+    for kind in ("runtime", "fastcall"):
+        existed = native.artifact_path(kind).exists()
+        t0 = time.monotonic()
+        try:
+            path, err = native.build_library(kind), None
+        except native.BuildError as e:
+            path, err = None, str(e)
+        out[kind] = (0.0 if existed else time.monotonic() - t0, path, err)
+    return out
+
+
+def native_tiers(part) -> dict:
+    """The tier of a partition's ledger and of each of its trace rings."""
+    return {"ledger": part.ledger.tier,
+            "rings": [t.tier for t in part.traces]}
+
+
+def check_native(part) -> None:
+    """A partition's ledger and every ring run on a native tier (the
+    default pick wherever the runtime builds)."""
+    tiers = native_tiers(part)
+    check("python" not in [tiers["ledger"], *tiers["rings"]],
+          f"partition {part.name!r}: ledger on the {tiers['ledger']} tier, "
+          f"rings on {sorted(set(tiers['rings']))}")
+
+
+class _Calls:
+    """Counts the calls of methods installed over an instance's own."""
+
+    def __init__(self):
+        self.n: dict[str, int] = {}
+
+    def wrap(self, obj, name: str, key: str) -> None:
+        fn = getattr(obj, name)
+        self.n.setdefault(key, 0)
+
+        def counted(*a, **kw):
+            self.n[key] += 1
+            return fn(*a, **kw)
+
+        setattr(obj, name, counted)
+
+
+def engine_hists(job, eng, hist, batch) -> None:
+    """Feed the engine's latency histograms from its Job: each tick's host
+    ns, and each completion's TTFT and latency, staged in ``batch`` and
+    flushed at tick end (the gateway pump's pattern)."""
+    inner = job.step_fn
+
+    def step(state):
+        t0 = time.monotonic_ns()
+        n0 = eng.requests_completed
+        out = inner(state)
+        batch.record("engine", "interactive", "tick",
+                     time.monotonic_ns() - t0)
+        new = eng.requests_completed - n0
+        if new:
+            for ttft, lat in zip(list(eng._ttfts)[-new:],
+                                 list(eng._latencies)[-new:]):
+                batch.record("engine", "interactive", "ttft",
+                             int(ttft * 1e9))
+                batch.record("engine", "interactive", "e2e",
+                             int(lat * 1e9))
+        batch.flush()
+        return out
+
+    job.step_fn = step
+
+
+def native_runtime_run(make_tenants, device, tmp, card,
+                       counted=None) -> dict:
+    """Phase 3n (b) and (c) on whatever the caller hands it (3c's tenants
+    over ``CudaBackend`` on the card, toy tenants in the CPU twin,
+    ``tests/test_torch_native_path.py``): the tenants under credit and
+    FeedbackPolicy in a Partition with ``ledger_path=`` and file-backed
+    rings, the engine's latency histograms fed each tick, an overflow
+    sample on the engine's TOKENS rearmed at each virq, and the bus
+    bridged into a file-backed ``Doorbell`` that a monitor process waits
+    on, snapshotting the ledger file at each wakeup. Checks every tier is
+    native, every step retired and request served, the ledger words are
+    the counters, no snapshot tore, the monitor's final sums are the
+    ledger's and the doorbell counted every virq the bus raised and
+    delivered. ``counted(what)`` is entered just before ``part.run`` and
+    left just after (the card counts kernel launches in it)."""
+    import contextlib
+
+    from pbs_tpu_torch.obs.spans import HistBatch, LatencyHistograms
+    from pbs_tpu_torch.runtime import (Doorbell, Partition, Virq,
+                                       bridge_events)
+    from pbs_tpu_torch.sched import FeedbackPolicy
+    from pbs_tpu_torch.telemetry import Counter, CudaBackend
+
+    counted = counted or (lambda what: contextlib.nullcontext())
+    jobs, eng, ticks = make_tenants()
+    part = Partition("native", source=CudaBackend(device=device),
+                     scheduler="credit",
+                     ledger_path=os.path.join(tmp, "ledger"),
+                     trace_dir=os.path.join(tmp, "traces"))
+    fb = FeedbackPolicy(part)
+    for job in jobs.values():
+        part.add_job(job)
+    check_native(part)
+    hist = LatencyHistograms(num_slots=NATIVE_HIST_SLOTS, native=True,
+                             path=os.path.join(tmp, "engine.hist"))
+    hb = HistBatch(hist, capacity=64)
+    check(hist.ledger.tier != "python",
+          f"(b) engine histograms on the {hist.ledger.tier} tier")
+    engine_hists(jobs["engine"], eng, hist, hb)
+
+    tele = int(Virq.TELEMETRY)
+    sampler = part.sampler
+    sampler.arm(jobs["engine"].contexts[0], Counter.TOKENS,
+                period=NATIVE_SAMPLE_PERIOD)
+    delivered = []
+
+    def on_virq(port):
+        delivered.append(port)
+        for ev in sampler.drain():
+            sampler.rearm(ev.sample_id)
+
+    part.events.bind_virq(Virq.TELEMETRY, on_virq)
+    raised = []
+    part.events.add_tap(raised.append)
+    db_path = os.path.join(tmp, "doorbell")
+    db = Doorbell.file_backed(db_path, n_channels=NATIVE_DB_CHANNELS)
+    check(db._nat is not None, "(c) the doorbell's sender is native")
+    bridge_events(part.events, db)
+
+    calls = _Calls()
+    for name in ("resume", "suspend", "add", "add_many"):
+        calls.wrap(part.ledger, name, f"ledger.{name}")
+    for ring in part.traces:
+        calls.wrap(ring, "emit", "ring.emit")
+    flushes0 = sampler._trace_batch.flushes
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    mon = subprocess.Popen(
+        [sys.executable, "-c", NATIVE_MONITOR, root,
+         os.path.join(tmp, "ledger"), db_path, str(tele), str(NATIVE_STOP)],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        hello = json.loads(mon.stdout.readline() or "{}")
+        check(hello.get("ledger") not in (None, "python")
+              and hello.get("doorbell") is True,
+              f"(c) the monitor process attached the ledger file on the "
+              f"{hello.get('ledger')} tier and the doorbell block "
+              f"(native: {hello.get('doorbell')})")
+        with counted("b"):
+            t0 = time.monotonic()
+            quanta = part.run()
+            wall = time.monotonic() - t0
+    finally:
+        db.send(NATIVE_STOP)  # the monitor's exit, whatever happened
+        out, err = mon.communicate(timeout=120)
+    report = json.loads(out.strip().splitlines()[-1]) if out.strip() else {}
+    check(mon.returncode == 0 and report.get("stopped") is True,
+          f"(c) the monitor exited {mon.returncode} on the stop channel "
+          f"({err.strip()[-400:]})")
+
+    slots = sorted(j.contexts[0].ledger_slot for j in jobs.values())
+    sums = part.ledger.snapshot_many(range(part.ledger.num_slots))
+    dev_ns = int(sums[:, Counter.DEVICE_TIME_NS].sum())
+    host_ms_per_q = (wall * 1e9 - dev_ns) / max(1, quanta) / 1e6
+    print(f"  (b) tiers {json.dumps(native_tiers(part))}, histograms "
+          f"{hist.ledger.tier}, doorbell native; {quanta} quanta in "
+          f"{wall:.3f} s wall, ledger device time {dev_ns / 1e9:.3f} s: "
+          f"host time per quantum {host_ms_per_q:.3f} ms [{card}]",
+          flush=True)
+    print_tenants(jobs, Counter)
+    print(f"  (b) feedback {json.dumps(fb.dump())}")
+    for name, job in jobs.items():
+        ctx = job.contexts[0]
+        check(job.error is None and job.steps_retired() == job.max_steps,
+              f"(b) {name}: {job.steps_retired()} of {job.max_steps} steps "
+              f"retired, no fault ({job.error})")
+        check(part.ledger.snapshot(ctx.ledger_slot).tolist()
+              == ctx.counters.tolist(),
+              f"(b) {name}: ledger snapshot equals the context counters")
+    st = eng.stats()
+    check(st["completed"] == jobs["engine"].state["completed"]
+          and not eng.has_work(),
+          f"(b) engine: {st['completed']} requests served")
+    hb.flush()
+    n_ttft = int(hist.counts("engine", "interactive", "ttft").sum())
+    check(n_ttft == st["completed"]
+          and int(hist.counts("engine", "interactive", "tick").sum())
+          == jobs["engine"].steps_retired(),
+          f"(b) engine histograms: {n_ttft} TTFT samples, one per "
+          f"completion, and one tick sample per step; TTFT p50 "
+          f"{hist.quantile('engine', 'interactive', 'ttft', 0.5) / 1e6:.2f}"
+          f" / p99 {hist.quantile('engine', 'interactive', 'ttft', 0.99) / 1e6:.2f}"
+          f" ms (bucket upper edges, host clock)")
+
+    sent = sum(1 for p in raised if p == tele)
+    print(f"  (c) monitor: {report['wakeups']} wakeups, "
+          f"{report['snapshots']} snapshots, {report['torn']} torn; "
+          f"doorbell counted {report['virqs']} TELEMETRY rings, the bus "
+          f"raised {sent} and delivered {len(delivered)}", flush=True)
+    check(report["torn"] == 0 and report["snapshots"] >= 2,
+          f"(c) no snapshot of {report['snapshots']} tore")
+    check(report["sums"] == sums.tolist(),
+          f"(c) the monitor's final sums over {len(sums)} slots equal the "
+          f"partition's ledger ({slots} in use)")
+    check(sent > 0 and report["virqs"] == sent == len(delivered),
+          f"(c) the doorbell's pending counts ({report['virqs']}) equal the "
+          f"virqs the bus raised ({sent}) and delivered ({len(delivered)})")
+
+    per_q = {k: v / max(1, quanta) for k, v in calls.n.items()}
+    per_q["emit_batch.flush"] = (sampler._trace_batch.flushes
+                                 - flushes0) / max(1, quanta)
+    per_q["hist.record_many"] = hb.flushes / max(1, quanta)
+    per_q["ledger.snapshot_many"] = 0.0
+    print(f"  (b) runtime calls per quantum: "
+          f"{json.dumps({k: round(v, 3) for k, v in sorted(per_q.items())})}")
+    return dict(jobs=jobs, eng=eng, quanta=quanta, wall=wall, dev_ns=dev_ns,
+                host_ms_per_q=host_ms_per_q, per_q=per_q, monitor=report,
+                n_slots=part.ledger.num_slots, slots=slots,
+                tiers=native_tiers(part))
+
+
+def bench_ns(fn, reset, ops: int, rounds: int) -> float:
+    """Best ns per op of ``rounds`` timed rounds after a warm one; cyclic
+    GC collected before each round and paused inside it."""
+    import gc
+
+    reset()
+    fn()
+    best = float("inf")
+    for _ in range(rounds):
+        reset()
+        gc.collect()
+        gc.disable()
+        try:
+            t0 = time.perf_counter_ns()
+            fn()
+            dt = time.perf_counter_ns() - t0
+        finally:
+            gc.enable()
+        best = min(best, dt / ops)
+    return best
+
+
+def tier_costs(slots: list, per_q: dict, ops: int = NATIVE_BENCH_OPS,
+               rounds: int = NATIVE_BENCH_ROUNDS) -> dict:
+    """Phase 3n(d): ns per op of the runtime calls (b) makes, on the
+    Python, ctypes and fastcall tiers, on this host's CPU (``snapshot_many``
+    over ``slots``, the partition's slots in use); and each tier's cost
+    of one quantum's calls at (b)'s per-quantum counts."""
+    import numpy as np
+
+    from pbs_tpu_torch.obs.spans import LatencyHistograms
+    from pbs_tpu_torch.obs.trace import EmitBatch, Ev, TraceBuffer
+    from pbs_tpu_torch.runtime import native
+    from pbs_tpu_torch.telemetry import Ledger
+    from pbs_tpu_torch.telemetry.counters import NUM_COUNTERS
+
+    tiers = {"python": False, "ctypes": "ctypes"}
+    if native.tier() == "fastcall":
+        tiers["fastcall"] = True
+    deltas = np.arange(1, NUM_COUNTERS + 1, dtype=np.uint64)
+    slot_list = [int(x) for x in slots]
+    n_slots = max(slot_list) + 1
+    pick = int(Ev.SCHED_PICK)
+    out = {}
+    for tier, req in tiers.items():
+        led = Ledger(n_slots, native=req)
+        ring = TraceBuffer(capacity=ops, native=req)
+        batch = EmitBatch(TraceBuffer(capacity=ops, native=req), capacity=8)
+        hist = LatencyHistograms(num_slots=8, native=req)
+        h_slots = np.full(NATIVE_HIST_BATCH,
+                          hist.slot_of("engine", "interactive", "tick"),
+                          dtype=np.int64)
+        h_vals = (np.arange(NATIVE_HIST_BATCH, dtype="<u8") + 1) << 20
+        assert {led.tier, ring.tier, batch.ring.tier,
+                hist.ledger.tier} == {tier}, tier
+
+        def resume():
+            r = led.resume
+            for i in range(ops):
+                r(1, i + 1)
+
+        def suspend():
+            s = led.suspend
+            for _ in range(ops):
+                s(1, deltas)
+
+        def add_many():
+            a = led.add_many
+            for _ in range(ops):
+                a(1, deltas)
+
+        def snapshot_many():
+            s = led.snapshot_many
+            for _ in range(ops):
+                s(slot_list)
+
+        def emit():
+            e = ring.emit
+            for i in range(ops):
+                e(i, pick, 1, 100_000)
+
+        def flush():
+            e, f = batch.emit, batch.flush
+            for i in range(ops):
+                e(i, pick, 1, 100_000)
+                f()
+
+        def record_many():
+            r = hist.record_many
+            for _ in range(ops):
+                r(h_slots, h_vals)
+
+        def drain():
+            ring.consume(ops)
+            batch.ring.consume(ops)
+
+        costs = {
+            "ledger.resume": bench_ns(resume, drain, ops, rounds),
+            "ledger.suspend": bench_ns(suspend, drain, ops, rounds),
+            "ledger.add_many": bench_ns(add_many, drain, ops, rounds),
+            "ledger.snapshot_many": bench_ns(snapshot_many, drain, ops,
+                                             rounds),
+            "ring.emit": bench_ns(emit, drain, ops, rounds),
+            "emit_batch.flush": bench_ns(flush, drain, ops, rounds),
+            "hist.record_many": bench_ns(record_many, drain, ops, rounds),
+        }
+        costs["per_quantum_us"] = sum(
+            costs[k] * per_q.get(k, 0.0) for k in costs) / 1e3
+        out[tier] = costs
+    return out
+
+
+def print_tier_costs(costs: dict, per_q: dict, slots: list,
+                     card: str) -> None:
+    tiers = list(costs)
+    print(f"  (d) ns per op on the host CPU ({NATIVE_BENCH_ROUNDS} rounds "
+          f"of {NATIVE_BENCH_OPS}, best; snapshot_many over slots {slots}, "
+          f"record_many of {NATIVE_HIST_BATCH} samples, a flush of "
+          f"one staged record) [{card}]")
+    print(f"  {'call':<22} {'per quantum':>11} "
+          + " ".join(f"{t:>10}" for t in tiers))
+    for k in costs[tiers[0]]:
+        if k == "per_quantum_us":
+            continue
+        print(f"  {k:<22} {per_q.get(k, 0.0):>11.3f} "
+              + " ".join(f"{costs[t][k]:>10.1f}" for t in tiers))
+    print(f"  {'one quantum (us)':<22} {'':>11} "
+          + " ".join(f"{costs[t]['per_quantum_us']:>10.3f}" for t in tiers),
+          flush=True)
+
+
+def native_sim(build, horizon_ns: int = NATIVE_SIM_HORIZON_NS) -> dict:
+    """Phase 3n(e): the five tuned profiles' check digests replayed on the
+    native sim core; a recorded workload (``build``, a catalog builder)
+    run under credit on the Python and native tiers, reports and trace
+    digests identical, with each tier's simulated seconds per wall
+    second."""
+    from pbs_tpu_torch.sched import tune
+    from pbs_tpu_torch.sim import SimEngine
+    from pbs_tpu_torch.sim.workload import (register_workload,
+                                            unregister_workload)
+
+    for wl in tune.tuned_workloads():
+        v = tune.check_profile(wl, native=True)
+        check(v["ok"] and v["verified_tier"] in ("fastcall", "ctypes"),
+              f"(e) tuned profile {wl!r}: check digest "
+              f"{v['got_digest'][:16]} replays on the {v['verified_tier']} "
+              f"sim tier (recorded on {v['recorded_tier']})")
+    register_workload(RECORD_WORKLOAD, build)
+    try:
+        runs = {}
+        for tier in ("python", "native"):
+            eng = SimEngine(workload=RECORD_WORKLOAD, policy="credit",
+                            seed=0, horizon_ns=horizon_ns, record=True,
+                            native=False if tier == "python" else True)
+            t0 = time.monotonic()
+            rep = eng.run()
+            wall = time.monotonic() - t0
+            runs[tier] = dict(report=rep, wall=wall,
+                              used=eng.native_tier_used or "python")
+            print(f"  (e) {RECORD_WORKLOAD} under credit on the "
+                  f"{runs[tier]['used']} tier: {rep['quanta']} quanta, "
+                  f"{horizon_ns / 1e9:.0f} simulated s in {wall:.3f} s "
+                  f"wall, {horizon_ns / 1e9 / wall:.1f} simulated s per "
+                  f"wall s; digest {rep['trace_digest'][:16]}", flush=True)
+    finally:
+        unregister_workload(RECORD_WORKLOAD)
+    py, nat = runs["python"]["report"], runs["native"]["report"]
+    check(runs["native"]["used"] in ("fastcall", "ctypes")
+          and json.dumps(py, sort_keys=True) == json.dumps(nat,
+                                                           sort_keys=True),
+          f"(e) the recorded workload's report and trace digest are "
+          f"identical on the Python and {runs['native']['used']} tiers")
+    return runs
+
+
+def native_gather(device, tmp, vocab: int, n_tokens: int, batch: int,
+                  seq: int, seed: int, n_batches: int = NATIVE_GATHER_BATCHES,
+                  card: str = "") -> dict:
+    """Phase 3n(f): 3p's corpus and loader (``ShardedBatchSource`` under
+    a ``Prefetcher``) reading through ``pbst_gather_rows``, each batch's
+    bytes against the numpy gather of the same windows; and the host ms
+    of one batch's gather on each path."""
+    import numpy as np
+
+    from pbs_tpu_torch.data import (Prefetcher, ShardedBatchSource,
+                                    TokenDataset, write_token_file)
+
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, vocab, size=n_tokens)
+    path = os.path.join(tmp, "corpus.tok")
+    write_token_file(path, tokens)
+    ds = TokenDataset(path)
+    check(ds._nat is not None, "(f) the token dataset gathers through "
+          "pbst_gather_rows")
+    want = ShardedBatchSource(ds, batch, seq, seed=seed)
+    src = ShardedBatchSource(ds, batch, seq, seed=seed)
+    same = []
+    with Prefetcher(src, depth=2, device=device) as pf:
+        for _ in range(n_batches):
+            got = next(pf).cpu().numpy()
+            starts = want._starts(want.step)
+            want.step += 1
+            ref = np.stack([tokens[s:s + seq] for s in starts]).astype(
+                got.dtype)
+            same.append(got.tobytes() == ref.tobytes())
+    starts = want._starts(0)
+    n = NATIVE_GATHER_TIMED
+
+    def gather_native():
+        for _ in range(n):
+            ds._gather(starts, seq)
+
+    def gather_numpy():
+        for _ in range(n):
+            np.stack([ds._mm[s:s + seq] for s in starts])
+
+    t_nat = bench_ns(gather_native, lambda: None, n, NATIVE_BENCH_ROUNDS)
+    t_np = bench_ns(gather_numpy, lambda: None, n, NATIVE_BENCH_ROUNDS)
+    check(all(same), f"(f) {len(same)} loader batches of ({batch}, {seq}) "
+          f"through pbst_gather_rows byte-equal to the numpy gather; one "
+          f"batch's gather {t_nat / 1e6:.3f} ms native, {t_np / 1e6:.3f} ms "
+          f"numpy (host CPU) [{card}]")
+    return dict(batches=len(same), native_ms=t_nat / 1e6,
+                numpy_ms=t_np / 1e6)
+
+
+def run_native_path(torch, gen, cfg, params, card, built, recorded):
+    """Phase 3n on the card: (a) the native runtime phase 1 built; (b)
+    3c's tenants (score, mm and the bf16 engine on 3s's script, weights
+    256 / 512 / 256) under credit in a Partition on the C ledger, rings
+    and histograms, with (c) a monitor process across the ledger file and
+    a doorbell; (d) tier costs of (b)'s calls on the card host's CPU;
+    (e) the native sim core on the tuned profiles and 3r's recorded
+    workload (``recorded``, 3r(a)'s live run); (f) 3p's loader through
+    the native gather. Returns the launch counts and routes of (b)."""
+    import contextlib
+    import shutil
+
+    from pbs_tpu_torch.runtime import native
+
+    t_phase = time.monotonic()
+    for kind, (secs, path, err) in built.items():
+        print(f"  (a) {kind}: {secs:.2f} s -> "
+              f"{path.name if path is not None else err}")
+    tier = native.tier()
+    print(f"  (a) tier {tier}"
+          + ("" if tier == "fastcall"
+             else f" (fastcall unavailable: {native.last_failure()})"),
+          flush=True)
+    check(tier in ("fastcall", "ctypes"),
+          f"(a) the native runtime loads on the {tier} tier")
+
+    reqs, arrivals = engine_script()
+    n_ticks = engine_ticks([n for _, n in reqs], arrivals, ENGINE_SLOTS)
+    wrappers = bwd_counts()
+    result = {}
+
+    @contextlib.contextmanager
+    def counted(what):
+        reset_counts(wrappers)
+        yield
+        launches, routes = control_launches(wrappers)
+        result.update(launches=launches, routes=routes)
+        print(f"  ({what}) kernel launches {launches}, by route {routes}")
+        for k in KERNELS:
+            n = launches[k]
+            if k in ("flash_fwd", "instrumented_matmul"):
+                check(n > 0 and routes[k] == {"wgmma": n, "simt": 0},
+                      f"({what}) {k}: {n} launches, every one on the "
+                      f"tensor-core route ({routes[k]})")
+            else:
+                check(n == 0, f"({what}) {k}: {n} launches == 0")
+
+    tmp, _ = paging_dir("3n")
+    try:
+        run = native_runtime_run(
+            lambda: control_tenants(torch, gen, cfg, params, reqs, arrivals,
+                                    n_ticks),
+            "cuda", tmp, card, counted=counted)
+        costs = tier_costs(run["slots"], run["per_q"])
+        print_tier_costs(costs, run["per_q"], run["slots"], card)
+        print(f"  (d) host time per quantum {run['host_ms_per_q']:.3f} ms; "
+              f"the runtime calls of one quantum take "
+              + ", ".join(f"{costs[t]['per_quantum_us']:.3f} us on {t}"
+                          for t in costs) + f" [{card}]", flush=True)
+        native_sim(recorded_workload(recorded, "(e)")[1])
+        native_gather("cuda", tmp, cfg.vocab, PAGING_CORPUS_TOKENS,
+                      TRAIN_BATCH, TRAIN_SEQ, PAGING_SEED, card=card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  phase 3n wall {time.monotonic() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return result["launches"], result["routes"]
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -4057,11 +4703,20 @@ def main() -> int:
 
     phase("1 build")
     t0 = time.monotonic()
-    built = cuda_build.build()
+    # The native runtime (g++) builds beside the kernels (one nvcc each).
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(1) as pool:
+        native_built = pool.submit(native_build)
+        built = cuda_build.build()
+        native_built = native_built.result()
     for r in built.values():
         print(f"  {r.name}: {r.seconds:.1f} s -> {r.path.name}")
         for ln in ptxas_report(r.log):
             print(f"    {ln}")
+    for kind, (secs, path, err) in native_built.items():
+        print(f"  native {kind}: {secs:.1f} s -> "
+              f"{path.name if path is not None else err}")
     print(f"  build wall {time.monotonic() - t0:.1f} s", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -4114,8 +4769,14 @@ def main() -> int:
     phase("3r record, replay and tune: a live run recorded through the "
           "host counter plane, replayed offline under three schedulers, a "
           "tune search on its numbers, the winner armed")
-    r_launches, r_routes = run_record_path(torch, gen, cfg, params,
-                                           card_line())
+    r_launches, r_routes, recorded = run_record_path(torch, gen, cfg, params,
+                                                     card_line())
+
+    phase("3n native runtime under the main path: the C ledger, rings and "
+          "histograms, a monitor process over the ledger file and a "
+          "doorbell, tier costs, the native sim core, the native gather")
+    n_launches, n_routes = run_native_path(
+        torch, gen, cfg, params, card_line(), native_built, recorded)
 
     phase("4 numerics at width")
     check_numerics(torch, gen, cfg, params)
@@ -4150,6 +4811,9 @@ def main() -> int:
         # phase 3r's live runs (a) and (d): recorded under HwCounterSource
         r["record_path_launches"] = r_launches[kernel]
         r["record_path_launches_by_route"] = r_routes[kernel]
+        # phase 3n(b)'s run: 3c's tenants on the native runtime tiers
+        r["native_path_launches"] = n_launches[kernel]
+        r["native_path_launches_by_route"] = n_routes[kernel]
     profile_micro_step(torch, micro_step, train_state)
     del micro_step, train_state
     profile_micro_step(torch, moe_step, moe_state, what="MoE training step")

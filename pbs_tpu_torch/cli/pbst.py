@@ -10,9 +10,9 @@
 
 The port of those commands of ``pbs_tpu.cli.pbst``: the same flags
 (plus ``--device`` for ``serve-demo``), the same JSON shapes. The
-``native`` stamp of ``sim`` and ``tune`` always says the native sim
-core is not ported (ROADMAP queue 1 item 9), and ``sim --native``
-fails. The reference's other commands wait for the modules they read
+``native`` stamp of ``sim`` and ``tune`` names the tier of the port's
+native sim core (built at first use), or why it is off. The
+reference's other commands wait for the modules they read
 (ROADMAP queue 1 items 8-12).
 
     python -m pbs_tpu_torch.cli.pbst serve-demo --device cpu
@@ -82,8 +82,8 @@ def cmd_sim(args) -> int:
     """Trace-driven scheduler simulation (pbs_tpu_torch.sim): one policy
     run with metrics + trace digest, or --policy all for the comparison
     harness across every registered policy. Host-side virtual time
-    only; the port's only sim tier is the Python witness engine, and
-    ``--native`` fails naming ROADMAP item 9."""
+    only; ``--native`` requires the native sim core, ``--no-native``
+    pins the Python witness engine."""
     from pbs_tpu_torch.sim import compare, format_report, run_policy
     from pbs_tpu_torch.sim.engine import policy_names
     from pbs_tpu_torch.sim.sweep import native_stamp
@@ -456,10 +456,11 @@ def main(argv=None) -> int:
                     help="full JSON report instead of the summary")
     sp.add_argument("--native", action=argparse.BooleanOptionalAction,
                     default=None,
-                    help="require the native sim dispatch core, which the "
-                         "port does not have (ROADMAP item 9): fails; "
-                         "--no-native pins the pure-Python witness engine, "
-                         "which the default uses too")
+                    help="require the native sim dispatch core "
+                         "(--no-native pins the pure-Python witness "
+                         "engine; default auto rides the C core for "
+                         "sweep-mode runs — recorded runs stay on the "
+                         "witness unless --native is given)")
     sp.set_defaults(fn=cmd_sim)
 
     sp = sub.add_parser(

@@ -6,12 +6,12 @@ without copies through the control plane
 (``xen-4.2.1/xen/common/grant_table.c``, ``drivers/block/xen-blkfront``).
 Here the corpus is one flat file of token ids (the standard packed
 pre-tokenized format), memory-mapped read-only and gathered into batch
-staging buffers — one slice copy per sequence, no per-token Python.
+staging buffers by the native runtime (``pbst_gather_rows``) — one
+memcpy per sequence, no per-token Python.
 
 The port of ``pbs_tpu.data.tokens``: the same file format, the same
-windows and the same checks. Rows are gathered by the reference's own
-numpy path; the native ``pbst_gather_rows`` tier waits for the port's
-native runtime (ROADMAP queue 1, item 9), so ``_nat`` is always None.
+windows and the same checks. Without the native runtime the numpy
+gather serves, byte for byte the same rows.
 
 File format: little-endian header ``PBST`` magic, u32 version, u32
 dtype code (2=uint16, 4=uint32), u64 token count — then the tokens.
@@ -51,7 +51,8 @@ class TokenDataset:
 
     ``sample(batch, seq_len, rng)`` draws random windows (training);
     ``window(i, batch, seq_len)`` reads deterministic consecutive
-    windows (eval). Both return int32 (B, seq_len) host arrays.
+    windows (eval). Both return int32 (B, seq_len) host arrays built by
+    the native gather when available.
     """
 
     def __init__(self, path: str):
@@ -69,22 +70,42 @@ class TokenDataset:
         self.n_tokens = int(count)
         self._mm = np.memmap(path, dtype=self.dtype, mode="r",
                              offset=_HDR.size, shape=(self.n_tokens,))
-        # No native runtime in the port yet: the numpy gather serves.
-        self._nat = None
+        self._base = self._mm.view(np.uint8).reshape(-1)
+        from pbs_tpu_torch.runtime import native as native_mod
+
+        self._nat = native_mod.load()
 
     def __len__(self) -> int:
         return self.n_tokens
 
     def _gather(self, starts: np.ndarray, seq_len: int) -> np.ndarray:
         """starts: (B,) token offsets -> (B, seq_len) int32."""
-        # Validate up front: a tail slice would otherwise return a
-        # silently short row.
+        B = len(starts)
+        row_bytes = seq_len * self.itemsize
+        # Validate up front on BOTH paths: the Python fallback would
+        # otherwise return silently short rows from a tail slice.
         if len(starts) and (int(starts.min()) < 0
                             or int(starts.max()) + seq_len > self.n_tokens):
             raise IndexError("window exceeds corpus")
-        rows = np.stack([
-            self._mm[s:s + seq_len] for s in starts
-        ])
+        if self._nat is not None:
+            import ctypes
+
+            out = np.empty(B * row_bytes, dtype=np.uint8)
+            offs = (starts.astype(np.uint64) * self.itemsize)
+            offs = np.ascontiguousarray(offs)
+            n = self._nat.pbst_gather_rows(
+                self._base.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                ctypes.c_uint64(self._base.size),
+                offs.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+                B, ctypes.c_uint64(row_bytes),
+                out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+            if n != B:
+                raise IndexError("window exceeds corpus")
+            rows = out.view(self.dtype).reshape(B, seq_len)
+        else:
+            rows = np.stack([
+                self._mm[s:s + seq_len] for s in starts
+            ])
         return rows.astype(np.int32)
 
     def sample(self, batch: int, seq_len: int,

@@ -188,9 +188,10 @@ class Gateway:
         self.hist = LatencyHistograms(
             num_slots=hist_slots,
             path=(ledger_path + ".hist") if ledger_path else None)
-        # The pump's histogram seam: flushed before _feedback reads the
-        # quantiles and before stats() (on the port's Python ledger
-        # tier it records in place, see HistBatch).
+        # The batched pump: a tick's histogram samples stage here and
+        # land as ONE record_many flush — flushed before _feedback
+        # reads the quantiles and before stats(), so readers see
+        # exactly what per-request scalar records showed.
         self._hist_batch = HistBatch(self.hist)
         # Per-tick ledger staging: one add_many per touched class per
         # tick instead of a seqlock write per request event. Sheds

@@ -70,7 +70,7 @@ class Knob:
     subsystem: str
     doc: str = ""
     #: C-ABI marshalling symbol in sim/native_core.py +
-    #: native/pbst_runtime.cc (GS_*/GF_*), or None for a knob the
+    #: runtime/csrc/pbst_runtime.cc (GS_*/GF_*), or None for a knob the
     #: native sim core deliberately does not model. The knob-discipline
     #: pass holds both sides to this declaration.
     native: str | None = None

@@ -14,17 +14,20 @@ and requeues after backend loss. Three pieces:
   so monitors snapshot them lock-free like any other ledger, and
   quantiles come from :func:`hist_quantile` — the nearest-rank
   estimator over bucket upper edges, never an interpolated value.
-  :class:`HistBatch` is the pump's staging seam.
+  ``record`` fuses bucket + seqlock into one native call when the
+  runtime is loaded (byte-identical to the Python tier), and
+  :class:`HistBatch` stages a pump tick's samples into one
+  ``record_many`` flush.
 - :class:`SpanAssembler` — the consumer. Reconstructs per-rid
   timelines from drained trace records, validates **gap-free chain**
   invariants, exports Chrome trace JSON, and builds the SLO view:
   per-tenant p50/p95/p99 and SLO burn-rate against the tenant's
   latency target.
 
-The port carries the pure-Python ledger tier only: the reference's
-fused native histogram calls are ROADMAP queue 1 item 9, and the slot
-bytes, records and verdicts here equal the reference's Python tier
-(``tests/test_torch_spans.py``).
+The histograms ride their ledger's tier (``native=None`` picks the
+native one when the library builds); slot bytes, records and verdicts
+equal the reference's on every tier (``tests/test_torch_spans.py``,
+``tests/test_torch_native.py``).
 
 Determinism: the recorder adds no randomness and consults no fault
 streams, so arming it leaves a run's digests untouched — span
@@ -40,10 +43,10 @@ import numpy as np
 
 from pbs_tpu_torch.obs.trace import (
     TRACE_REC_WORDS,
+    _U64_MASK,
     EmitBatch,
     Ev,
     TraceBuffer,
-    refuse_native,
 )
 from pbs_tpu_torch.telemetry.counters import NUM_COUNTERS
 from pbs_tpu_torch.telemetry.ledger import Ledger
@@ -117,29 +120,40 @@ class LatencyHistograms:
     """Log2 latency histograms in ledger slots, keyed ``(who, cls,
     stage)`` (``who`` is a tenant name or a ``be:<backend>`` row).
 
-    ``record`` is the hot path: one dict hit + one ledger counter add —
-    no allocation beyond the interning of a key the first time it is
-    seen. Slots are allocated densely; when the ledger is
+    ``record`` is the hot path: one dict hit + one ledger counter add
+    (bucket + seqlock fused into a single native call when the runtime
+    is loaded) — no allocation beyond the interning of a key the first
+    time it is seen. Slots are allocated densely; when the ledger is
     full, new keys fold into a per-``(cls, stage)`` overflow row
     (counts are never dropped, attribution degrades to the class).
     """
 
     __slots__ = ("path", "ledger", "num_slots", "_slots", "_next",
-                 "_overflow_slot")
+                 "_overflow_slot", "_nat", "_natp", "_fc", "_addr",
+                 "_fc_record")
 
     def __init__(self, num_slots: int = 256, path: str | None = None,
                  native: bool | str | None = None):
         if num_slots < 2:
             raise ValueError("LatencyHistograms needs >= 2 slots "
                              "(one is the reserved overflow row)")
-        refuse_native(native)
         self.path = path
         if path is not None:
-            self.ledger = Ledger.file_backed(path, num_slots=num_slots)
+            self.ledger = Ledger.file_backed(path, num_slots=num_slots,
+                                             native=native)
             for slot in range(num_slots):
                 self.ledger.reset(slot)  # never inherit a previous run
         else:
-            self.ledger = Ledger(num_slots)
+            self.ledger = Ledger(num_slots, native=native)
+        # The fused native paths (pbst_hist_record[_many]: log2 bucket
+        # + seqlock add in one call) ride the ledger's binding tiers;
+        # byte-identical slot state either way.
+        self._nat = getattr(self.ledger, "_nat", None)
+        self._natp = getattr(self.ledger, "_ptr", None)
+        self._fc = getattr(self.ledger, "_fc", None)
+        self._addr = getattr(self.ledger, "_addr", 0)
+        self._fc_record = (self._fc.hist_record
+                           if self._fc is not None else None)
         self.num_slots = int(num_slots)
         self._slots: dict[tuple[str, str, str], int] = {}
         self._next = 0
@@ -181,19 +195,35 @@ class LatencyHistograms:
 
     def record(self, who: str, cls: str, stage: str,
                value_ns: int) -> None:
-        """One latency sample: bucket + seqlock add. A negative
-        (clock-skew) sample lands in bucket 0."""
+        """One latency sample: bucket + seqlock add, fused into one
+        native call when the runtime is loaded. Values clamp to
+        [0, 2^64): a negative (clock-skew) sample lands in bucket 0 on
+        every tier."""
         slot = self._slots.get((who, cls, stage))
         if slot is None:
             slot = self.slot_of(who, cls, stage)
+        fcr = self._fc_record
+        if fcr is not None:
+            # Negatives clamp to 0 (= bucket 0, the Python tier's
+            # result); values are ns-scale by contract, far below the
+            # u64 range where the C mask could matter.
+            fcr(self._addr, slot,
+                value_ns if value_ns >= 0 else 0, HIST_SHIFT)
+            return
+        if self._nat is not None:
+            v = int(value_ns)
+            if not 0 <= v <= _U64_MASK:
+                v = 0 if v < 0 else v & _U64_MASK
+            self._nat.pbst_hist_record(self._natp, slot, v, HIST_SHIFT)
+            return
         self.ledger.add(slot, hist_bucket(value_ns), 1)
 
     def record_many(self, slots: np.ndarray, values: np.ndarray) -> None:
         """Batched :meth:`record` over parallel (slot, value) vectors
-        — slots from :meth:`slot_of`, interned at stage time. Replays
-        the scalar per-record protocol, so the ledger state is
-        byte-identical to ``n`` :meth:`record` calls (per-record
-        seqlock version bumps included)."""
+        — slots from :meth:`slot_of`, interned at stage time. One C
+        call when native; the pure-Python fallback replays the scalar
+        per-record protocol, so every tier leaves byte-identical
+        ledger state (per-record seqlock version bumps included)."""
         slots = np.ascontiguousarray(slots, dtype=np.int64)
         values = np.ascontiguousarray(values, dtype="<u8")
         n = slots.size
@@ -203,8 +233,21 @@ class LatencyHistograms:
                 f"{values.size} values")
         if n == 0:
             return
+        if self._fc is not None:
+            self._fc.hist_record_many(self._addr, self.num_slots,
+                                      slots, values, n, HIST_SHIFT)
+            return
+        if self._nat is not None:
+            from pbs_tpu_torch.runtime import native as native_mod
+
+            rc = self._nat.pbst_hist_record_many(
+                self._natp, self.num_slots, native_mod.as_i64p(slots),
+                native_mod.as_u64p(values), n, HIST_SHIFT)
+            if rc == -2:
+                raise IndexError("hist_record_many: slot out of range")
+            return
         if ((slots < 0) | (slots >= self.num_slots)).any():
-            # Prevalidated: a bad batch mutates nothing.
+            # Prevalidated like the C path: a bad batch mutates nothing.
             raise IndexError("hist_record_many: slot out of range")
         add = self.ledger.add
         for s, v in zip(slots.tolist(), values.tolist()):
@@ -278,6 +321,10 @@ class LatencyHistograms:
         self.path = None
         self.ledger = Ledger.file_backed(path, readonly=True)
         self.num_slots = self.ledger.num_slots
+        # Monitor attach never records; reads go through the ledger's
+        # own snapshot paths (which keep their native tiers).
+        self._nat = self._natp = self._fc = self._fc_record = None
+        self._addr = 0
         self._slots = {tuple(k): int(s)
                        for s, k in meta["slots"].items()}
         self._next = len(self._slots)
@@ -285,40 +332,73 @@ class LatencyHistograms:
 
 
 class HistBatch:
-    """Per-tick staging seam for histogram samples — the
-    :class:`~pbs_tpu_torch.obs.trace.EmitBatch` of the latency layer.
-    The gateway's pump records through it and flushes it at tick end
-    and before any read of the histograms.
+    """Per-tick staging for histogram samples — the
+    :class:`~pbs_tpu_torch.obs.trace.EmitBatch` of the latency layer: a
+    pump's worth of ``record()`` calls land as ONE
+    :meth:`LatencyHistograms.record_many` flush (one C call on the
+    native tiers) instead of an interpreter round-trip per sample.
 
-    On the pure-Python ledger tier (the port's only one) the batch
-    records DIRECTLY and ``flush`` lands nothing: replaying staged
-    scalars at flush would cost strictly more than recording in place.
-    This is the reference's degraded mode on the same tier, so the
-    slot bytes are the reference's. NOT thread-safe: one batch per pump
-    thread.
+    Staging changes WHEN a sample reaches its ledger slot, never the
+    bytes: keys intern at record() time (slot-allocation order — and
+    therefore the meta sidecar — identical to scalar calls), values
+    land in record order, and the flush keeps the per-record seqlock
+    protocol. NOT thread-safe: one batch per pump thread, flushed at
+    tick end and before any read of the histograms.
+
+    On the pure-Python tier the batch degrades to DIRECT scalar
+    records (flush is then a no-op): replaying staged scalars at flush
+    would cost strictly more than recording in place, and the
+    degraded mode keeps today's verified behavior exactly.
     """
 
-    __slots__ = ("hist", "capacity", "recorded", "flushes")
+    __slots__ = ("hist", "capacity", "_direct", "_s", "_v", "_sm",
+                 "_vm", "_n", "recorded", "flushes")
 
     def __init__(self, hist: LatencyHistograms, capacity: int = 512):
         if capacity <= 0:
             raise ValueError("HistBatch capacity must be > 0")
         self.hist = hist
         self.capacity = int(capacity)
+        self._direct = hist._nat is None and hist._fc is None
+        self._s = np.zeros(self.capacity, dtype=np.int64)
+        self._v = np.zeros(self.capacity, dtype="<u8")
+        self._sm = memoryview(self._s)
+        self._vm = memoryview(self._v)
+        self._n = 0
         self.recorded = 0
         self.flushes = 0
 
     def record(self, who: str, cls: str, stage: str,
                value_ns: int) -> None:
         self.recorded += 1
-        self.hist.record(who, cls, stage, value_ns)
+        hist = self.hist
+        if self._direct:
+            hist.record(who, cls, stage, value_ns)
+            return
+        slot = hist._slots.get((who, cls, stage))
+        if slot is None:
+            slot = hist.slot_of(who, cls, stage)
+        v = int(value_ns)
+        if not 0 <= v <= _U64_MASK:  # the record() clamp contract
+            v = 0 if v < 0 else v & _U64_MASK
+        i = self._n
+        self._sm[i] = slot
+        self._vm[i] = v
+        self._n = i + 1
+        if self._n >= self.capacity:
+            self.flush()
 
     def pending(self) -> int:
-        return 0
+        return self._n
 
     def flush(self) -> int:
-        """Samples staged since the last flush: always 0 here."""
-        return 0
+        """Land staged samples in the ledger; returns samples flushed."""
+        n, self._n = self._n, 0
+        if not n:
+            return 0
+        self.flushes += 1
+        self.hist.record_many(self._s[:n], self._v[:n])
+        return n
 
 
 # -- the producer ------------------------------------------------------------

@@ -5,19 +5,28 @@ buffer, records of (timestamp, event, 6 args), a lost-record counter
 instead of blocking, and :class:`EmitBatch` staging so N events cost one
 batched ring write. Same event taxonomy, same header and record words:
 a ring written here is byte-identical to the reference's ring for the
-same emits (``tests/test_torch_spans.py``).
+same emits (``tests/test_torch_spans.py``, ``tests/test_torch_native.py``).
 
-The port carries the pure-Python ring paths only: ``emit`` writes a
-record with one ``struct.pack_into``, ``emit_many``/``consume``/``peek``
-move records in at most two contiguous slice copies. The reference's
-native C ring (and its fastcall tier) is ROADMAP queue 1 item 9;
-``native=True`` or ``"ctypes"`` raises here instead of loading it.
+Three tiers write the same bytes and drop counters. The native SPSC
+ring (``runtime/native.py`` over the port's copy of the reference's C
+runtime) is picked by ``native=None`` when the library builds, as the
+reference picks it: ``emit`` is one vectorcall on the fastcall tier (one
+ctypes call without it), and ``emit_many``/``consume`` are one
+``pbst_trace_emit_many``/``pbst_trace_consume`` call. On the pure-Python
+tier ``emit`` writes a record with one ``struct.pack_into``, and
+``emit_many``/``consume``/``peek`` move records in at most two
+contiguous slice copies.
 
-**Batched-writer concurrency contract**: the producer paths are plain
-slice stores + a header store with no fences — in-process SPSC is
-always safe (stores are program-ordered under the GIL), and a
-cross-process consumer attached to a file-backed ring is safe on TSO
-hosts (x86: the head store cannot pass the record stores).
+**Batched-writer concurrency contract** (mirrors the ledger's): the
+pure-Python vectorized producer paths (``emit_many``, and any
+``EmitBatch`` over a non-native ring) are plain slice stores + a
+header store with no fences — in-process SPSC is always safe (stores
+are program-ordered under the GIL), and a cross-process consumer
+attached to a file-backed ring is safe on TSO hosts (x86: the head
+store cannot pass the record stores). A cross-process producer
+needing release semantics on weaker memory models must use the native
+paths (scalar ``emit`` or ``emit_many``, whose head store is an
+atomic release).
 """
 
 from __future__ import annotations
@@ -52,17 +61,6 @@ _ZERO_TAIL = tuple(bytes((6 - k) * 8) for k in range(7))
 # ``tbuf_size=`` boot param analog (xen/common/trace.c): default ring
 # capacity in records for rings whose creator doesn't size them.
 _tbuf_size = integer_param("tbuf_size", 4096)
-
-_NATIVE_MISSING = (
-    "the native C ring and ledger tiers are not ported (ROADMAP queue 1 "
-    "item 9); pass native=None or False for the pure-Python paths")
-
-
-def refuse_native(native) -> None:
-    """Raise for a request of the reference's native tiers (``True`` or
-    ``"ctypes"``); ``None`` and ``False`` pass."""
-    if native is not None and native is not False:
-        raise NotImplementedError(_NATIVE_MISSING)
 
 
 class Ev(enum.IntEnum):
@@ -146,9 +144,10 @@ class TraceBuffer:
 
     def __init__(self, capacity: int | None = None, buf=None,
                  native: bool | str | None = None, _attach: bool = False):
-        # ``native``: None and False both mean the pure-Python paths,
-        # the only ones the port has; True and "ctypes" raise.
-        refuse_native(native)
+        # ``native``: None auto-detects, True requires the C library,
+        # False pins the pure-Python paths, "ctypes" pins the ctypes
+        # binding tier (native minus the fastcall accelerator — the
+        # tier a host without Python.h runs; tests/benches use it).
         self.capacity = capacity = (
             capacity if capacity is not None else _tbuf_size.value)
         nwords = TRACE_HEADER_WORDS + capacity * TRACE_REC_WORDS
@@ -158,19 +157,52 @@ class TraceBuffer:
         # Cached header/word views: plain-int loads and stores with no
         # numpy scalar boxing on the per-event path. Native-endian 'Q'
         # over the '<u8' layout — this framework targets little-endian
-        # hosts.
+        # hosts (the native library shares the same assumption).
         words = memoryview(buf)[: nwords * 8].cast("B").cast("Q")
         self._hdr = words[:TRACE_HEADER_WORDS]
         self._words = words
         # Byte view for struct.pack_into: the pure-Python emit writes
         # the whole record in one C call, no per-word store loop.
         self._bytes = memoryview(buf)[: nwords * 8].cast("B")
+        self._nat = None
+        self._ptr = None
+        self._fc = None
+        self._addr = 0
+        if native is not False:
+            from pbs_tpu_torch.runtime import native as native_mod
+
+            lib = native_mod.load()
+            if lib is not None:
+                self._nat = lib
+                self._ptr = native_mod.as_u64p(self._arr)
+                # Fastcall tier (runtime/csrc/pbst_fastcall.cc): the
+                # same C entry points behind vectorcall. The address is
+                # cached once — each .ctypes.data access costs more
+                # than the emit. native="ctypes" pins the ctypes tier.
+                if native != "ctypes":
+                    self._fc = native_mod.fastcall()
+                    self._addr = self._arr.ctypes.data
+            elif native is True:
+                raise RuntimeError(
+                    "native runtime requested but unavailable: "
+                    f"{native_mod.unavailable_reason()}")
         if _attach:
             return  # consumer attach: the producer owns the header
-        self._arr[0] = 0
-        self._arr[1] = 0
-        self._arr[2] = capacity
-        self._arr[3] = 0
+        if self._nat is not None:
+            self._nat.pbst_trace_init(self._ptr, capacity)
+        else:
+            self._arr[0] = 0
+            self._arr[1] = 0
+            self._arr[2] = capacity
+            self._arr[3] = 0
+
+    @property
+    def tier(self) -> str:
+        """The tier this ring writes on: "fastcall", "ctypes" or
+        "python"."""
+        if self._nat is None:
+            return "python"
+        return "fastcall" if self._fc is not None else "ctypes"
 
     @classmethod
     def file_backed(cls, path: str, capacity: int | None = None,
@@ -210,6 +242,17 @@ class TraceBuffer:
     # -- producer --------------------------------------------------------
 
     def emit(self, ts_ns: int, event: int, *args: int) -> bool:
+        fc = self._fc
+        if fc is not None:
+            # Sub-µs native emit: one vectorcall, args masked in C.
+            if len(args) > 6:
+                args = args[:6]
+            return fc.trace_emit(self._addr, ts_ns, event, *args)
+        if self._nat is not None:
+            a = [int(x) & _U64_MASK for x in args[:6]]
+            a += [0] * (6 - len(a))
+            return bool(
+                self._nat.pbst_trace_emit(self._ptr, ts_ns, int(event), *a))
         hdr = self._hdr
         head = hdr[0]
         cap = self.capacity
@@ -228,8 +271,9 @@ class TraceBuffer:
             struct.pack_into(_PACK_FMTS[n], b, off, ts_ns, event, *args)
         except struct.error:
             # Every field masks to two's complement — including
-            # ts_ns/event, as the reference's native tiers do (a
-            # negative clock-skew timestamp records, never raises).
+            # ts_ns/event, matching the native tiers (a negative
+            # clock-skew timestamp must not raise on one tier and
+            # record on another).
             struct.pack_into(
                 _PACK_FMTS[n], b, off, int(ts_ns) & _U64_MASK,
                 int(event) & _U64_MASK,
@@ -254,6 +298,13 @@ class TraceBuffer:
         n = recs.shape[0]
         if n == 0:
             return 0
+        if self._fc is not None:
+            return self._fc.trace_emit_many(self._addr, recs, n)
+        if self._nat is not None:
+            from pbs_tpu_torch.runtime import native as native_mod
+
+            return int(self._nat.pbst_trace_emit_many(
+                self._ptr, native_mod.as_u64p(recs.reshape(-1)), n))
         hdr = self._hdr
         head, tail, cap = hdr[0], hdr[1], self.capacity
         space = cap - (head - tail)
@@ -297,6 +348,17 @@ class TraceBuffer:
 
     def consume(self, max_records: int = 1024) -> np.ndarray:
         """(n, 8) u64 array of drained records."""
+        if self._fc is not None:
+            out = np.empty(max_records * TRACE_REC_WORDS, dtype="<u8")
+            n = self._fc.trace_consume(self._addr, out, max_records)
+            return out[: n * TRACE_REC_WORDS].reshape(n, TRACE_REC_WORDS)
+        if self._nat is not None:
+            from pbs_tpu_torch.runtime import native as native_mod
+
+            out = np.empty(max_records * TRACE_REC_WORDS, dtype="<u8")
+            n = self._nat.pbst_trace_consume(
+                self._ptr, native_mod.as_u64p(out), max_records)
+            return out[: n * TRACE_REC_WORDS].reshape(n, TRACE_REC_WORDS)
         hdr = self._hdr
         tail = hdr[1]
         n = min(hdr[0] - tail, max_records)
@@ -308,7 +370,9 @@ class TraceBuffer:
     def peek(self, max_records: int = 1024) -> np.ndarray:
         """Last ``max_records`` undrained records WITHOUT consuming them
         — postmortem readers (crash dumps) must not steal records from an
-        attached live consumer. Safe in-process where the producer is
+        attached live consumer. Reads the shared header words directly
+        (same layout for the native ring), so it also works on a ring the
+        native library owns; safe in-process where the producer is
         quiescent or slow relative to the copy."""
         hdr = self._hdr
         head, tail = hdr[0], hdr[1]
@@ -318,6 +382,8 @@ class TraceBuffer:
 
     @property
     def lost(self) -> int:
+        if self._nat is not None:
+            return int(self._nat.pbst_trace_lost(self._ptr))
         return self._hdr[3]
 
 
@@ -339,8 +405,9 @@ class EmitBatch:
     into one ring would interleave at flush granularity, not emit order.
     """
 
-    __slots__ = ("ring", "capacity", "flush_ns", "_bytes", "_buf", "_n",
-                 "_t0", "emitted", "flushes")
+    __slots__ = ("ring", "capacity", "flush_ns", "_bytes", "_buf",
+                 "_bufp", "_fc_flush", "_n", "_t0", "emitted",
+                 "flushes")
 
     def __init__(self, ring: TraceBuffer, capacity: int = EMIT_BATCH_CAPACITY,
                  flush_ns: int = EMIT_BATCH_FLUSH_NS):
@@ -355,6 +422,17 @@ class EmitBatch:
         self._bytes = bytearray(self.capacity * TRACE_REC_WORDS * 8)
         self._buf = np.frombuffer(self._bytes, dtype="<u8").reshape(
             self.capacity, TRACE_REC_WORDS)
+        # Precomputed staging pointers: when the ring is native, flush
+        # is ONE C call with no per-flush pointer marshalling.
+        self._bufp = None
+        self._fc_flush = None
+        if ring._fc is not None:
+            self._fc_flush = (ring._fc.trace_emit_many, ring._addr,
+                              self._buf.ctypes.data)
+        elif ring._nat is not None:
+            from pbs_tpu_torch.runtime import native as native_mod
+
+            self._bufp = native_mod.as_u64p(self._buf.reshape(-1))
         self._n = 0
         self._t0 = -1  # ts of the oldest staged record; -1 = empty
         self.emitted = 0
@@ -397,13 +475,22 @@ class EmitBatch:
 
     def flush(self) -> int:
         """Push staged records to the ring; returns records written
-        (staged minus any the full ring dropped)."""
+        (staged minus any the full ring dropped). One
+        ``pbst_trace_emit_many`` C call when the ring is native."""
         n, self._n = self._n, 0
         self._t0 = -1
         if not n:
             return 0
         self.flushes += 1
-        written = self.ring.emit_many(self._buf[:n])
+        if self._fc_flush is not None:
+            f, ring_addr, buf_addr = self._fc_flush
+            written = f(ring_addr, buf_addr, n)
+        elif self._bufp is not None:
+            ring = self.ring
+            written = int(ring._nat.pbst_trace_emit_many(
+                ring._ptr, self._bufp, n))
+        else:
+            written = self.ring.emit_many(self._buf[:n])
         self.emitted += written
         return written
 

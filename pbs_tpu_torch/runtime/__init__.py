@@ -3,8 +3,18 @@ from pbs_tpu_torch.runtime.compile_gate import (
     CompileBudget,
     CompileBudgetExceeded,
 )
+from pbs_tpu_torch.runtime.doorbell import Doorbell, bridge_events
 from pbs_tpu_torch.runtime.events import EventBus, EventChannel, Virq
 from pbs_tpu_torch.runtime.executor import Executor, quantum_to_steps
+from pbs_tpu_torch.runtime.grants import (
+    GrantBusy,
+    GrantDenied,
+    GrantError,
+    GrantMapping,
+    GrantTable,
+    SharedRegion,
+    map_grant,
+)
 from pbs_tpu_torch.runtime.hooks import HookError, HookRegistry
 from pbs_tpu_torch.runtime.image import boot_job, image_workload, save_image
 from pbs_tpu_torch.runtime.job import ContextState, ExecutionContext, Job, SchedParams
@@ -44,10 +54,16 @@ __all__ = [
     "CompileBudgetExceeded",
     "ContextState",
     "DummyPolicy",
+    "Doorbell",
     "EventBus",
     "EventChannel",
     "ExecutionContext",
     "Executor",
+    "GrantBusy",
+    "GrantDenied",
+    "GrantError",
+    "GrantMapping",
+    "GrantTable",
     "HookError",
     "HookRegistry",
     "Job",
@@ -58,6 +74,7 @@ __all__ = [
     "PagingError",
     "Partition",
     "SchedParams",
+    "SharedRegion",
     "SharedWeights",
     "Timer",
     "TimerWheel",
@@ -67,9 +84,11 @@ __all__ = [
     "WeightsRegistry",
     "XsmDenied",
     "boot_job",
+    "bridge_events",
     "device_memory_stats",
     "image_workload",
     "install_crash_handler",
+    "map_grant",
     "nbytes_of",
     "page_in_job",
     "page_out_job",

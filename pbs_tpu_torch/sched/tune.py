@@ -18,8 +18,8 @@ sha256 digest of its per-cell reports and score. ``pbst-torch tune
 --check`` replays that grid and fails when the digest no longer
 reproduces. The five checked-in profiles are the reference's, copied
 byte for byte; their blocks were recorded on the reference's native
-sim tier, and the port's Python tier reproduces their digests (the
-tier is provenance only, ``sim.sweep.META_KEYS``). Their bands are the
+sim tier, and the port's native and Python tiers both reproduce their
+digests (the tier is provenance only, ``sim.sweep.META_KEYS``). Their bands are the
 reference simulator's frontier, none tuned on or for an H100:
 ``chip_smoke.py``'s phase 3r tunes on a workload built from the card's
 own step times and stall fractions (``PERF.md``).
@@ -236,16 +236,20 @@ def check_block(workload: str, policy: str, params: dict,
                 base_seed: int = 0, workers: int = 1,
                 horizon_ns: int = CHECK_HORIZON_NS,
                 n_reps: int = CHECK_REPS,
-                n_tenants: int = CHECK_TENANTS) -> dict:
+                n_tenants: int = CHECK_TENANTS,
+                native: bool | str | None = None) -> dict:
     """Deterministic re-scoring grid + its digest: what `--check`
     replays. The digest covers every per-cell report AND the score, so
     any behavioral drift in the policy/engine/scoring shows up. The
     grid parameters are recorded in the block so a LATER change to the
     module defaults replays old profiles on THEIR grid, not the new
-    one."""
+    one. ``native`` is the sweep's sim-tier request (None = auto: the
+    native core where it builds); the port's addition, so one grid can
+    be replayed on each tier."""
     cells = _cells_for(workload, policy, params, horizon_ns, n_reps,
                        n_tenants=n_tenants)
-    reports = sweep(cells, base_seed=base_seed, workers=workers)
+    reports = sweep(cells, base_seed=base_seed, workers=workers,
+                    native=native)
     score = score_reports(reports)
     h = hashlib.sha256()
     h.update(sweep_digest(reports).encode())
@@ -257,10 +261,10 @@ def check_block(workload: str, policy: str, params: dict,
         "n_tenants": n_tenants,
         "score_x1e6": int(round(score * 1e6)),
         "digest": h.hexdigest(),
-        # Provenance only — which sim tier produced this block. The
-        # digest deliberately excludes it (sweep.META_KEYS): the port's
-        # Python witness tier re-verifies the SAME digest a native-tier
-        # host recorded, so real drift fails here too.
+        # Provenance only — which sim tier produced this block (the
+        # native core's binding tier when it ran). The digest
+        # deliberately excludes it (sweep.META_KEYS): every tier
+        # re-verifies the SAME digest, so real drift fails on each.
         "tier": (reports[0].get("native_tier", "python") if reports
                  else "python"),
     }
@@ -318,14 +322,16 @@ def write_profile(workload: str, frontier: dict, base_seed: int = 0,
 
 
 def check_profile(workload: str, tuned_dir: str | None = None,
-                  workers: int = 1) -> dict:
+                  workers: int = 1,
+                  native: bool | str | None = None) -> dict:
     """Replay a profile's check grid; returns the comparison verdict.
 
     ``ok`` is digest equality — scores are deterministic, so ANY
     mismatch means the policy/engine/scoring behavior changed. The
     score delta says which way: negative = the tuned frontier
     regressed; positive = it improved and the profile is stale — both
-    require re-running the search with ``--write``.
+    require re-running the search with ``--write``. ``native`` picks
+    the sim tier the grid replays on (:func:`check_block`).
     """
     prof = load_profile(workload, tuned_dir)
     chk = prof["check"]
@@ -342,7 +348,7 @@ def check_profile(workload: str, tuned_dir: str | None = None,
                       base_seed=chk["base_seed"], workers=workers,
                       horizon_ns=chk["horizon_ns"],
                       n_reps=chk["n_reps"],
-                      n_tenants=chk["n_tenants"])
+                      n_tenants=chk["n_tenants"], native=native)
     return {
         "workload": workload,
         "policy": prof["policy"],

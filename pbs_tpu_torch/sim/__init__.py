@@ -9,9 +9,9 @@ regression comparisons), ``sweep`` (shared-nothing parallel grid
 fan-out — the ``pbst-torch tune`` substrate). Reports, trace bytes and
 digests equal the reference's.
 
-Only the pure-Python engine is ported: the reference's native dispatch
-core (``sim/native_core.py`` over its C runtime) is ROADMAP queue 1
-item 9, and asking for it raises.
+Sweep-mode runs of the hot policies ride the native dispatch core
+(``sim/native_core.py`` over the port's C runtime) when it builds; the
+pure-Python engine is the witness, bit-identical on every tier.
 """
 
 from pbs_tpu_torch.sim.engine import (

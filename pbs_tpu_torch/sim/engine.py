@@ -1,10 +1,10 @@
 """Discrete-event scheduler simulator driving the real policy stack.
 
 The port of ``pbs_tpu.sim.engine``: the same probes, the same report and
-trace digest for every (workload, policy, seed). Its dispatch loop is
-the pure-Python witness engine; the reference's native C core is
-ROADMAP queue 1 item 9, and ``native=True`` (or a tier name) raises
-instead of degrading (:meth:`SimEngine._run_native`).
+trace digest for every (workload, policy, seed). Sweep-mode runs of the
+hot policies ride the port's native C dispatch core
+(``sim/native_core.py``) when the library builds; the pure-Python loop
+stays as the witness, bit-identical on every tier.
 
 The partition/executor/timer machinery already runs deterministically
 under a ``VirtualClock`` (the x86_emulator fake-backend pattern,
@@ -60,10 +60,6 @@ from pbs_tpu_torch.telemetry.counters import Counter
 from pbs_tpu_torch.telemetry.source import SimBackend
 from pbs_tpu_torch.utils.clock import SEC, VirtualClock
 from pbs_tpu_torch.utils.stats import nearest_rank_sorted
-
-#: Why a native sim-core request fails in the port.
-NATIVE_MISSING = ("the native sim core is not ported (ROADMAP queue 1 "
-                  "item 9); the pure-Python engine is the port's only tier")
 
 #: policy name -> (scheduler registry name, adaptive-quantum policy class)
 POLICIES: dict[str, tuple[str, type | None]] = {
@@ -375,12 +371,12 @@ class SimEngine:
         self.seed = int(seed)
         self.horizon_ns = int(horizon_ns)
         self.warmup_frac = float(warmup_frac)
-        #: Native dispatch-core request, the reference's contract:
-        #: None = auto, False = force the pure-Python loop (the witness
-        #: tier), True or a tier name ("fastcall"/"ctypes") = require
-        #: the native core. The port has no native core (ROADMAP queue
-        #: 1 item 9): auto runs the Python loop, and a requirement
-        #: raises.
+        #: Native dispatch-core request: None = auto (ride the C core
+        #: for sweep-mode runs when available, degrade silently
+        #: otherwise), False = force the pure-Python loop (the witness
+        #: tier), True = require the native core (raise when
+        #: unavailable/unsupported), or a tier name ("fastcall"/
+        #: "ctypes") to pin the binding.
         self.native = native
         #: Which binding tier actually executed the run (None = the
         #: pure-Python engine) — stamped into sweep metadata.
@@ -492,16 +488,28 @@ class SimEngine:
         return self._report
 
     def _run_native(self) -> bool:
-        """The reference rides its C dispatch core here when the
-        request and configuration allow it. The port has no native core
-        (ROADMAP queue 1 item 9), so auto (``None``) and ``False`` both
-        run the pure-Python witness loop — what the reference does on a
-        host whose library is missing — and an explicit request (True
-        or a tier name) raises instead of degrading silently."""
-        if self.native is None or self.native is False:
+        """Ride the C dispatch core when the request/configuration
+        allows it; False = run the pure-Python witness loop. Auto mode
+        (``native=None``) engages only for sweep-mode (``record=False``)
+        runs — the record path stays on the witness engine unless a
+        caller opts in — and degrades silently when the toolchain or
+        the configuration doesn't support the core; an explicit
+        request (True or a tier name) raises instead."""
+        if self.native is False:
             return False
-        raise RuntimeError(
-            f"native sim core requested but unusable: {NATIVE_MISSING}")
+        if self.native is None and self._recording:
+            return False
+        from pbs_tpu_torch.sim import native_core
+
+        tier = self.native if isinstance(self.native, str) else None
+        reason = native_core.unsupported_reason(self, tier=tier)
+        if reason is not None:
+            if self.native is None:
+                return False
+            raise RuntimeError(
+                f"native sim core requested but unusable: {reason}")
+        self.native_tier_used = native_core.run_native(self, tier=tier)
+        return True
 
     def elapsed_ns(self) -> int:
         return self.clock.now_ns() - self._start_ns

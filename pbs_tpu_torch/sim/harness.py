@@ -19,11 +19,11 @@ from pbs_tpu_torch.utils.clock import SEC
 # automatically inside the regression gate.
 DEFAULT_POLICIES = tuple(POLICIES)
 
-#: Policies the reference's native dispatch core implements — the
-#: sweep-hot subset. compare() resolves a table-wide ``native`` request
-#: per policy against this list, as the reference does; the port has no
-#: native core (ROADMAP queue 1 item 9), so a request for one of these
-#: rows raises (``engine.NATIVE_MISSING``).
+#: Policies the native dispatch core implements — the sweep-hot
+#: subset. compare() resolves a table-wide ``native`` request per policy
+#: against this list, so ``pbst-torch sim --policy all --native``
+#: accelerates the hot rows instead of refusing the whole table over
+#: credit2/sedf/arinc653.
 NATIVE_POLICIES = ("credit", "feedback", "atc")
 
 
@@ -41,7 +41,7 @@ def run_policy(
     """One simulated run; returns the engine's metrics report.
     ``keep_lines=False`` streams the trace (digest + optional file only)
     to bound memory on long horizons. ``native`` follows the SimEngine
-    contract; the tier that ran ("python" in the port) is stamped into
+    contract; the tier that ran is stamped into
     the report as ``native_tier`` — provenance the trace digest
     deliberately does not cover."""
     eng = SimEngine(
@@ -67,8 +67,9 @@ def compare(
 
     ``trace_prefix`` writes one JSONL per policy to
     ``<prefix>.<policy>.jsonl``. A truthy ``native`` applies to the
-    policies the reference's C core implements (``NATIVE_POLICIES``),
-    which raise in the port; the rest run the witness engine.
+    policies the C core implements (``NATIVE_POLICIES``); the rest run
+    the witness engine — their reports are what they always were, and
+    the hot rows' digests are tier-invariant by the equivalence gate.
     """
     return {
         "workload": workload,

@@ -23,8 +23,8 @@ Workers use the ``spawn`` start method: children import only the
 torch-free sim stack (a fork of a process whose torch or CUDA state is
 initialized would inherit its threads).
 
-The native sim core is not ported (ROADMAP queue 1 item 9): every cell
-runs the Python witness engine, and :func:`native_stamp` says so.
+Cells ride the native sim core where it builds and the configuration
+allows (``SimEngine``'s contract); :func:`native_stamp` says which tier.
 """
 
 from __future__ import annotations
@@ -129,20 +129,21 @@ def build_grid(
 
 #: Result-metadata keys stamped by run_cell but kept OUTSIDE the
 #: sweep_digest payload: which binding tier executed a cell is host
-#: provenance, not behavior, so golden digests (tuned-profile check
-#: blocks) verify byte-stably on any tier — the port's Python tier
-#: reproduces the digests the reference recorded on its native one.
+#: provenance, not behavior — the cross-tier equivalence gate
+#: (tests/test_torch_native_sim.py) is what makes stripping it sound,
+#: and golden digests (tuned-profile check blocks) verify byte-stably on
+#: any tier, with or without a toolchain.
 META_KEYS = ("native_tier", "native_available")
 
 
 def native_stamp() -> dict:
     """The sweep-level native provenance block (``pbst-torch tune``
-    reports, ``pbst-torch sim`` output), in the reference's shape: the
-    native sim core is never available in the port."""
-    from pbs_tpu_torch.sim.engine import NATIVE_MISSING
+    reports, ``pbst-torch sim`` output): availability + binding tier of
+    the native sim core, with the cached failure reason when it's
+    off."""
+    from pbs_tpu_torch.sim import native_core
 
-    return {"native_available": False, "native_tier": None,
-            "native_error": NATIVE_MISSING}
+    return native_core.stamp()
 
 
 def run_cell(cell: SweepCell, base_seed: int = 0,
@@ -150,8 +151,9 @@ def run_cell(cell: SweepCell, base_seed: int = 0,
     """One sweep cell: a sweep-mode (``record=False``) engine run
     reduced to the score-relevant metrics. Every float is pre-rounded,
     so the report is byte-stable under ``json.dumps``. ``native``
-    follows the SimEngine contract; the tier that actually ran is
-    stamped into the report's ``META_KEYS``."""
+    follows the SimEngine contract (None = auto: ride the C dispatch
+    core when available, Python witness otherwise); the tier that
+    actually ran is stamped into the report's ``META_KEYS``."""
     from pbs_tpu_torch.sim.engine import SimEngine
 
     seed = cell_seed(cell, base_seed)

@@ -102,14 +102,18 @@ def test_sample_windows_are_the_reference_windows(corpus):
 
 
 def test_gather_matches_the_reference_gather(corpus):
-    """The port's numpy gather against the reference's (its native
-    ``pbst_gather_rows`` where the library is built, else its numpy
-    fallback)."""
-    ds, ref, _ = corpus
-    assert ds._nat is None  # no native runtime in the port yet
+    """The port's gather (its native ``pbst_gather_rows`` where the
+    library builds) against the reference's, and against the numpy
+    gather."""
+    from pbs_tpu_torch.runtime import native as port_native
+
+    ds, ref, toks = corpus
+    assert (ds._nat is not None) == port_native.available()
     starts = np.array([0, 17, 9_000], dtype=np.int64)
     np.testing.assert_array_equal(ds._gather(starts, 50),
                                   ref._gather(starts, 50))
+    np.testing.assert_array_equal(
+        ds._gather(starts, 50), np.stack([toks[s:s + 50] for s in starts]))
 
 
 def test_gather_bounds_checked(corpus):

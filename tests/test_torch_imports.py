@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -60,6 +61,45 @@ def test_no_jax_or_reference_import(path):
     # Exact top-level comparison: "pbs_tpu_torch" starts with "pbs_tpu".
     bad = [(ln, top) for ln, top in _imported_tops(path) if top in FORBIDDEN]
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+#: A path into the JAX package's native directory (``native/...``).
+_NATIVE_DIR = re.compile(r"(?<![\w])native/")
+
+
+def _native_dir_refs(path: Path) -> list[tuple[int, str]]:
+    """(line, text) of every mention of the reference's ``native/``
+    directory, and (Python) of every path join onto ``"native"``."""
+    text = path.read_text()
+    bad = [(i, ln.strip()) for i, ln in enumerate(text.splitlines(), 1)
+           if _NATIVE_DIR.search(ln)]
+    if path.suffix == ".py":
+        for node in ast.walk(ast.parse(text, filename=str(path))):
+            if (isinstance(node, ast.Call)
+                    and getattr(node.func, "attr", None) == "join"
+                    and any(isinstance(a, ast.Constant) and a.value == "native"
+                            for a in node.args)):
+                bad.append((node.lineno, "join onto 'native'"))
+    return bad
+
+
+@pytest.mark.parametrize(
+    "path", _port_files() + sorted(PORT.rglob("*.cc")),
+    ids=lambda p: str(p.relative_to(REPO)))
+def test_no_port_file_names_the_reference_native_dir(path):
+    """The port builds its runtime from its own copies under
+    ``runtime/csrc/``: it never loads, builds or names the JAX package's
+    ``native/`` directory."""
+    bad = _native_dir_refs(path)
+    assert not bad, f"{path.relative_to(REPO)} names native/: {bad}"
+
+
+def test_native_dir_rule_catches_a_reference():
+    probe = PORT / "runtime" / "native.py"
+    assert _native_dir_refs(probe) == []
+    assert _NATIVE_DIR.search("make -C native ") is None
+    assert _NATIVE_DIR.search('"native/pbst_runtime.cc"')
+    assert not _NATIVE_DIR.search("runtime/csrc/pbst_runtime.cc")
 
 
 def test_prefix_check_is_exact():

@@ -482,10 +482,26 @@ def test_knob_case_twin(case, tmp_path):
     _twin(case, tmp_path)
 
 
-def test_channel_snapshot_never_tears_under_live_writer(tmp_path):
+@pytest.mark.parametrize("tier", [False, "ctypes", True],
+                         ids=["python", "ctypes", "native"])
+def test_channel_snapshot_never_tears_under_live_writer(tmp_path, tier):
     """The reference's soak, shortened: a writer pushing band updates
     while a reader snapshots; every snapshot is one pushed state and
-    the generation is monotone."""
+    the generation is monotone. The writer also publishes to a ledger
+    on each of its tiers between pushes, as a partition does, so the
+    threads interleave as each tier lets them (ctypes releases the GIL
+    inside C, fastcall does not); that ledger never tears either."""
+    import numpy as np
+
+    from pbs_tpu_torch.runtime import native
+    from pbs_tpu_torch.telemetry.counters import NUM_COUNTERS
+    from pbs_tpu_torch.telemetry.ledger import Ledger
+
+    if tier and not native.available():
+        pytest.skip(f"native runtime unavailable: "
+                    f"{native.unavailable_reason()}")
+    led = Ledger(1, native=tier)
+    one = np.ones(NUM_COUNTERS, dtype=np.uint64)
     path = str(tmp_path / "knobs.led")
     w = PORT.channel.KnobChannel.create(path)
     ro = PORT.channel.KnobChannel.attach(path)
@@ -496,6 +512,7 @@ def test_channel_snapshot_never_tears_under_live_writer(tmp_path):
         for lo, hi in pairs:
             w.push({"sched.feedback.tslice_min_us": lo,
                     "sched.feedback.tslice_max_us": hi})
+            led.add_many(0, one)
         stop.set()
 
     legal = {(100, 1_100), *pairs}
@@ -510,9 +527,12 @@ def test_channel_snapshot_never_tears_under_live_writer(tmp_path):
             torn.append((gen, pair))
         assert gen >= last_gen
         last_gen = gen
+        row = led.snapshot(0)
+        assert (row == row[0]).all()
     t.join()
     assert torn == []
     assert ro.generation == len(pairs)
+    assert int(led.snapshot(0)[0]) == len(pairs)
 
 
 def _scoped_reference_channel(path):
@@ -733,8 +753,7 @@ def test_tune_search_waits_for_the_simulator():
     params = dict(REF.tune.QUICK_SPACE["feedback"][0])
     got = PORT.tune.check_block("stable", "feedback", params, n_reps=1)
     want = REF.tune.check_block("stable", "feedback", params, n_reps=1)
-    assert got.pop("tier") == "python"
-    want.pop("tier")
+    assert got.pop("tier") == want.pop("tier")
     assert got == want
     assert PORT.tune.TUNED_WORKLOADS == REF.tune.TUNED_WORKLOADS
     assert PORT.tune.PROFILE_VERSION == REF.tune.PROFILE_VERSION

@@ -232,7 +232,11 @@ def test_written_profile_stays_out_of_the_package(phase):
     assert os.path.exists(path)
     prof = tune.load_profile(chip_smoke.RECORD_WORKLOAD, phase["tmp"])
     assert prof["params"] == phase["tuned"]["frontier"]["winner"]["params"]
-    assert prof["check"]["tier"] == "python"
+    from pbs_tpu_torch.sim import native_core
+
+    # Sweep-mode scoring rides the native sim core where it builds.
+    assert prof["check"]["tier"] == (native_core.available_tier()
+                                     or "python")
 
 
 def test_a_check_that_fails_stops_the_phase(tmp_path):

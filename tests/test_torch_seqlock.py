@@ -9,7 +9,11 @@ their wait by time (``utils.seqlock.read_attempts``), where the
 reference bounds it by a spin count. These cases hold a write open for
 several switch intervals on purpose, and check that the reader returns
 the written state, that a version left odd with no writer still raises
-with the reference's words, and that threaded soaks never tear.
+with the reference's words, and that threaded soaks never tear. The
+ledger cases run on each of the ledger's tiers: the Python stores, the
+ctypes calls (which release the GIL inside C) and the fastcall module
+(which does not); the native snapshot retries its C read on the same
+time-bounded schedule.
 """
 
 from __future__ import annotations
@@ -32,6 +36,20 @@ from pbs_tpu_torch.utils.seqlock import SNAPSHOT_WAIT_S
 HOLD_S = max(0.05, 10 * sys.getswitchinterval())
 
 _VERSION = 2  # the knob channel's seqlock word
+
+#: The ledger's tiers: Python, ctypes, and fastcall where it builds.
+TIERS = [False, "ctypes", True]
+TIER_IDS = ["python", "ctypes", "native"]
+
+
+def _ledger(n: int, tier) -> Ledger:
+    if tier:
+        from pbs_tpu_torch.runtime import native
+
+        if not native.available():
+            pytest.skip(f"native runtime unavailable: "
+                        f"{native.unavailable_reason()}")
+    return Ledger(n, native=tier)
 
 
 def _held_channel_push(ch: KnobChannel, name: str, value: int,
@@ -88,10 +106,11 @@ def _held_ledger_add(led: Ledger, slot: int, delta: np.ndarray,
     led._end(slot)
 
 
+@pytest.mark.parametrize("tier", TIERS, ids=TIER_IDS)
 @pytest.mark.parametrize("many", [False, True], ids=["snapshot",
                                                      "snapshot_many"])
-def test_ledger_snapshot_waits_out_a_held_write(many):
-    led = Ledger(4)
+def test_ledger_snapshot_waits_out_a_held_write(many, tier):
+    led = _ledger(4, tier)
     led.add_many(1, np.full(NUM_COUNTERS, 3, dtype=np.uint64))
     delta = np.arange(1, NUM_COUNTERS + 1, dtype=np.uint64)
     opened = threading.Event()
@@ -105,8 +124,9 @@ def test_ledger_snapshot_waits_out_a_held_write(many):
     np.testing.assert_array_equal(got, delta + 3)
 
 
-def test_ledger_snapshots_raise_on_a_wedged_slot():
-    led = Ledger(2)
+@pytest.mark.parametrize("tier", TIERS, ids=TIER_IDS)
+def test_ledger_snapshots_raise_on_a_wedged_slot(tier):
+    led = _ledger(2, tier)
     led._begin(1)
     with pytest.raises(RuntimeError,
                        match="ledger slot 1: snapshot retries exhausted"):
@@ -120,12 +140,13 @@ def test_ledger_snapshots_raise_on_a_wedged_slot():
                                   np.zeros(NUM_COUNTERS, dtype=np.uint64))
 
 
-def test_ledger_snapshots_never_tear_under_live_writer():
+@pytest.mark.parametrize("tier", TIERS, ids=TIER_IDS)
+def test_ledger_snapshots_never_tear_under_live_writer(tier):
     """The channel soak's twin for the ledger: a writer adds the same
     delta to every counter of two slots in a loop while the reader
     snapshots, with the switch interval cut so the writer is preempted
     mid-write often; a torn read would show unequal counters."""
-    led = Ledger(3)
+    led = _ledger(3, tier)
     n_writes = 400
     stop = threading.Event()
     interval = sys.getswitchinterval()

@@ -1,11 +1,11 @@
 """``pbs_tpu_torch.obs`` against ``pbs_tpu.obs``: trace rings, request
 spans and latency histograms, word for word.
 
-The port carries the pure-Python ring and ledger tiers. The reference
-loads its native C tier when it is built, and its records are
-byte-identical to its Python path, so every ring and histogram here is
-compared against the reference both as it runs (``native=None``) and
-pinned to Python (``native=False``).
+Both packages load their native C tier when it builds, and their
+records are byte-identical to their Python paths, so every ring and
+histogram here is compared against the reference both as it runs
+(``native=None``) and pinned to Python (``native=False``); the tiers
+against each other are ``tests/test_torch_native.py``.
 """
 
 from __future__ import annotations
@@ -129,12 +129,21 @@ def test_file_backed_histograms_and_attach(tmp_path):
                 == open(paths["ref"] + suffix, "rb").read())
 
 
-def test_native_tiers_are_refused():
-    for native in (True, "ctypes"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            port_trace.TraceBuffer(8, native=native)
-        with pytest.raises(NotImplementedError, match="item 9"):
-            port_spans.LatencyHistograms(native=native)
+def test_native_tiers_are_refused(monkeypatch):
+    """``native=True`` is refused, naming the cached reason, when the
+    library cannot load; ``native=None`` then degrades to the Python
+    tier, as the reference's does."""
+    from pbs_tpu_torch.runtime import native as port_native
+
+    monkeypatch.setattr(port_native, "load", lambda: None)
+    monkeypatch.setattr(port_native, "_lib", None)
+    monkeypatch.setattr(port_native, "_fail_reason", "g++ exited 1: boom")
+    with pytest.raises(RuntimeError, match="exited 1: boom"):
+        port_trace.TraceBuffer(8, native=True)
+    with pytest.raises(RuntimeError, match="exited 1: boom"):
+        port_spans.LatencyHistograms(native=True)
+    assert port_trace.TraceBuffer(8).tier == "python"
+    assert port_spans.LatencyHistograms().ledger.tier == "python"
 
 
 # -- trace rings --------------------------------------------------------

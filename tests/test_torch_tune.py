@@ -4,8 +4,8 @@ Every case of ``tests/test_tune.py`` is written as a function of a
 package namespace and runs on both packages with equal observables.
 Then direct cross-package checks: the five copied tuned profiles pass
 the port's ``check_profile`` to their recorded digests (recorded on the
-reference's native tier, verified on the port's Python tier: the tier
-is provenance only); ``successive_halving`` over ``QUICK_SPACE`` gives
+reference's native tier, verified on the port's Python, ctypes and
+fastcall tiers: the tier is provenance only); ``successive_halving`` over ``QUICK_SPACE`` gives
 the reference's frontier for every catalog workload; written profiles
 are byte-identical; and ``pbst-torch tune --check --quick --json``
 prints the reference's document apart from the ``native`` stamp.
@@ -256,16 +256,32 @@ def test_full_space_halving_deterministic_across_workers_twin():
 # -- across packages ---------------------------------------------------------
 
 
+def _require_sim_tier(tier: str) -> None:
+    """Skip, naming the cached reason, where the toolchain cannot give
+    the port's native sim core this binding tier."""
+    from pbs_tpu_torch.runtime import native as port_native
+    from pbs_tpu_torch.sim import native_core
+
+    if native_core.available_tier(tier) is None:
+        pytest.skip(f"native sim tier {tier} unavailable: "
+                    f"{port_native.last_failure()}")
+
+
+@pytest.mark.parametrize("tier", [False, "ctypes", "fastcall"])
 @pytest.mark.parametrize("workload", list(REF.tune.TUNED_WORKLOADS))
-def test_copied_profile_passes_the_port_s_check(workload):
+def test_copied_profile_passes_the_port_s_check(workload, tier):
+    """Each copied profile's check digest replays on the port's Python
+    witness tier and on both of its native binding tiers."""
+    if tier:
+        _require_sim_tier(tier)
     with open(PORT.tune.profile_path(workload), "rb") as a, \
             open(REF.tune.profile_path(workload), "rb") as b:
         assert a.read() == b.read()
-    got = PORT.tune.check_profile(workload)
+    got = PORT.tune.check_profile(workload, native=tier)
     assert got["ok"], got
     assert got["got_digest"] == PORT.tune.load_profile(
         workload)["check"]["digest"]
-    assert got["verified_tier"] == "python"
+    assert got["verified_tier"] == (tier or "python")
     want = REF.tune.check_profile(workload)
     for v in (got, want):
         v.pop("verified_tier")
@@ -311,8 +327,11 @@ def test_cli_tune_check_quick_json_equals_the_reference(capsys):
         docs.append(json.loads(capsys.readouterr().out))
     stamp = docs[1].pop("native")
     docs[0].pop("native")
-    assert stamp["native_available"] is False and "item 9" in \
-        stamp["native_error"]
+    from pbs_tpu_torch.runtime import native as port_native
+
+    assert stamp["native_available"] is port_native.available()
+    assert stamp["native_tier"] == (port_native.tier()
+                                    if port_native.available() else None)
     for v in (*docs[0]["profiles"], *docs[1]["profiles"]):
         assert v.pop("verified_tier") in ("python", "fastcall", "ctypes")
     assert docs[1] == docs[0]
