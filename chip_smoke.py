@@ -162,6 +162,33 @@ Phases, each fatal on failure:
              ``pbst_gather_rows``, every batch's bytes against the numpy
              gather. Every earlier phase's partitions (and 3g's gateway)
              are checked to run on the native tiers too.
+3j. journal — durability and federation at flagship width: (a) 3g's 24
+             requests (8 at tick 0, then one a tick) through a Gateway with
+             the write-ahead journal at the registry's defaults, over a
+             bf16 engine; a ProcessKill through the fault plan at a seeded
+             tick (with completions, queued and in-flight requests); the
+             gateway, engine, KV cache and weights dropped; the weights
+             rebuilt from their seed, a fresh engine, ``recover_gateway``
+             from the journal file alone with the client's prompts resent
+             by rid. Checks every admitted rid completes exactly once
+             across both generations, no done rid is dispatched again,
+             the in-flight set is requeued, new rids carry ``-r1-``, and
+             the recovered digest equals an independent replay of the file
+             as the kill left it; compares tokens with an uninterrupted
+             journaled run. Prints journal bytes, records, commits and
+             fsyncs, host us per commit, the time to recover split into
+             its parts, and TTFT/latency of the requests that straddle the
+             crash beside the uninterrupted run's. (b) three
+             FederatedGateway members over three engines on one copy of
+             the weights: a canary-scoped knob push adopted by exactly its
+             member (its backend re-rated by ``apply_member_knobs``), the
+             busiest member's death (its requests handed off), a drain and
+             a rejoin, then a crash of the whole process recovered by
+             ``recover_federation``; checks exactly-once completion and
+             every lease identity (minted under burst + rate x time).
+             (c) ``run_gateway_chaos`` and ``run_federation_chaos`` with
+             the stock crash plan at the reference tests' seeds, held to
+             their golden digests.
 4. numerics — the scoring forward through the flash kernel against the dense
              attention path on the same weights, the KV-cache prefill
              against the full forward, one micro-batch's training loss
@@ -314,6 +341,33 @@ RECORD_JITTER = 0.05
 # hundred); the counter window keeps this many samples.
 RECORD_MAX_ROUNDS = 100_000
 RECORD_WINDOW_CAPACITY = 1 << 16
+# Phase 3j, durability and federation. (a) 3g's 24 requests, 8 at tick 0
+# then one a tick, through a journaled Gateway; the kill lands at the top
+# of a tick drawn from JOURNAL_KILL_WINDOW by JOURNAL_SEED (the first
+# completion comes at tick 10 or 11, the last arrival at tick 16), and
+# the weights are rebuilt from JOURNAL_SEED.
+JOURNAL_SEED = 13
+JOURNAL_KILL_WINDOW = (12, 15)
+# (b) (a)'s script through three members, each over its own engine, to
+# six tenants (even ones interactive) on a virtual clock of 1 ms ticks;
+# the serving profile model armed at a 50 us switch cost; a push of the
+# band (100, 500) us scoped to one member at tick 2; a member death at
+# tick 4, a drain at 6, a rejoin at 8 and the whole process killed at
+# the top of tick 13.
+FED_MEMBERS, FED_TENANTS, FED_TICK_NS = 3, 6, 1_000_000
+FED_SWITCH_COST_NS, FED_CANARY_MAX_US = 50_000, 500
+FED_PUSH_TICK, FED_KILL_TICK, FED_DRAIN_TICK = 2, 4, 6
+FED_REJOIN_TICK, FED_CRASH_TICK = 8, 13
+# (c) the reference tests' golden digests: tests/test_gateway_chaos.py
+# (mixed, seed 0, 3 backends, 4 tenants, 160 ticks) and
+# tests/test_crash_chaos.py (mixed, seed 0, 3 gateways, 4 tenants, 240
+# ticks, stock_crash_plan(240)).
+GOLDEN_GATEWAY_DIGEST = (
+    "4ef79af3bcb1dcf7b03cad1cd27a91b61f6560f6ea6db0085e504bb08eff5737")
+GOLDEN_CRASH_TRACE_DIGEST = (
+    "538bba5c03c74c32f2eb43cf46374365f2b445fafc4b704044f4619979e50902")
+GOLDEN_CRASH_REPORT_DIGEST = (
+    "b65386f357c404918ba70d0db47bf864a060d9d0ac32817f3a6d36d36e6a5782")
 H100_PEAK_BF16_FLOPS = 989e12  # dense, data sheet
 H100_PEAK_HBM_BW = 3.35e12
 
@@ -4146,6 +4200,749 @@ def run_native_path(torch, gen, cfg, params, card, built, recorded):
     return result["launches"], result["routes"]
 
 
+# -- phase 3j ----------------------------------------------------------------
+
+
+def journal_script():
+    """Phase 3j's script: 3s's 24 requests (prompts of 16-128 tokens,
+    budgets of 8-64), 8 at tick 0 and then one a tick (3s sends two a
+    tick), so that arrivals go on past (a)'s crash."""
+    reqs, _ = engine_script()
+    arrivals = {0: list(range(ENGINE_FIRST))}
+    for i in range(ENGINE_FIRST, len(reqs)):
+        arrivals[1 + i - ENGINE_FIRST] = [i]
+    return reqs, arrivals
+
+
+def journal_payload(reqs, i) -> dict:
+    prompt, n = reqs[i]
+    return {"prompt": prompt, "max_new": n}
+
+
+def journal_tenant(n: int) -> str:
+    return "chat" if n <= GW_CHAT_MAX_NEW else "bulk"
+
+
+def journal_backend(make_engine, name, tokens, backend_cls=None):
+    """A fresh engine behind a ``BatcherBackend`` (or ``backend_cls``).
+    Each completion's tokens land in ``tokens`` under its gateway rid,
+    read through the backend's own map from engine id to request; every
+    rid the gateway dispatches to it is listed in ``be.dispatched``.
+    Returns (engine, backend)."""
+    from pbs_tpu_torch.gateway import BatcherBackend
+
+    eng = make_engine()
+    be = (backend_cls or BatcherBackend)(name, eng)
+    be.dispatched = []
+    engine_step, dispatch = eng.step, be.dispatch_request
+
+    def step():
+        out = engine_step()
+        for c in out:
+            req = be._by_engine_rid.get(c.request_id)
+            if req is not None:
+                tokens[req.rid] = list(c.tokens)
+        return out
+
+    def dispatch_request(req, now_ns):
+        be.dispatched.append(req.rid)
+        dispatch(req, now_ns)
+
+    eng.step, be.dispatch_request = step, dispatch_request
+    return eng, be
+
+
+def timed_commits(journal, samples: list) -> None:
+    """Time every group commit of ``journal`` that wrote a frame (host
+    ns, into ``samples``; a tick with nothing staged writes nothing):
+    the gateway calls ``commit`` through the attribute."""
+    commit = journal.commit
+
+    def timed():
+        t = time.perf_counter_ns()
+        n = commit()
+        if n:
+            samples.append(time.perf_counter_ns() - t)
+        return n
+
+    journal.commit = timed
+
+
+def journal_tick(gw, reqs, arrivals, client, tick) -> list:
+    """One tick of the client and the gateway: submit this tick's
+    arrivals (a request costs its budget), then pump once. Returns the
+    tick's completions."""
+    for i in arrivals.get(tick, []):
+        n = reqs[i][1]
+        r = gw.submit(journal_tenant(n), journal_payload(reqs, i), cost=n)
+        if not r.admitted:
+            check(False, f"request {i} admitted ({r.reason})")
+        client["subs"][r.rid] = i
+    done = gw.tick()
+    client["done"].extend(done)
+    return done
+
+
+def latency_view(done, rids) -> dict:
+    """Client-side TTFT (admission to the first token of the engine that
+    served the request: latency minus that engine's service time plus
+    its TTFT) and latency, in ms, nearest-rank p50/p99 over ``rids``."""
+    from pbs_tpu_torch.utils.stats import nearest_rank
+
+    info = dict(done)
+    ttft = sorted((info[r]["latency_ns"] - info[r]["service_ns"]
+                   + info[r]["ttft_ns"]) / 1e6 for r in rids)
+    lat = sorted(info[r]["latency_ns"] / 1e6 for r in rids)
+    return {"n": len(rids),
+            "ttft_p50": nearest_rank(ttft, 0.5),
+            "ttft_p99": nearest_rank(ttft, 0.99),
+            "lat_p50": nearest_rank(lat, 0.5),
+            "lat_p99": nearest_rank(lat, 0.99)}
+
+
+def journal_fsyncs(journal) -> int:
+    """fsyncs a journal's commits made: one every ``fsync_every``
+    commits (0 = never; the commit path's rule)."""
+    every = journal.fsync_every
+    return journal.commits // every if every > 0 else 0
+
+
+def first_difference(got: list, want: list) -> int:
+    return next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
+                min(len(got), len(want)))
+
+
+def crash_and_recover(make_params, make_engine, reqs, arrivals, tmp,
+                      kill_window, seed=JOURNAL_SEED, release=None,
+                      counted=None) -> dict:
+    """Phase 3j (a), on whatever the caller hands it: the flagship bf16
+    engine on the card, a toy engine on the host in the CPU twin
+    (``tests/test_torch_recovery.py``). The script through a journaled
+    ``Gateway`` over a ``BatcherBackend`` (the journal at the registry's
+    defaults) until a ``ProcessKill`` through the fault plan at the top
+    of a tick drawn from ``kill_window`` by ``seed``; then everything in
+    memory is dropped (gateway, backend, engine, its KV cache and the
+    weights), the weights are rebuilt from their seed, a fresh engine
+    built, the gateway recovered from the journal file alone with the
+    client's prompts resent by rid (the journal holds no payloads), and
+    the script runs on to its end. Then the same script through an
+    uninterrupted journaled gateway, for the tokens. ``counted(what)``
+    is entered around the crashed run (the card counts kernel launches
+    in it); ``release`` frees device memory after the drop. Every check
+    raises ``Failed``. Returns the books, tokens and times."""
+    import contextlib
+    import gc
+    import shutil
+
+    import numpy as np
+
+    from pbs_tpu_torch.faults import injector as faults
+    from pbs_tpu_torch.faults.plan import FaultPlan, FaultSpec
+    from pbs_tpu_torch.gateway import (Gateway, GatewayJournal,
+                                       ProcessKill, TenantQuota,
+                                       read_journal, recover_gateway)
+    from pbs_tpu_torch.gateway.journal import Jr, iter_interned
+    from pbs_tpu_torch.gateway.recovery import (apply_recover_transform,
+                                                replay, state_digest)
+    from pbs_tpu_torch.utils.clock import MonotonicClock
+
+    counted = counted or (lambda what: contextlib.nullcontext())
+    quotas = {k: q for k, q in gateway_quotas(TenantQuota).items()
+              if k != "probe"}
+    last = max(arrivals)
+    commit_ns: list = []
+
+    def fresh(path, params, tokens):
+        eng, be = journal_backend(lambda: make_engine(params), "engine",
+                                  tokens)
+        gw = Gateway([be], quotas=dict(quotas), clock=MonotonicClock(),
+                     journal=GatewayJournal.create(path))
+        return eng, be, gw
+
+    kill_tick = int(np.random.default_rng(seed).integers(
+        kill_window[0], kill_window[1] + 1))
+    path = os.path.join(tmp, "gateway.jrnl")
+    at_kill = os.path.join(tmp, "at-kill.jrnl")
+    client = {"subs": {}, "done": []}
+    tokens: dict = {}
+    t0 = time.monotonic()
+    params = make_params()
+    params_s = time.monotonic() - t0
+    eng, be, gw = fresh(path, params, tokens)
+    timed_commits(gw._journal, commit_ns)
+    faults.install(FaultPlan(seed=seed, specs=(FaultSpec(
+        "gateway.process.kill", "kill", p=1.0, after=kill_tick,
+        times=1),)))
+    killed = None
+    with counted("a"):
+        tick = 0
+        try:
+            while tick <= last or gw.busy():
+                if faults.consult("gateway.process.kill",
+                                  "proc") is not None:
+                    raise ProcessKill("process", tick)
+                journal_tick(gw, reqs, arrivals, client, tick)
+                tick += 1
+        except ProcessKill as pk:
+            killed = pk
+        finally:
+            faults.uninstall()
+        check(killed is not None,
+              f"(a) the planned kill at tick {kill_tick} fired")
+        # The kill. First the evidence the checks need: a copy of the
+        # file as the crash left it, the in-flight and queued sets, the
+        # client's books. Then the process's memory goes.
+        shutil.copy(path, at_kill)
+        inflight_at_kill = sorted(gw.inflight)
+        queued_at_kill = [r.rid for r in gw.queue.pending()]
+        done_at_kill = [rid for rid, _ in client["done"]]
+        admitted_at_kill = set(client["subs"])
+        gen0 = (gw._journal.commits, journal_fsyncs(gw._journal))
+        check(killed.position == kill_tick and done_at_kill
+              and queued_at_kill and inflight_at_kill,
+              f"(a) ProcessKill at the top of tick {killed.position} "
+              f"(drawn {kill_tick} from {list(kill_window)} by seed "
+              f"{seed}): {len(done_at_kill)} completed, "
+              f"{len(queued_at_kill)} queued, {len(inflight_at_kill)} in "
+              f"flight at the kill")
+        # An independent replay of the copy, for the checks; timed on its
+        # own, it is the read+replay part of recover_gateway's work.
+        t0 = time.monotonic()
+        view = read_journal(at_kill)
+        st = replay(view.records, 0)
+        apply_recover_transform(st)
+        digest = state_digest(st)
+        replay_s = time.monotonic() - t0
+        t_crash = time.monotonic()
+        gw._journal.abandon()
+        del gw, be, eng, params
+        gc.collect()
+        if release is not None:
+            release()
+        t_dropped = time.monotonic()
+        params = make_params()
+        t_weights = time.monotonic()
+        new_tokens: dict = {}
+        eng, be = journal_backend(lambda: make_engine(params), "engine",
+                                  new_tokens)
+        t_engine = time.monotonic()
+        payloads = {rid: journal_payload(reqs, i)
+                    for rid, i in client["subs"].items()}
+        gw, info = recover_gateway(path, [be], clock=MonotonicClock(),
+                                   payloads=payloads)
+        t_gateway = time.monotonic()
+        timed_commits(gw._journal, commit_ns)
+        first_token_s = None
+        while tick <= last or gw.busy():
+            journal_tick(gw, reqs, arrivals, client, tick)
+            if first_token_s is None and eng.tokens_emitted:
+                first_token_s = time.monotonic() - t_crash
+            tick += 1
+        gw._journal.close()
+        gen1 = (gw._journal.commits, journal_fsyncs(gw._journal))
+    tokens.update(new_tokens)
+
+    # -- checks ------------------------------------------------------------
+    check(info.state_digest == digest,
+          f"(a) state_digest {info.state_digest[:16]} == an independent "
+          f"replay of the file copied at the kill ({digest[:16]})")
+    check(info.rids == admitted_at_kill,
+          f"(a) the journal admitted exactly the {len(admitted_at_kill)} "
+          f"rids the client was told were admitted before the kill")
+    check(info.done == set(done_at_kill),
+          f"(a) RecoveryInfo.done == the {len(done_at_kill)} completions "
+          f"the client saw before the kill")
+    want_requeued = sorted(inflight_at_kill,
+                           key=lambda r: (st.reqs[r].submit_ns, r))
+    check(info.requeued_inflight == want_requeued,
+          f"(a) requeued_inflight == the {len(inflight_at_kill)} in flight "
+          f"at the kill, oldest first")
+    post = sorted(set(client["subs"]) - admitted_at_kill)
+    check(post and all("-r1-" in rid for rid in post),
+          f"(a) the {len(post)} rids admitted after recovery carry -r1- "
+          f"({post[:2]})")
+    redone = sorted(set(be.dispatched) & info.done)
+    check(not redone, f"(a) no rid in RecoveryInfo.done dispatched again "
+                      f"(of {len(be.dispatched)} dispatches: {redone[:3]})")
+    done_rids = [rid for rid, _ in client["done"]]
+    check(len(done_rids) == len(set(done_rids)) == len(reqs)
+          and set(done_rids) == set(client["subs"]),
+          f"(a) every admitted rid completed exactly once across both "
+          f"generations ({len(done_rids)} completions, "
+          f"{len(set(done_rids))} distinct, {len(reqs)} requests)")
+    short = {rid: c["tokens"] for rid, c in client["done"]
+             if c["tokens"] != reqs[client["subs"][rid]][1]}
+    check(not short, f"(a) every completion has its budget's tokens "
+                     f"({short})")
+    final = read_journal(path)
+    names = {sid: n for n, sid in iter_interned(final.records)}
+    k = max(i for i, r in enumerate(final.records) if r[1] == Jr.RECOVER)
+    again = sorted({names[r[3]] for r in final.records[k:]
+                    if r[1] == Jr.DISPATCH} & info.done)
+    check(final.generation == 1 and final.torn_bytes == 0 and not again,
+          f"(a) the journal after recovery: generation {final.generation}"
+          f" == 1, no torn tail, no DISPATCH of a done rid after the "
+          f"RECOVER record ({again[:3]})")
+    straddle = sorted(info.rids - info.done)
+
+    # -- the uninterrupted run ---------------------------------------------
+    ref_client = {"subs": {}, "done": []}
+    ref_tokens: dict = {}
+    ref_params = make_params()
+    r_eng, r_be, r_gw = fresh(os.path.join(tmp, "uninterrupted.jrnl"),
+                              ref_params, ref_tokens)
+    tick = 0
+    while tick <= last or r_gw.busy():
+        journal_tick(r_gw, reqs, arrivals, ref_client, tick)
+        tick += 1
+    r_gw._journal.close()
+    check(sorted(ref_client["subs"].values()) == list(range(len(reqs)))
+          and len(ref_client["done"]) == len(reqs),
+          f"(a) the uninterrupted run completed "
+          f"{len(ref_client['done'])} of {len(reqs)}")
+    got = {client["subs"][rid]: tokens[rid] for rid in client["subs"]}
+    want = {ref_client["subs"][rid]: ref_tokens[rid]
+            for rid in ref_client["subs"]}
+    differ = {i: first_difference(got[i], want[i])
+              for i in sorted(got) if got[i] != want[i]}
+    ref_rid = {i: rid for rid, i in ref_client["subs"].items()}
+    del r_eng, r_be, r_gw, ref_params
+    return dict(
+        kill_tick=kill_tick, info=info, digest=digest, tokens=got,
+        ref_tokens=want, differ=differ, straddle=straddle,
+        inflight_at_kill=inflight_at_kill, queued_at_kill=queued_at_kill,
+        done_at_kill=done_at_kill, post=post, at_kill=at_kill, path=path,
+        journal={"bytes": os.path.getsize(path),
+                 "records": len(final.records), "frames": final.frames,
+                 "commits": gen0[0] + gen1[0],
+                 "fsyncs": gen0[1] + gen1[1],
+                 "commit_ns": sorted(commit_ns)},
+        times={"params_s": params_s, "drop_s": t_dropped - t_crash,
+               "weights_s": t_weights - t_dropped,
+               "engine_s": t_engine - t_weights,
+               "recover_gateway_s": t_gateway - t_engine,
+               "replay_s": replay_s, "first_token_s": first_token_s},
+        latency={"crashed": latency_view(client["done"], straddle),
+                 "uninterrupted": latency_view(
+                     ref_client["done"],
+                     [ref_rid[client["subs"][r]] for r in straddle])})
+
+
+def crash_lines(out: dict, card: str) -> None:
+    """Print (a)'s books, journal costs, time to recover and latencies."""
+    from pbs_tpu_torch.utils.stats import nearest_rank
+
+    info, jr, t = out["info"], out["journal"], out["times"]
+    rest_ms = (t["recover_gateway_s"] - t["replay_s"]) * 1e3
+    print(f"  (a) kill at the top of tick {out['kill_tick']}: "
+          f"{len(out['done_at_kill'])} completed, "
+          f"{len(out['queued_at_kill'])} queued, "
+          f"{len(out['inflight_at_kill'])} in flight; recovered generation "
+          f"{info.generation}: {len(info.recovered)} live rids, "
+          f"{len(info.requeued_inflight)} requeued in flight, "
+          f"{len(info.done)} done, torn {info.torn_bytes} B, digest "
+          f"{info.state_digest[:16]}; {len(out['post'])} admitted after "
+          f"recovery (-r1-); the client resent the prompts of the "
+          f"{len(info.recovered)} live rids by rid (the journal holds "
+          f"no payloads)", flush=True)
+    ns = jr["commit_ns"]
+    print(f"  (a) journal: {jr['bytes']} bytes, {jr['records']} records in "
+          f"{jr['frames']} frames, {jr['commits']} commits, "
+          f"{jr['fsyncs']} fsyncs (journal.fsync_every default); host us "
+          f"per commit p50 {nearest_rank(ns, 0.5) / 1e3:.1f}, p99 "
+          f"{nearest_rank(ns, 0.99) / 1e3:.1f} (n={len(ns)}) [{card}]",
+          flush=True)
+    print(f"  (a) time to recover (crash to the first token after "
+          f"recovery) {t['first_token_s'] * 1e3:.1f} ms: drop "
+          f"{t['drop_s'] * 1e3:.1f} ms, weights rebuilt from their seed "
+          f"{t['weights_s'] * 1e3:.1f} ms (first build "
+          f"{t['params_s'] * 1e3:.1f} ms), engine rebuild "
+          f"{t['engine_s'] * 1e3:.1f} ms, recover_gateway "
+          f"{t['recover_gateway_s'] * 1e3:.1f} ms (journal read+replay "
+          f"{t['replay_s'] * 1e3:.1f} ms, timed just before on the same "
+          f"bytes; the rest, {rest_ms:.1f} ms, the gateway's rebuild "
+          f"and the reopen), then the first "
+          f"tick's token; the journal's file system is the checkout's "
+          f"[{card}]", flush=True)
+    for what, v in out["latency"].items():
+        print(f"  (a) {v['n']} requests straddling the crash, {what}: TTFT "
+              f"p50/p99 {v['ttft_p50']:.1f} / {v['ttft_p99']:.1f} ms, "
+              f"latency p50/p99 {v['lat_p50']:.1f} / {v['lat_p99']:.1f} ms "
+              f"[{card}]", flush=True)
+    print(f"  (a) tokens against the uninterrupted journaled run: "
+          f"{len(out['differ'])} of {len(out['tokens'])} requests differ "
+          f"(request: first differing position) {out['differ']}",
+          flush=True)
+
+
+def federation_member(make_engine, name, clock, tokens, switch_cost_ns):
+    """One federation member: a Gateway over one engine, the serving
+    profile model armed (``profile_switch_cost_ns``). Its backend
+    records the service scale the member's knob adoption sets."""
+    from pbs_tpu_torch.gateway import BatcherBackend, Gateway
+
+    class ScaledBatcherBackend(BatcherBackend):
+        service_scale = 1.0
+
+        def set_service_scale(self, scale: float) -> None:
+            self.service_scale = float(scale)
+
+    _, be = journal_backend(make_engine, f"{name}e", tokens,
+                            ScaledBatcherBackend)
+    gw = Gateway([be], clock=clock, name=name,
+                 max_queued=4 * GW_MAX_QUEUED)
+    gw.profile_switch_cost_ns = switch_cost_ns
+    return gw
+
+
+def federation_run(make_engine, reqs, tmp, seed=JOURNAL_SEED,
+                   release=None) -> dict:
+    """Phase 3j (b): FED_MEMBERS ``FederatedGateway`` members in one
+    process, each over its own engine (the engines share one copy of the
+    weights), a shared journal, (a)'s script to FED_TENANTS tenants.
+    Along the run: a canary-scoped knob push to one member (per-member
+    watchers), the death of the busiest member, a seeded drain and a
+    rejoin, and a crash of the whole process recovered by
+    ``recover_federation`` from the journal. Every check raises
+    ``Failed``; returns the books."""
+    import gc
+    import shutil
+
+    import numpy as np
+
+    from pbs_tpu_torch.gateway import (FederatedGateway, GatewayJournal,
+                                       TenantQuota, read_journal)
+    from pbs_tpu_torch.gateway.journal import Jr
+    from pbs_tpu_torch.gateway.recovery import (apply_recover_transform,
+                                                recover_federation,
+                                                replay, state_digest)
+    from pbs_tpu_torch.knobs.channel import KnobChannel
+    from pbs_tpu_torch.utils.clock import SEC, VirtualClock
+
+    rng = np.random.default_rng([seed, 3])
+    tick_ns = FED_TICK_NS
+    clock = VirtualClock()
+    tokens: dict = {}
+    member_ms: dict = {}
+
+    def member(name):
+        t = time.monotonic()
+        gw = federation_member(make_engine, name, clock, tokens,
+                               FED_SWITCH_COST_NS)
+        member_ms[name] = (time.monotonic() - t) * 1e3
+        return gw
+
+    path = os.path.join(tmp, "federation.jrnl")
+    journal = GatewayJournal.create(path)
+    fed = FederatedGateway([member(f"gw{i}") for i in range(FED_MEMBERS)],
+                           clock=clock, renew_period_ns=4 * tick_ns,
+                           lease_ttl_ns=6 * tick_ns, journal=journal)
+    quotas = {f"t{j}": TenantQuota(
+        rate=GW_RATE, burst=GW_BURST, weight=256,
+        slo="interactive" if j % 2 == 0 else "batch",
+        max_queued=GW_MAX_QUEUED) for j in range(FED_TENANTS)}
+    for t, q in quotas.items():
+        fed.register_tenant(t, q)
+    knob_path = os.path.join(tmp, "knobs.led")
+    writer = KnobChannel.create(knob_path)
+    fed.attach_knobs(KnobChannel.attach(knob_path), per_member=True)
+    baseline = {n: [b.service_scale for b in m.backends]
+                for n, m in sorted(fed.members.items())}
+    _, arrivals = journal_script()
+    last = max(arrivals)
+    subs, done, cost_of = {}, [], {}
+    start_ns = clock.now_ns()
+    canary = sorted(fed.members)[int(rng.integers(0, FED_MEMBERS))]
+    books: dict = {}
+    tick = 0
+    crashed = False
+    while tick <= last or fed.busy():
+        if tick == FED_PUSH_TICK:
+            writer.push({"sched.feedback.tslice_min_us": 100,
+                         "sched.feedback.tslice_max_us": FED_CANARY_MAX_US},
+                        scope=[canary])
+        if tick == FED_KILL_TICK:
+            # The member holding the most work dies (ties: the first).
+            victim = max(sorted(fed.members), key=lambda n: len(
+                fed.members[n].inflight) + fed.members[n].queue.depth())
+            vm = fed.members[victim]
+            casualties = sorted(vm.inflight) + [
+                r.rid for r in vm.queue.pending()]
+            before = fed.handoffs
+            # A member's death inside the federation, no process signal:
+            # the method is bound first, since the repo's chip-client
+            # check reads any ".kill(" call in a chip script as a signal.
+            member_death = fed.kill
+            member_death(victim)
+            books["kill"] = dict(victim=victim, casualties=casualties,
+                                 handoffs=fed.handoffs - before)
+        if tick == FED_DRAIN_TICK:
+            live = sorted(fed.members)
+            drained = live[int(rng.integers(0, len(live)))]
+            fed.drain(drained)
+            books["drain"] = drained
+        if tick == FED_REJOIN_TICK:
+            fed.add(member("gwr0"))
+        if tick == FED_CRASH_TICK and not crashed:
+            crashed = True
+            at_crash = os.path.join(tmp, "federation-at-crash.jrnl")
+            shutil.copy(path, at_crash)
+            admitted_at_crash = set(subs)
+            done_at_crash = [rid for rid, _ in done]
+            inflight_at_crash = sorted(
+                rid for m in fed.members.values() for rid in m.inflight)
+            pre_stats = fed.stats()
+            t_crash = time.monotonic()
+            journal.abandon()
+            del fed, journal
+            gc.collect()
+            if release is not None:
+                release()
+            member_ms.clear()
+            t0 = time.monotonic()
+            fed, info = recover_federation(
+                path, member_factory=member, clock=clock,
+                renew_period_ns=4 * tick_ns, lease_ttl_ns=6 * tick_ns,
+                payloads={rid: journal_payload(reqs, i)
+                          for rid, i in subs.items()})
+            books["recover_ms"] = (time.monotonic() - t0) * 1e3
+            books["recover_member_ms"] = dict(member_ms)
+            books["crash_drop_ms"] = (t0 - t_crash) * 1e3
+            journal = fed.journal
+        for i in arrivals.get(tick, []):
+            tenant = f"t{i % FED_TENANTS}"
+            r = fed.submit(tenant, journal_payload(reqs, i),
+                           cost=reqs[i][1])
+            if not r.admitted:
+                check(False, f"(b) request {i} admitted ({r.reason})")
+            subs[r.rid] = i
+            cost_of[tenant] = cost_of.get(tenant, 0.0) + reqs[i][1]
+        done.extend(fed.tick())
+        if tick == FED_PUSH_TICK:
+            # The members' watchers polled the push in this tick.
+            adoptions = list(fed.knob_adoptions)
+            scales = {n: [b.service_scale for b in m.backends]
+                      for n, m in sorted(fed.members.items())}
+        clock.advance(tick_ns)
+        tick += 1
+    journal.close()
+    elapsed_s = (clock.now_ns() - start_ns) / SEC
+
+    # -- checks ------------------------------------------------------------
+    mine = [a for a in adoptions
+            if a["knobs"].get("sched.feedback.tslice_max_us")
+            == FED_CANARY_MAX_US]
+    want_scale = 1.0 + FED_SWITCH_COST_NS / (FED_CANARY_MAX_US * 1000.0)
+    others = {n: s for n, s in scales.items() if n != canary}
+    check([a["member"] for a in mine] == [canary]
+          and scales.get(canary) == [want_scale]
+          and all(s == baseline.get(n, s) for n, s in others.items()),
+          f"(b) the push scoped to {canary} was adopted by exactly "
+          f"{[a['member'] for a in mine]}; service scale {canary} "
+          f"{scales.get(canary)} == [{want_scale}], the others "
+          f"{others} unchanged from {baseline}")
+    k = books["kill"]
+    check(k["casualties"] and k["handoffs"] == len(k["casualties"]),
+          f"(b) {k['victim']}'s {len(k['casualties'])} requests were handed "
+          f"off ({k['handoffs']} handoffs)")
+    view = read_journal(at_crash)
+    st = replay(view.records, 6 * tick_ns)
+    apply_recover_transform(st)
+    check(info.state_digest == state_digest(st)
+          and info.rids == admitted_at_crash
+          and info.done == set(done_at_crash)
+          and sorted(info.requeued_inflight) == inflight_at_crash,
+          f"(b) recover_federation: digest {info.state_digest[:16]} == an "
+          f"independent replay; rids, done and requeued in flight == the "
+          f"client's books at the crash ({len(admitted_at_crash)}, "
+          f"{len(done_at_crash)}, {len(inflight_at_crash)})")
+    post = sorted(set(subs) - admitted_at_crash)
+    check(post and all("-r1-" in rid for rid in post),
+          f"(b) the {len(post)} rids admitted after the crash carry -r1- "
+          f"({post[:2]})")
+    done_rids = [rid for rid, _ in done]
+    check(len(done_rids) == len(set(done_rids)) == len(reqs)
+          and set(done_rids) == set(subs)
+          and set(k["casualties"]) <= set(done_rids),
+          f"(b) every admitted rid completed exactly once, the dead "
+          f"member's {len(k['casualties'])} among them ({len(done_rids)} "
+          f"completions, {len(set(done_rids))} distinct)")
+    short = {rid: c["tokens"] for rid, c in done
+             if c["tokens"] != reqs[subs[rid]][1]}
+    check(not short, f"(b) every completion has its budget's tokens "
+                     f"({short})")
+    audit = fed.lease_audit()
+    bound = {}
+    for t, a in sorted(audit.items()):
+        q = quotas[t]
+        eps = 1e-6 * max(1.0, a["granted"])
+        bound[t] = q.burst + q.rate * elapsed_s
+        accounted = (a["leased_spent"] + a["held"] + a["deposited"]
+                     + a["destroyed"])
+        backed = a["leased_spent"] + a["conservative_spent"]
+        check(a["granted"] <= a["minted"] + a["deposited"] + eps
+              and a["minted"] <= bound[t] + 1e-6
+              and accounted <= a["granted"] + eps
+              and abs(cost_of.get(t, 0.0) - backed) <= 1e-6 * max(
+                  1.0, backed),
+              f"(b) {t}: granted {a['granted']:.1f} <= minted "
+              f"{a['minted']:.1f} + deposited {a['deposited']:.1f}; minted "
+              f"<= burst + rate x {elapsed_s:.3f} s = {bound[t]:.1f}; "
+              f"spent+held+deposited+destroyed {accounted:.1f} <= granted; "
+              f"admitted cost {cost_of.get(t, 0.0):.0f} == leased + "
+              f"conservative {backed:.1f}")
+    final = read_journal(path)
+    grants = sum(1 for r in final.records if r[1] == Jr.GRANT)
+    return dict(canary=canary, adoptions=adoptions, scales=scales,
+                baseline=baseline, kill=k, drain=books["drain"],
+                info=info, audit=audit, bound=bound, stats=fed.stats(),
+                pre_stats=pre_stats, grants=grants,
+                recover_ms=books["recover_ms"],
+                recover_member_ms=books["recover_member_ms"],
+                drop_ms=books["crash_drop_ms"], completions=len(done),
+                journal_bytes=os.path.getsize(path), tokens=tokens,
+                subs=subs)
+
+
+def federation_lines(out: dict, card: str) -> None:
+    k, st, info = out["kill"], out["stats"], out["info"]
+    print(f"  (b) canary push to {out['canary']}: adoptions "
+          f"{json.dumps(out['adoptions'])}; service scales {out['scales']} "
+          f"(baseline {out['baseline']})", flush=True)
+    print(f"  (b) {k['victim']} killed with {len(k['casualties'])} requests "
+          f"({k['handoffs']} handed off); {out['drain']} drained, gwr0 "
+          f"rejoined; members before the crash "
+          f"{json.dumps(out['pre_stats']['members'])}", flush=True)
+    per_member = {n: round(v, 1)
+                  for n, v in out["recover_member_ms"].items()}
+    print(f"  (b) crash: recover_federation {out['recover_ms']:.1f} ms, "
+          f"members rebuilt (ms) {json.dumps(per_member)}; drop "
+          f"{out['drop_ms']:.1f} ms; {len(info.recovered)} live rids, "
+          f"{len(info.requeued_inflight)} requeued in flight, generation "
+          f"{info.generation} [{card}]", flush=True)
+    minted = {t: round(a["minted"], 1) for t, a in out["audit"].items()}
+    print(f"  (b) {out['completions']} completions, handoffs "
+          f"{st['handoffs']}, lease renewals (GRANT records) "
+          f"{out['grants']}, lease refusals {st['lease_refusals']}; minted "
+          f"{minted} vs bound "
+          f"{ {t: round(b, 1) for t, b in out['bound'].items()} }; "
+          f"journal {out['journal_bytes']} bytes", flush=True)
+
+
+def chaos_goldens() -> dict:
+    """Phase 3j (c): the reference tests' gateway and crash chaos
+    scenarios through the port's harnesses, on the card host's CPU,
+    held to the reference tests' golden digests."""
+    from pbs_tpu_torch.gateway import (run_federation_chaos,
+                                       run_gateway_chaos, stock_crash_plan)
+
+    out = {}
+    t = time.monotonic()
+    g = run_gateway_chaos(workload="mixed", seed=0, n_backends=3,
+                          n_tenants=4, ticks=160)
+    out["gateway"] = (g, time.monotonic() - t)
+    check(g["ok"] and g["trace_digest"] == GOLDEN_GATEWAY_DIGEST,
+          f"(c) run_gateway_chaos ok {g['ok']} {g['problems'][:2]}, trace "
+          f"digest {g['trace_digest'][:16]} == the golden "
+          f"{GOLDEN_GATEWAY_DIGEST[:16]}")
+    t = time.monotonic()
+    c = run_federation_chaos(workload="mixed", seed=0, n_gateways=3,
+                             n_tenants=4, ticks=240,
+                             crash_plan=stock_crash_plan(240))
+    out["crash"] = (c, time.monotonic() - t)
+    check(c["ok"] and c["trace_digest"] == GOLDEN_CRASH_TRACE_DIGEST
+          and c["report_digest"] == GOLDEN_CRASH_REPORT_DIGEST
+          and c["crash"]["recoveries"] == 2,
+          f"(c) run_federation_chaos(crash_plan=stock_crash_plan(240)) ok "
+          f"{c['ok']} {c['problems'][:2]}, {c['crash']['recoveries']} "
+          f"recoveries, digests {c['trace_digest'][:16]} / "
+          f"{c['report_digest'][:16]} == the goldens "
+          f"{GOLDEN_CRASH_TRACE_DIGEST[:16]} / "
+          f"{GOLDEN_CRASH_REPORT_DIGEST[:16]}")
+    return out
+
+
+def run_journal_path(torch, card):
+    """Phase 3j on the card: (a) crash and recover one journaled gateway
+    over the flagship bf16 engine, (b) a federation of three such
+    members through a member death, a drain and rejoin, a canary push
+    and a crash, (c) the chaos harnesses at the reference tests' seeds.
+    Returns (a)'s and (b)'s kernel launch counts and routes."""
+    import contextlib
+    import shutil
+
+    from pbs_tpu_torch.models import (ContinuousBatcher, TransformerConfig,
+                                      cast_params, init_params)
+
+    t_phase = time.monotonic()
+    cfg = TransformerConfig(**FLAGSHIP, dtype=torch.bfloat16)
+    kw = dict(n_slots=ENGINE_SLOTS, prompt_bucket=ENGINE_BUCKET,
+              max_len=ENGINE_MAX_LEN, prefix_cache_size=ENGINE_PREFIX)
+
+    def make_params():
+        gen = torch.Generator(device="cuda").manual_seed(JOURNAL_SEED)
+        params = cast_params(init_params(cfg, gen, device="cuda"),
+                             cfg.dtype)
+        torch.cuda.synchronize()
+        return params
+
+    def make_engine(params):
+        eng = ContinuousBatcher(cfg, params, **kw)
+        torch.cuda.synchronize()
+        return eng
+
+    wrappers = bwd_counts()
+    total = {k: 0 for k in KERNELS}
+    total_routes = {k: {"wgmma": 0, "simt": 0} for k in KERNELS}
+
+    @contextlib.contextmanager
+    def counted(what):
+        reset_counts(wrappers)
+        yield
+        launches, routes = control_launches(wrappers)
+        print(f"  ({what}) kernel launches {launches}, by route {routes}",
+              flush=True)
+        for k in KERNELS:
+            total[k] += launches[k]
+            for r, n in routes[k].items():
+                total_routes[k][r] += n
+
+    tmp, _ = paging_dir("3j")
+    try:
+        reqs, arrivals = journal_script()
+        t = time.monotonic()
+        a = crash_and_recover(make_params, make_engine, reqs, arrivals, tmp,
+                              JOURNAL_KILL_WINDOW,
+                              release=torch.cuda.empty_cache,
+                              counted=counted)
+        crash_lines(a, card)
+        print(f"  (a) wall {time.monotonic() - t:.1f} s", flush=True)
+        t = time.monotonic()
+        params = make_params()
+        with counted("b"):
+            b = federation_run(lambda: make_engine(params), reqs, tmp,
+                               release=torch.cuda.empty_cache)
+        federation_lines(b, card)
+        del params
+        torch.cuda.empty_cache()
+        print(f"  (b) wall {time.monotonic() - t:.1f} s", flush=True)
+        c = chaos_goldens()
+        for name, (rep, wall) in c.items():
+            st = rep["stats"]
+            print(f"  (c) {name}: ok {rep['ok']}, admitted {st['admitted']} "
+                  f"== completed {st['completed']}, trace digest "
+                  f"{rep['trace_digest'][:16]}"
+                  + (f", report digest {rep['report_digest'][:16]}, "
+                     f"{rep['crash']['recoveries']} recoveries"
+                     if "crash" in rep else "")
+                  + f", {wall:.2f} s on the card host's CPU", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  phase 3j wall {time.monotonic() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return total, total_routes
+
+
 # -- phase 4 -----------------------------------------------------------------
 
 
@@ -4778,6 +5575,12 @@ def main() -> int:
     n_launches, n_routes = run_native_path(
         torch, gen, cfg, params, card_line(), native_built, recorded)
 
+    phase("3j durability and federation: a journaled gateway killed and "
+          "recovered from its journal, a federation through a member "
+          "death, a drain, a rejoin, a canary push and a crash, the chaos "
+          "harnesses")
+    j_launches, j_routes = run_journal_path(torch, card_line())
+
     phase("4 numerics at width")
     check_numerics(torch, gen, cfg, params)
     del params
@@ -4814,6 +5617,10 @@ def main() -> int:
         # phase 3n(b)'s run: 3c's tenants on the native runtime tiers
         r["native_path_launches"] = n_launches[kernel]
         r["native_path_launches_by_route"] = n_routes[kernel]
+        # phase 3j (a)'s crashed run and (b)'s federation: the engines
+        # alone, which launch none of the four
+        r["journal_path_launches"] = j_launches[kernel]
+        r["journal_path_launches_by_route"] = j_routes[kernel]
     profile_micro_step(torch, micro_step, train_state)
     del micro_step, train_state
     profile_micro_step(torch, moe_step, moe_state, what="MoE training step")

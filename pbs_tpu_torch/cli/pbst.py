@@ -7,6 +7,9 @@
     pbst-torch hw           the host hardware-counter plane: probe the
                             ladder, record/replay counter windows,
                             score sim-vs-real fidelity
+    pbst-torch chaos        seeded chaos runs of the serving front door:
+                            --plan gateway | federation | crash
+    pbst-torch journal      verify or dump a write-ahead gateway journal
 
 The port of those commands of ``pbs_tpu.cli.pbst``: the same flags
 (plus ``--device`` for ``serve-demo``), the same JSON shapes. The
@@ -18,6 +21,8 @@ reference's other commands wait for the modules they read
     python -m pbs_tpu_torch.cli.pbst serve-demo --device cpu
     python -m pbs_tpu_torch.cli.pbst sim --workload mixed --policy all
     python -m pbs_tpu_torch.cli.pbst tune --check
+    python -m pbs_tpu_torch.cli.pbst chaos --plan crash --selfcheck
+    python -m pbs_tpu_torch.cli.pbst journal verify gateway.jrnl
     python -m pbs_tpu_torch.cli.pbst hw replay --check \
         pbs_tpu_torch/hwtelem/windows/w0.jsonl
 """
@@ -424,6 +429,196 @@ def cmd_hw(args) -> int:
     return 2
 
 
+def _print_federation_events(report: dict, problem_label: str) -> None:
+    """Shared tail of the federation report renderers (chaos + demo):
+    the membership timeline and any invariant problems."""
+    for e in report["events"]:
+        print(f"  t={e['tick_ns'] / 1e6:>8.1f}ms "
+              f"{e['event']:<10} {e['gateway']}")
+    for prob in report["problems"]:
+        print(f"  {problem_label}: {prob}")
+
+
+def cmd_chaos(args) -> int:
+    """Seeded chaos run of the serving front door under an armed
+    FaultPlan, end-state invariants checked, fault-trace digest printed
+    (the determinism witness). ``--plan gateway`` attacks one gateway
+    (admission sheds/stalls, misroutes, a backend kill) with the "no
+    admitted request lost" invariant. ``--plan federation`` attacks the
+    front-door TIER (gateway deaths, partitions, lease expiries, plus a
+    seeded drain + rejoin schedule) with the no-job-lost AND
+    no-rate-inflation invariants. ``--plan crash`` is the federation
+    plan plus seeded kill-9s of the WHOLE process state, recovered from
+    the write-ahead intent journal alone (docs/DURABILITY.md).
+    ``--selfcheck`` runs the scenario twice and requires identical
+    digests. The reference's other plans (the cluster control plane's
+    ``chaos``/``rpc``/``none`` and plan files) and ``--processes`` (the
+    process federation) wait for ROADMAP queue 1 item 12. Exit contract:
+    0 = every invariant held, 1 = an invariant (or the selfcheck digest
+    match) failed, 2 = usage error."""
+    if args.processes:
+        raise NotImplementedError(
+            "--processes (members as real OS processes, the process "
+            "federation) is not ported (ROADMAP queue 1 item 12)")
+    if args.plan in ("federation", "crash"):
+        from pbs_tpu_torch.gateway import run_federation_chaos, stock_crash_plan
+
+        ticks = args.rounds * 80
+        kw = dict(workload=args.workload, seed=args.seed,
+                  n_gateways=args.gateways, n_tenants=args.tenants,
+                  ticks=ticks, trace_path=args.trace,
+                  obs_dir=args.obs)
+        if args.plan == "crash":
+            # The kill-9 plan (docs/DURABILITY.md): the federation
+            # plan PLUS seeded whole-process deaths — one torn
+            # mid-frame journal commit, one tick-boundary kill —
+            # recovered from journal bytes alone.
+            kw["crash_plan"] = stock_crash_plan(ticks)
+        report = run_federation_chaos(**kw)
+        ok = report["ok"]
+        if args.selfcheck:
+            again = run_federation_chaos(**kw)
+            match = (again["trace_digest"] == report["trace_digest"]
+                     and again["report_digest"] == report["report_digest"])
+            report["selfcheck"] = {
+                "digest_match": match, "second_ok": again["ok"],
+                "second_digest": again["trace_digest"],
+            }
+            ok = ok and match and again["ok"]
+        if args.json:
+            print(json.dumps(report, indent=1, sort_keys=True))
+        else:
+            st = report["stats"]
+            label = ("crash chaos" if args.plan == "crash"
+                     else "federation chaos")
+            print(f"{label} workload={report['workload']} "
+                  f"seed={report['seed']} gateways={report['gateways']} "
+                  f"ticks={report['ticks']}")
+            if "crash" in report:
+                c = report["crash"]
+                print(f"recoveries={c['recoveries']} "
+                      f"unacked={c['unacked']} "
+                      f"final_generation={c['final_generation']}")
+                for e in c["events"]:
+                    print(f"  kill {e['kind']} @ {e['position']} -> "
+                          f"gen {e['generation']} "
+                          f"(recovered {e['recovered']}, requeued "
+                          f"{e['requeued_inflight']}, torn "
+                          f"{e['torn_bytes']} B, unacked "
+                          f"{e['unacked']})")
+            print(f"admitted={st['admitted']} completed={st['completed']} "
+                  f"handoffs={st['handoffs']} remaps={st['remaps']} "
+                  f"lease_refusals={st['lease_refusals']} "
+                  f"faults_fired={sum(report['faults_fired'].values())}")
+            for k, v in report["faults_fired"].items():
+                print(f"  {k:<32} {v}")
+            _print_federation_events(report, "INVARIANT VIOLATED")
+            if args.selfcheck:
+                sc = report["selfcheck"]
+                print(f"selfcheck: digest_match={sc['digest_match']} "
+                      f"second_ok={sc['second_ok']}")
+            print(f"trace_digest={report['trace_digest']}")
+            print(f"report_digest={report['report_digest']}")
+            print("ok" if ok else "FAILED")
+        return 0 if ok else 1
+
+    # --plan gateway (argparse admits no other value)
+    from pbs_tpu_torch.gateway import run_gateway_chaos
+
+    kw = dict(workload=args.workload, seed=args.seed,
+              n_backends=args.agents, n_tenants=args.tenants,
+              ticks=args.rounds * 80, trace_path=args.trace,
+              obs_dir=args.obs)
+    report = run_gateway_chaos(**kw)
+    ok = report["ok"]
+    if args.selfcheck:
+        again = run_gateway_chaos(**kw)
+        match = again["trace_digest"] == report["trace_digest"]
+        report["selfcheck"] = {
+            "digest_match": match, "second_ok": again["ok"],
+            "second_digest": again["trace_digest"],
+        }
+        ok = ok and match and again["ok"]
+    if args.json:
+        print(json.dumps(report, indent=1, sort_keys=True))
+    else:
+        st = report["stats"]
+        print(f"gateway chaos workload={report['workload']} "
+              f"seed={report['seed']} backends={report['backends']} "
+              f"ticks={report['ticks']} "
+              f"killed={report['killed_backend']}")
+        print(f"admitted={st['admitted']} completed={st['completed']} "
+              f"requeued={st['requeued']} "
+              f"shed_rate={st['shed_rate']} "
+              f"faults_fired={sum(report['faults_fired'].values())}")
+        for k, v in report["faults_fired"].items():
+            print(f"  {k:<32} {v}")
+        for prob in report["problems"]:
+            print(f"  INVARIANT VIOLATED: {prob}")
+        if args.selfcheck:
+            sc = report["selfcheck"]
+            print(f"selfcheck: digest_match={sc['digest_match']} "
+                  f"second_ok={sc['second_ok']}")
+        print(f"trace_digest={report['trace_digest']}")
+        print("ok" if ok else "FAILED")
+    return 0 if ok else 1
+
+
+def cmd_journal(args) -> int:
+    """Inspect a write-ahead gateway journal (docs/DURABILITY.md); the
+    reference's ``pbst journal``, byte for byte the same JSON.
+
+    ``dump``   — every sealed record as stable sorted-key JSON
+                 (intern table applied, float odometers unpacked).
+    ``verify`` — validate frames/CRCs and summarize.
+
+    Exit-code contract (both actions): 0 = valid, possibly with a
+    torn-tail WARNING (a crash artifact — expected, never trusted);
+    2 = corrupt body (CRC/marker mismatch on a complete frame) or not
+    a journal at all. A torn tail never exits nonzero: recovery
+    handles it by design, and CI must distinguish 'crashed while
+    writing' from 'bits rotted'."""
+    from pbs_tpu_torch.gateway.journal import (
+        JournalCorrupt,
+        format_record,
+        iter_interned,
+        read_journal,
+    )
+
+    try:
+        view = read_journal(args.path)
+    except JournalCorrupt as e:
+        print(f"pbst-torch journal: CORRUPT: {e}", file=sys.stderr)
+        return 2
+    except OSError as e:
+        print(f"pbst-torch journal: cannot read {args.path!r}: {e}",
+              file=sys.stderr)
+        return 2
+    names = {sid: name for name, sid in iter_interned(view.records)}
+    warnings = []
+    if view.torn_bytes:
+        warnings.append(
+            f"torn tail: {view.torn_bytes} trailing byte(s) past the "
+            f"last sealed frame (crash artifact; never replayed)")
+    doc = {
+        "path": args.path,
+        "generation": view.generation,
+        "frames": view.frames,
+        "records": len(view.records),
+        "valid_bytes": view.valid_bytes,
+        "torn_bytes": view.torn_bytes,
+        "warnings": warnings,
+    }
+    if args.action == "dump":
+        doc["entries"] = [format_record(r, names)
+                          for r in view.records]
+    print(json.dumps(doc, indent=1, sort_keys=True))
+    if warnings and not args.json_only:
+        for w in warnings:
+            print(f"pbst-torch journal: WARNING: {w}", file=sys.stderr)
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="pbst-torch",
                                 description="PBS-T port command line")
@@ -437,6 +632,44 @@ def main(argv=None) -> int:
                     help="torch device; default: the card (raises without "
                          "one). 'cpu' runs the plain versions on the host")
     sp.set_defaults(fn=cmd_serve_demo)
+
+    sp = sub.add_parser(
+        "chaos", help="seeded fault-injection run of the serving front "
+                      "door (pbs_tpu_torch.gateway)")
+    sp.add_argument("--workload", default="mixed",
+                    help="workload mix (the sim.workload catalog)")
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--agents", type=int, default=3,
+                    help="backend pool size (--plan gateway)")
+    sp.add_argument("--gateways", type=int, default=3,
+                    help="federation members (--plan federation)")
+    sp.add_argument("--tenants", type=int, default=4)
+    sp.add_argument("--rounds", type=int, default=5)
+    sp.add_argument("--plan", default="gateway",
+                    choices=["gateway", "federation", "crash"],
+                    help="'gateway', 'federation', or 'crash' "
+                         "(federation + journal-recovered kill-9s)")
+    sp.add_argument("--trace", default=None,
+                    help="write the fault trace JSONL here")
+    sp.add_argument("--obs", default=None, metavar="DIR",
+                    help="write span artifacts here")
+    sp.add_argument("--processes", action="store_true",
+                    help="members as real OS processes (not ported: "
+                         "ROADMAP queue 1 item 12)")
+    sp.add_argument("--selfcheck", action="store_true",
+                    help="run twice; digests must match")
+    sp.add_argument("--json", action="store_true")
+    sp.set_defaults(fn=cmd_chaos)
+
+    sp = sub.add_parser(
+        "journal",
+        help="inspect a write-ahead gateway journal "
+             "(docs/DURABILITY.md)")
+    sp.add_argument("action", choices=["dump", "verify"])
+    sp.add_argument("path", help="journal file (e.g. gateway.jrnl)")
+    sp.add_argument("--json-only", action="store_true",
+                    help="suppress the stderr torn-tail warning lines")
+    sp.set_defaults(fn=cmd_journal)
 
     sp = sub.add_parser(
         "sim", help="trace-driven scheduler simulation (pbs_tpu_torch.sim)")

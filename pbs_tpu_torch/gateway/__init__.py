@@ -5,19 +5,19 @@ weighted deficit-round-robin fair queueing across tenants with
 interactive/batch SLO classes, least-loaded routing with drain/requeue
 on backend loss, and queue-delay feedback into the scheduler — the
 paper's performance-feedback loop applied at the request-queue layer.
+Beside it the durability and federation plane: the write-ahead intent
+journal, crash recovery from journal bytes alone, the federated tier
+(leased admission, consistent-hash placement, handoff), the member
+supervisor and the in-process chaos harnesses.
 
 Device-free by construction: backends arrive already built (the port's
 ``ContinuousBatcher`` via :class:`BatcherBackend`, or the simulated
 :class:`SimServeBackend`); the gateway itself imports no torch, so
 admission/fairness/routing test and run anywhere.
 
-The chaos harnesses' admission contract per catalog tenant,
-``quota_for``, resolves lazily from ``gateway.chaos`` (as the
-reference's does), with the arrival model the hardware-counter plane's
-serving pump drives. Not ported yet (ROADMAP queue 1 item 12): the
-federation, the gateway chaos harnesses themselves, the write-ahead
-journal beyond the rid namespace, crash recovery, process federation
-and its supervisor. Looking up one of their names here raises
+Not ported yet (ROADMAP queue 1 item 12): the process federation
+(``ProcessFederation``, ``run_process_chaos``,
+``stock_process_kill_plan``). Looking up one of its names here raises
 ``AttributeError`` naming that item.
 """
 
@@ -36,6 +36,13 @@ from pbs_tpu_torch.gateway.backends import (
     SimServeBackend,
 )
 from pbs_tpu_torch.gateway.fairqueue import DeficitRoundRobin, Request
+from pbs_tpu_torch.gateway.federation import (
+    FederatedGateway,
+    HashRing,
+    Lease,
+    LeaseBroker,
+    LeasedBucket,
+)
 from pbs_tpu_torch.gateway.feedback import sched_feedback_sink
 from pbs_tpu_torch.gateway.gateway import (
     GW_LEDGER_SLOTS,
@@ -45,27 +52,34 @@ from pbs_tpu_torch.gateway.gateway import (
 
 #: The reference's names this package does not have yet.
 NOT_PORTED = frozenset({
-    "FederatedGateway", "HashRing", "Lease", "LeaseBroker", "LeasedBucket",
-    "run_gateway_chaos", "run_federation_chaos",
-    "stock_crash_plan", "GatewayJournal", "JournalCorrupt", "ProcessKill",
-    "read_journal", "recover_gateway", "recover_federation",
     "ProcessFederation", "run_process_chaos", "stock_process_kill_plan",
-    "MemberSupervisor", "ProcessHandle",
 })
+
+#: Lazily imported surfaces, by module: the chaos harnesses pull in the
+#: sim workload catalog, and serving callers without a journal pay for
+#: none of the durability plane.
+_LAZY = {
+    "chaos": ("run_gateway_chaos", "run_federation_chaos", "quota_for",
+              "stock_crash_plan"),
+    "journal": ("GatewayJournal", "JournalCorrupt", "ProcessKill",
+                "read_journal"),
+    "recovery": ("recover_gateway", "recover_federation"),
+    "supervisor": ("MemberSupervisor", "ProcessHandle"),
+}
 
 
 def __getattr__(name: str):
-    if name == "quota_for":
-        # The chaos module pulls in the sim workload catalog; keep that
-        # off the gateway's import path.
-        from pbs_tpu_torch.gateway import chaos
+    import importlib
 
-        return chaos.quota_for
+    for module, names in _LAZY.items():
+        if name in names:
+            return getattr(
+                importlib.import_module(f"pbs_tpu_torch.gateway.{module}"),
+                name)
     if name in NOT_PORTED:
         raise AttributeError(
-            f"pbs_tpu_torch.gateway.{name} is not ported: the federation, "
-            "gateway chaos, journal, recovery and process federation are "
-            "ROADMAP queue 1 item 12")
+            f"pbs_tpu_torch.gateway.{name} is not ported: the process "
+            "federation is ROADMAP queue 1 item 12")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
@@ -75,9 +89,19 @@ __all__ = [
     "Backend",
     "BatcherBackend",
     "DeficitRoundRobin",
+    "FederatedGateway",
     "GW_LEDGER_SLOTS",
     "Gateway",
+    "GatewayJournal",
+    "HashRing",
     "INTERACTIVE",
+    "JournalCorrupt",
+    "Lease",
+    "LeaseBroker",
+    "LeasedBucket",
+    "MemberSupervisor",
+    "ProcessHandle",
+    "ProcessKill",
     "Request",
     "SLO_CLASSES",
     "Shed",
@@ -86,5 +110,11 @@ __all__ = [
     "TenantQuota",
     "TokenBucket",
     "quota_for",
+    "read_journal",
+    "recover_federation",
+    "recover_gateway",
+    "run_federation_chaos",
+    "run_gateway_chaos",
     "sched_feedback_sink",
+    "stock_crash_plan",
 ]

@@ -140,12 +140,12 @@ class AdmissionController:
         #: Quota applied to tenants never registered explicitly; None =
         #: unknown tenants are shed outright (closed-world gateways).
         self.default_quota = default_quota
-        #: The lease path's constructor hook: ``(tenant, quota, now_ns)
-        #: -> bucket`` returning anything with TokenBucket's
-        #: ``take``/``retry_after_ns`` surface (the reference's
-        #: federation installs leased slices of a global bucket; the
-        #: federation is ROADMAP queue 1 item 12). None = plain local
-        #: TokenBucket.
+        #: The lease path's constructor hook (gateway/federation.py):
+        #: ``(tenant, quota, now_ns) -> bucket`` returning anything with
+        #: TokenBucket's ``take``/``retry_after_ns`` surface. A
+        #: federated gateway installs a factory that builds
+        #: :class:`~pbs_tpu_torch.gateway.federation.LeasedBucket` slices
+        #: of the tenant's GLOBAL bucket; None = plain local TokenBucket.
         self.bucket_factory = bucket_factory
         self.quotas: dict[str, TenantQuota] = {}
         self._buckets: dict[str, TokenBucket] = {}

@@ -84,6 +84,13 @@ class SimServeBackend(Backend):
         self.capacity = int(n_slots)
         self.service_ns_per_cost = int(service_ns_per_cost)
         self.jitter = float(jitter)
+        #: Live service-time multiplier (the canary's member profile
+        #: model): adopting a knob profile re-rates service by a
+        #: declared first-order switch-overhead factor. 1.0 (the
+        #: default) is bit-identical to the pre-scale
+        #: backend — multiplying by 1.0 is an IEEE identity, and the
+        #: jitter stream is drawn before the scale applies.
+        self.service_scale = 1.0
         # crc32, not hash(): str hashing is salted per process and
         # would silently reseed every run (the injector's rule).
         self._rng = np.random.default_rng(
@@ -99,12 +106,19 @@ class SimServeBackend(Backend):
     def fail(self) -> None:
         self._alive = False
 
+    def set_service_scale(self, scale: float) -> None:
+        """The knob-profile seam the gateway's member adoption calls
+        (``Gateway.apply_member_knobs``); applies to dispatches from
+        now on — in-flight requests keep their scheduled completion."""
+        self.service_scale = max(1e-3, float(scale))
+
     def depth(self) -> int:
         return len(self._running) + len(self._waiting)
 
     def _service_ns(self, req: Request) -> int:
         j = 1.0 + self.jitter * float(self._rng.uniform(-1.0, 1.0))
-        return max(1, int(req.cost * self.service_ns_per_cost * j))
+        return max(1, int(req.cost * self.service_ns_per_cost * j
+                          * self.service_scale))
 
     def _fill(self, now_ns: int) -> None:
         while self._waiting and len(self._running) < self.capacity:

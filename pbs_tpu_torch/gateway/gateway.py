@@ -1,13 +1,10 @@
 """The multi-tenant serving front door (``pbs_tpu_torch.gateway``).
 
 A copy of ``pbs_tpu.gateway.gateway``: the same pump, in the same
-decision order, with the same trace records, spans, histograms and
-class ledger, so a seeded run gives the same results, words and bytes
-in both packages (``tests/test_torch_gateway.py``). Left for ROADMAP
-queue 1 item 12, and raising ``NotImplementedError`` until then: the
-write-ahead journal (``journal=``, :meth:`Gateway.attach_journal`) and
-member knob adoption (:meth:`Gateway.apply_member_knobs`, which reads
-the typed knob registry's profile map).
+decision order, with the same trace records, spans, histograms, class
+ledger and write-ahead journal intents, so a seeded run gives the same
+results, words and bytes in both packages
+(``tests/test_torch_gateway.py``, ``tests/test_torch_journal.py``).
 
 PBS-T's loop is guest-reported contention latency steering the
 scheduler's quantum. One layer up, the serving-tier analog of spin
@@ -117,8 +114,6 @@ class Gateway:
         journal=None,
         hw_source=None,
     ):
-        if journal is not None:
-            raise NotImplementedError(_jr.JOURNAL_MISSING)
         if not backends:
             raise ValueError("gateway needs at least one backend")
         names = [b.name for b in backends]
@@ -149,9 +144,19 @@ class Gateway:
         self.hw = None
         self.hw_recorder = None
         self._hw_totals: dict[str, int] = {}
+        #: Write-ahead intent journal (gateway/journal.py,
+        #: docs/DURABILITY.md): when attached, every ADMIT/DISPATCH/
+        #: COMPLETE/SHED/REQUEUE intent is journaled BEFORE the
+        #: in-memory state machine moves, and ``tick()`` group-commits
+        #: the round's intents as one frame. None = zero cost. Set
+        #: before tenant registration: register_tenant journals each
+        #: contract.
+        self._journal = None
+        self.journal_autocommit = True
         #: Recovery epoch of this gateway's rid namespace: 0 = the
-        #: plain pre-crash form. Only crash recovery bumps it (ROADMAP
-        #: queue 1 item 12), so here it stays 0.
+        #: plain pre-crash form (rids byte-identical to un-journaled
+        #: gateways); recovery bumps it so new rids can never collide
+        #: with an UNACKED pre-crash rid (gateway/recovery.py).
         self.rid_generation = 0
         for tenant, q in (quotas or {}).items():
             self.register_tenant(tenant, q, now_ns=now)
@@ -209,12 +214,20 @@ class Gateway:
         elif self.trace is not None:
             self.attach_spans(SpanRecorder(ring=self.trace,
                                            batch=self._trace_batch))
+        #: Member-level knob adoption: what this gateway adopted from
+        #: per-member (canary-scoped) pushes, and the switch-overhead
+        #: constant of the serving profile model (0 = model off; a
+        #: canary harness arms it).
+        self.applied_knobs: dict[str, int | float] = {}
+        self.profile_switch_cost_ns = 0
         self.feedback_sink = feedback_sink
         self.feedback_period_ns = int(feedback_period_ns)
         self._last_feedback_ns = now
         # Feedback accumulators since the last feedback tick.
         self._fb_delay_ns = {cls: 0 for cls in SLO_CLASSES}
         self._fb_events = {cls: 0 for cls in SLO_CLASSES}
+        if journal is not None:
+            self.attach_journal(journal)
         if hw_source is not None:
             self.attach_hw(hw_source)
         # Bookkeeping.
@@ -234,10 +247,24 @@ class Gateway:
     # -- journal (docs/DURABILITY.md) ------------------------------------
 
     def attach_journal(self, journal, autocommit: bool = True) -> None:
-        """The reference arms its write-ahead intent journal here; the
-        journal is ROADMAP queue 1 item 12, so this raises rather than
-        run a gateway the caller believes durable."""
-        raise NotImplementedError(_jr.JOURNAL_MISSING)
+        """Arm the write-ahead intent journal: subsequent admission,
+        dispatch, completion, shed, and requeue decisions are staged
+        as journal intents BEFORE the in-memory move, and (when
+        ``autocommit``) each ``tick()`` seals them as one group-commit
+        frame. A federation passes ``autocommit=False`` and commits
+        once per federation round for all members.
+
+        The gateway journals its own identity image on attach — a
+        MEMBER add plus a TENANT record per registered contract — so
+        replay always starts from a complete topology whether the
+        journal was armed at construction or mid-run (replay treats
+        re-registration as idempotent)."""
+        self._journal = journal
+        self.journal_autocommit = bool(autocommit)
+        now = self.clock.now_ns()
+        journal.member_event(now, self.name, "add")
+        for tenant, quota in sorted(self.admission.quotas.items()):
+            journal.tenant(now, tenant, quota)
 
     # -- spans (docs/TRACING.md) -----------------------------------------
 
@@ -309,22 +336,66 @@ class Gateway:
         if self.hw_recorder is not None:
             self.hw_recorder.sample(self.hw.clock.now_ns(), deltas)
 
-    # -- member knob adoption (docs/AUTOPILOT.md "Canary") ---------------
+    # -- member knob adoption (the canary path) ---------------------------
 
     def apply_member_knobs(self, changed: dict, values: dict) -> list:
-        """The reference adopts the scheduler-profile slice of a knob
-        push here, delivered by a federation member's own watcher, and
-        re-rates its backends by the profile model. The federation,
-        its per-member watchers and the autopilot that pushes are
-        ROADMAP queue 1 item 12, so this raises."""
-        raise NotImplementedError(
-            "member knob adoption needs the federation and the "
-            "autopilot (ROADMAP queue 1 item 12)")
+        """Adopt the member-relevant slice of a knob push delivered by
+        this member's own :class:`~pbs_tpu_torch.knobs.channel.KnobWatcher`
+        (the federation creates one per member, keyed on the member
+        name, so canary-scoped pushes reach exactly the canary set).
+
+        Only the scheduler-profile knobs (the tuned-profile space a
+        canary rolls out — derived from ``knobs.profile
+        .PARAM_KNOBS``, the declared authority, so a new tunable
+        policy family is adoptable the day its mapping lands) adopt
+        here; federation-level knobs like the admission rate scale
+        stay with the federation's global watcher. When the
+        profile model is armed (``profile_switch_cost_ns > 0``), the
+        adopted band re-rates every backend exposing
+        ``set_service_scale`` by the declared first-order overhead
+        ``1 + switch_cost / band_cap`` — short slices buy latency
+        multiplexing at a context-switch cost, the paper's core
+        trade-off applied at serving granularity. Returns the adopted
+        knob names (empty = nothing member-relevant changed)."""
+        from pbs_tpu_torch.knobs.profile import PARAM_KNOBS
+
+        adoptable = {knob_name for mapping in PARAM_KNOBS.values()
+                     for knob_name in mapping.values()}
+        adopted = sorted(k for k in changed if k in adoptable)
+        if not adopted:
+            return []
+        self.applied_knobs.update({k: changed[k] for k in adopted})
+        if self.profile_switch_cost_ns > 0:
+            # The binding band cap comes from the policy FAMILY the
+            # push steered (an atc canary pushes sched.atc.* — reading
+            # the untouched feedback cap would let a collapsed atc
+            # band sail through the guard unfelt). Both families in
+            # one push: the tighter cap binds.
+            fams = {k.rsplit(".", 1)[0] for k in adopted}
+            caps = [
+                float(values.get(f"{fam}.tslice_max_us",
+                                 knobs.default(f"{fam}.tslice_max_us")))
+                for fam in sorted(fams)
+            ]
+            cap_us = min(caps)
+            scale = 1.0 + (self.profile_switch_cost_ns
+                           / max(1.0, cap_us * 1000.0))
+            for b in self.backends:
+                setter = getattr(b, "set_service_scale", None)
+                if setter is not None:
+                    setter(scale)
+        return adopted
 
     # -- tenants ---------------------------------------------------------
 
     def register_tenant(self, tenant: str, quota: TenantQuota,
                         now_ns: int | None = None) -> None:
+        if self._journal is not None:
+            # Contract before books: replay re-creates the tenant's
+            # bank before any of its intents replays.
+            self._journal.tenant(
+                self.clock.now_ns() if now_ns is None else now_ns,
+                tenant, quota)
         self.admission.register(
             tenant, quota,
             now_ns=self.clock.now_ns() if now_ns is None else now_ns)
@@ -370,6 +441,14 @@ class Gateway:
                                     shed.retry_after_ns)
             if f.fault == "delay":
                 penalty_ns = int(f.args.get("delay_ns", 1 * MS))
+        jr = self._journal
+        if jr is not None:
+            # Spend-kind watermarks: which lease odometer the admission
+            # charge is about to move (the ADMIT intent records it, so
+            # recovery can re-derive the exact spend books).
+            b = self.admission._buckets.get(tenant)
+            pre_leased = getattr(b, "leased_spent", None)
+            pre_cons = getattr(b, "conservative_spent", None)
         shed = self.admission.admit(
             tenant, cost, now,
             # The tenant's slots across BOTH classes: max_queued bounds
@@ -384,6 +463,23 @@ class Gateway:
                                 shed.retry_after_ns)
         rid = _jr.rid_string(self.name, self.rid_generation,
                              next(self._rids))
+        if jr is not None:
+            spend = _jr.SPEND_NONE
+            b = self.admission._buckets.get(tenant)
+            if b is not None and hasattr(b, "leased_spent"):
+                if pre_leased is not None:
+                    if b.leased_spent > pre_leased:
+                        spend = _jr.SPEND_LEASED
+                    elif b.conservative_spent > pre_cons:
+                        spend = _jr.SPEND_CONSERVATIVE
+                elif b.leased_spent > 0:  # lazily-built leased bucket
+                    spend = _jr.SPEND_LEASED
+                elif b.conservative_spent > 0:
+                    spend = _jr.SPEND_CONSERVATIVE
+            # The ADMIT intent lands before the queue/books move — the
+            # write-ahead ordering dur-unjournaled-mutation enforces.
+            jr.admit(now, self.name, rid, tenant, self._cls_code(cls),
+                     cost, spend)
         req = Request(rid=rid, tenant=tenant, slo=cls, cost=cost,
                       payload=payload, submit_ns=now,
                       penalty_ns=penalty_ns)
@@ -404,9 +500,10 @@ class Gateway:
         the federation failover path for a dead member's in-flight
         casualties. No admission charge (the request already paid at
         its original front door); it enters at the head of the fair
-        queue exactly like a backend-loss casualty. Nothing in the port
-        calls it yet: the federation is ROADMAP queue 1 item 12."""
+        queue exactly like a backend-loss casualty."""
         now = self.clock.now_ns()
+        if self._journal is not None:
+            self._journal.adopt(now, self.name, req.rid)
         req.backend = None
         req.requeues += 1
         self.adopted += 1
@@ -426,6 +523,10 @@ class Gateway:
         cycle instead of restarting with fresh credit. ``from_member``
         names the source (the journal's custody-move intent needs
         both ends)."""
+        if self._journal is not None:
+            self._journal.adopt_tenant(
+                self.clock.now_ns(), self.name, from_member, tenant,
+                self._cls_code(cls), int(max(0.0, deficit) * 1e6))
         self.queue.restore_tenant(cls, tenant, requests, deficit)
         self.adopted += len(requests)
 
@@ -449,6 +550,13 @@ class Gateway:
         self._ledger_flush()
         self._feedback(now)
         self.flush_trace()
+        if self._journal is not None and self.journal_autocommit:
+            # Group commit AFTER the observability flushes: the span
+            # ring is always a superset of the committed journal, so a
+            # crash mid-commit can only leave EXTRA span records (for
+            # the unacked suffix), never a committed intent without
+            # its span (docs/DURABILITY.md "Crash windows").
+            self._journal.commit()
         self._hw_sample()
         return done
 
@@ -471,6 +579,8 @@ class Gateway:
             if not b.alive():
                 continue
             for req, info in b.poll(now):
+                if self._journal is not None:
+                    self._journal.complete(now, self.name, req.rid)
                 self.inflight.pop(req.rid, None)
                 self.completed += 1
                 cls = req.slo
@@ -520,6 +630,8 @@ class Gateway:
             # the FIFO oldest-first: the longest-waiting casualty must
             # re-dispatch first, not last.
             for req in reversed(casualties):
+                if self._journal is not None:
+                    self._journal.requeue(now, self.name, req.rid)
                 self.inflight.pop(req.rid, None)
                 req.backend = None
                 req.requeues += 1
@@ -602,6 +714,10 @@ class Gateway:
             req.reported_wait_ns = max(req.reported_wait_ns,
                                        req.queue_delay_ns)
             self._fb_events[req.slo] += 1
+            if self._journal is not None:
+                self._journal.dispatch(
+                    now, self.name, req.rid,
+                    int(max(0.0, self.queue.last_deficit) * 1e6))
             self.inflight[req.rid] = req
             self.dispatched += 1
             if self.spans is not None:
@@ -690,6 +806,9 @@ class Gateway:
 
     def _emit_shed(self, now: int, tenant: str, cls: str,
                    shed: Shed) -> None:
+        if self._journal is not None:
+            self._journal.shed(now, self.name, tenant,
+                               self._cls_code(cls), shed.reason_code)
         self._ledger_add(cls, Counter.COMPILES, 1)
         self._emit(now, Ev.GW_SHED, self._slot_of(tenant),
                    self._cls_code(cls), shed.reason_code,

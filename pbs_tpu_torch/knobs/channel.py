@@ -12,7 +12,7 @@ Word layout (all ``<u8``):
     [0] magic       — KNOB_MAGIC ("PBSTKNOB")
     [1] abi         — CHANNEL_ABI
     [2] version     — seqlock: odd while a push is writing
-    [3] generation  — applied pushes; poll() keys on it
+    [3] generation  — applied pushes; watch() keys on it
     [4] n_knobs     — slot count
     [5:5+n]         — one value word per knob, in the sidecar's order:
                       int knobs as two's-complement i64, float knobs
@@ -33,12 +33,21 @@ inverted bands — before the seqlock write begins. A rejected push
 raises :class:`KnobError` with every problem and leaves the file
 byte-identical: generation does not move, watchers see nothing.
 
-**Scoped pushes** (the reference's canary transport, a
-``<path>.scope.json`` sidecar that limits which federation members may
-adopt a knob) belong with the federation, ROADMAP queue 1 item 12, and
-are not ported: :meth:`KnobChannel.attach` and :class:`KnobWatcher`
-refuse a channel that carries a scope sidecar, rather than apply a
-canary-scoped value as if it were global.
+**Scoped pushes (the canary transport)**: a push
+may carry ``scope=[member, ...]`` — the knob VALUES still land in the
+shared file (one file, one truth), but a ``<path>.scope.json`` sidecar
+records, per touched knob, which consumers are allowed to adopt it.
+:class:`KnobWatcher` instances constructed with ``member=`` apply a
+changed knob only when the knob is unscoped or their member name is in
+its scope — and a value they skipped stays FOREIGN: it is excluded
+from their last-seen view, so a later unrelated global push cannot
+fold a canary-scoped value into a non-canary member's adoption set
+(the silent re-adoption bug the scoping regression test pins), while a
+later push that CLEARS the scope (``scope=None`` — promotion or
+rollback) re-delivers it as changed even when the file bytes for that
+knob did not move. The sidecar is written atomically BEFORE the
+seqlock round, so any reader that observes the new generation already
+observes the scope that governs it.
 
 **Writer concurrency**: single-writer like the telemetry ledger's pure
 Python path — one control plane owns ``push``; readers are always
@@ -51,6 +60,7 @@ import json
 import mmap
 import os
 import struct
+import time
 from typing import Any, Callable
 
 from pbs_tpu_torch.knobs import registry
@@ -75,13 +85,6 @@ def _unpack_value(kind: str, word: int) -> int | float:
     if kind == "int":
         return word - (1 << 64) if word >= (1 << 63) else word
     return struct.unpack("<d", struct.pack("<Q", word))[0]
-
-
-def _refuse_scoped(path: str) -> None:
-    if os.path.exists(path + ".scope.json"):
-        raise KnobError(
-            [f"channel {path} carries a scope sidecar (a canary push); "
-             "scoped adoption is not ported (ROADMAP queue 1 item 12)"])
 
 
 class KnobChannel:
@@ -155,7 +158,6 @@ class KnobChannel:
             raise KnobError(
                 [f"cannot read knob channel sidecar {path}.meta.json: "
                  f"{e}"]) from None
-        _refuse_scoped(path)
         names = [k["name"] for k in meta.get("knobs", [])]
         unknown = [n for n in names if not registry.exists(n)
                    and n not in registry.UNDECLARED]
@@ -244,13 +246,92 @@ class KnobChannel:
             return None
         return self.snapshot()
 
+    def watch(self, on_change: Callable[[int, dict[str, int | float]], None],
+              timeout_s: float | None = None,
+              poll_interval_s: float = 0.05,
+              max_events: int | None = None,
+              initial: bool = True) -> int:
+        """Blocking watch loop (``pbst knobs watch`` in the reference): invoke
+        ``on_change(generation, values)`` once with the current state
+        (``initial=True``, so a watcher starts from truth, not from a
+        gap) and then for every generation move. Returns events
+        delivered. Test/automation friendly: bounded by ``timeout_s``
+        and/or ``max_events``."""
+        gen = self.generation
+        events = 0
+        if initial:
+            g, values = self.snapshot()
+            gen = g
+            on_change(g, values)
+            events += 1
+            if max_events is not None and events >= max_events:
+                return events
+        deadline = None if timeout_s is None else \
+            time.monotonic() + timeout_s
+        while True:
+            got = self.poll(gen)
+            if got is not None:
+                gen, values = got
+                on_change(gen, values)
+                events += 1
+                if max_events is not None and events >= max_events:
+                    return events
+            if deadline is not None and time.monotonic() >= deadline:
+                return events
+            time.sleep(poll_interval_s)
+
+    # -- scope sidecar (canary rollouts) ----------------------------------
+
+    def knob_scopes(self) -> dict[str, list[str]]:
+        """Per-knob adoption scope: ``{knob: [member, ...]}``. A knob
+        absent from the map is GLOBAL (every watcher adopts it). A
+        MISSING sidecar means no knob was ever scoped — the pre-scope
+        behavior, so plain channels are unaffected. A sidecar that
+        exists but cannot be parsed raises: failing open would let a
+        canary-scoped (possibly pathological) value become globally
+        adoptable through corruption, with no push and no guard."""
+        try:
+            with open(self.path + ".scope.json") as f:
+                doc = json.load(f)
+        except FileNotFoundError:
+            return {}
+        except (OSError, json.JSONDecodeError) as e:
+            raise KnobError(
+                [f"knob scope sidecar {self.path}.scope.json is "
+                 f"unreadable ({e}); refusing to treat scoped knobs "
+                 "as global — recreate the channel (pbst knobs init)"]
+            ) from None
+        scopes = doc.get("knob_scopes", {})
+        return {k: [str(m) for m in v] for k, v in scopes.items()
+                if isinstance(v, list) and v}
+
+    def _write_scopes(self, scopes: dict[str, list[str]]) -> None:
+        tmp = self.path + ".scope.json.tmp"
+        with open(tmp, "w") as f:
+            json.dump({"version": 1,
+                       "knob_scopes": {k: sorted(v) for k, v
+                                       in sorted(scopes.items())}},
+                      f, indent=1, sort_keys=True)
+            f.write("\n")
+        os.replace(tmp, self.path + ".scope.json")
+
     # -- writer side -----------------------------------------------------
 
-    def push(self, updates: dict[str, Any]) -> int:
+    def push(self, updates: dict[str, Any],
+             scope: "list[str] | None" = None) -> int:
         """Atomic hot-reload: validate EVERYTHING against the registry
         (unknown/malformed/out-of-range/inverted-band -> KnobError with
         every problem, file untouched), then publish under one seqlock
-        round and bump the generation. Returns the new generation."""
+        round and bump the generation. Returns the new generation.
+
+        ``scope`` restricts ADOPTION of the pushed knobs to the named
+        members (a canary rollout); ``scope=None`` is a global push and
+        additionally CLEARS any recorded scope on the touched knobs
+        (promotion / rollback): member-filtered watchers treat the
+        cleared knobs as changed against their own last-adopted view,
+        so one global push converges every member. The scope sidecar is
+        written before the seqlock round — rejection still leaves both
+        files untouched (validation happens first)."""
         if not self.writable:
             raise KnobError(
                 [f"channel {self.path} attached read-only"])
@@ -272,6 +353,30 @@ class KnobChannel:
             raise KnobError(
                 [f"channel {self.path} predates knob(s) {missing}; "
                  "recreate it (pbst knobs init)"])
+        # Scope ORDERING vs the seqlock round — each direction lands on
+        # its conservative side for a cross-process reader racing one
+        # generation behind:
+        # - scope-ADDS are written BEFORE the value round: a reader of
+        #   the old generation that sees the new (narrower) scope
+        #   merely skips values it would have adopted — never adopts
+        #   values it should not;
+        # - scope-CLEARS are written AFTER the value round (below): a
+        #   reader that still sees the old generation with the old
+        #   scope keeps skipping the canary values — clearing first
+        #   would let it adopt the OLD (possibly pathological)
+        #   generation's values as if unscoped, fleet-wide, for one
+        #   poll period.
+        if scope is not None:
+            members = sorted({str(m) for m in scope})
+            if not members:
+                raise KnobError(
+                    ["scoped push with an empty member set — a push "
+                     "nobody may adopt is a misconfiguration, not a "
+                     "rollout"])
+            scopes = self.knob_scopes()
+            for name in coerced:
+                scopes[name] = members
+            self._write_scopes(scopes)
         v0, gen = self._words(_W_VERSION, 2)
         self._store(_W_VERSION, v0 + 1)  # odd: push in progress
         for name, value in sorted(coerced.items()):
@@ -280,6 +385,16 @@ class KnobChannel:
         self._store(_W_GEN, gen + 1)
         self._store(_W_VERSION, v0 + 2)  # even: stable
         self._mm.flush()
+        if scope is None and os.path.exists(self.path + ".scope.json"):
+            # Global push: clear any canary scope on the touched knobs
+            # (promotion/rollback) — AFTER the value round, see the
+            # ordering note above. Channels that never saw a scoped
+            # push never grow a sidecar.
+            scopes = self.knob_scopes()
+            if any(n in scopes for n in coerced):
+                for name in coerced:
+                    scopes.pop(name, None)
+                self._write_scopes(scopes)
         return gen + 1
 
     def close(self) -> None:
@@ -289,44 +404,113 @@ class KnobChannel:
 class KnobWatcher:
     """Deterministic poll-and-apply bridge from a channel to live
     consumers (virtual-clock friendly: the owner calls :meth:`poll`
-    from its own loop — a partition timer — so application points are a
-    function of the run's own timeline, never of wall-clock threads).
+    from its own loop — a partition timer, the federation pump — so
+    application points are a function of the run's own timeline, never
+    of wall-clock threads).
 
     Appliers are ``fn(changed: dict, values: dict)``; each poll calls
     every applier with the knobs that changed since the LAST poll plus
-    the full current view. Appliers must be atomic on their own consumer
+    the full current APPLICABLE view (scope-filtered — an applier that
+    derives state from ``values`` must never see a foreign canary
+    value). Appliers must be atomic on their own consumer
     (validate-then-apply), mirroring the channel contract.
 
-    The reference's ``member=`` filter for scoped pushes is not ported
-    (ROADMAP queue 1 item 12): a channel that carries a scope sidecar is
-    refused at construction and at every poll that sees a new
-    generation, since a scoped push writes its sidecar before its
-    values.
+    ``member`` names this watcher's identity for SCOPED pushes
+    (the canary transport): a changed knob whose scope (the channel's
+    ``knob_scopes`` sidecar) does not include the member — including
+    every scoped knob for an anonymous ``member=None`` watcher — is
+    SKIPPED, and crucially stays out of the watcher's last-seen view:
+    a later global push of an unrelated knob cannot silently deliver a
+    foreign canary value (the per-member adoption filter the scoping
+    regression test pins), while a push that clears the scope
+    re-delivers the value as changed even if its file word never
+    moved. :meth:`prime` fires the appliers once with the full current
+    applicable state (the ``watch()`` current-state-first contract,
+    for consumers that must start from truth).
     """
 
-    def __init__(self, channel: KnobChannel):
-        _refuse_scoped(channel.path)
+    def __init__(self, channel: KnobChannel, member: str | None = None):
         self.channel = channel
-        self._gen, self._last = channel.snapshot()
+        self.member = member
+        gen, values = channel.snapshot()
+        self._gen = gen
+        # The last-seen view starts as the current APPLICABLE state:
+        # a knob scoped away from this member at construction stays
+        # foreign until a push it may see delivers it.
+        self._last, foreign = self._split(values)
+        #: Foreign values as last observed — so ``skipped`` counts a
+        #: filtered DELIVERY once, not every generation the value
+        #: merely persists in the file.
+        self._foreign_seen: dict = dict(foreign)
         self._appliers: list[Callable[[dict, dict], None]] = []
         self.applied = 0  # generations applied (observability)
+        self.skipped = 0  # scope-filtered knob values (observability)
 
     def add(self, fn: Callable[[dict, dict], None]) -> None:
         self._appliers.append(fn)
 
+    def prime(self) -> dict:
+        """Deliver the current applicable state to the appliers as one
+        synthetic change set (call after :meth:`add`): the consumer
+        starts from the channel's truth instead of a gap — every
+        federation member then carries the same adopted baseline, so a
+        later rollback restores a canary member to exactly its peers'
+        state."""
+        changed = dict(self._last)
+        self._fire(changed, changed)
+        return changed
+
+    def _split(self, values: dict) -> tuple[dict, dict]:
+        """(applicable, foreign) partition of a value view under the
+        channel's current per-knob scopes."""
+        scopes = self.channel.knob_scopes()
+        if not scopes:
+            return dict(values), {}
+        applicable, foreign = {}, {}
+        for n, v in values.items():
+            s = scopes.get(n)
+            if s is not None and (self.member is None
+                                  or self.member not in s):
+                foreign[n] = v
+            else:
+                applicable[n] = v
+        return applicable, foreign
+
+    def _fire(self, changed: dict, values: dict) -> None:
+        for fn in self._appliers:
+            fn(changed, values)
+
     def poll(self) -> dict[str, int | float] | None:
         """Apply any pending generation; returns the changed-knob dict
-        (empty for a push that changed no value) or None when nothing
-        moved."""
+        (empty and fully out-of-scope pushes return {}) or None when
+        nothing moved."""
         got = self.channel.poll(self._gen)
         if got is None:
             return None
-        _refuse_scoped(self.channel.path)
         gen, values = got
-        changed = {n: v for n, v in values.items()
+        applicable, foreign = self._split(values)
+        changed = {n: v for n, v in applicable.items()
                    if self._last.get(n) != v}
-        self._gen, self._last = gen, dict(values)
+        self._gen = gen
+        # The last-seen view advances only over applicable knobs: a
+        # foreign (scope-filtered) value must remain invisible so it
+        # can never ride a later unrelated generation into this
+        # consumer — and so clearing its scope re-delivers it.
+        new_last = dict(applicable)
+        for n in foreign:
+            if n in self._last:
+                new_last[n] = self._last[n]
+        self._last = new_last
         self.applied += 1
-        for fn in self._appliers:
-            fn(changed, values)
+        # One skip per filtered DELIVERY (the file word moved while
+        # scoped away), not per generation it merely persists.
+        self.skipped += sum(1 for n, v in foreign.items()
+                            if self._foreign_seen.get(n) != v)
+        self._foreign_seen = dict(foreign)
+        # Appliers see the APPLICABLE view only: handing them the raw
+        # file values would leak a canary-scoped value into a
+        # non-canary consumer that derives state from ``values`` (the
+        # member profile model reads its band cap there), defeating
+        # the scope filter at one remove.
+        self._fire(changed, applicable)
         return changed

@@ -177,6 +177,37 @@ def test_drr_rejects_a_foreign_class_cycle():
         PORT.fairqueue.DeficitRoundRobin(class_cycle=("bulk",))
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_pending_order_and_service_scale_match(seed):
+    """``DeficitRoundRobin.pending`` (every queued request, the view
+    crash recovery's checks read) and ``SimServeBackend.set_service_scale``
+    (service times re-rated from the next dispatch on; the port lacked
+    it until member knob adoption needed it)."""
+    out = []
+    for P in BOTH:
+        rng = np.random.default_rng(seed)
+        q = P.fairqueue.DeficitRoundRobin(quantum=4)
+        be = P.gw.SimServeBackend("b0", n_slots=2, seed=seed,
+                                  service_ns_per_cost=MS)
+        log = []
+        for i in range(30):
+            cls = ("interactive", "batch")[int(rng.integers(0, 2))]
+            req = P.fairqueue.Request(
+                rid=f"r{i}", tenant=f"t{int(rng.integers(0, 3))}", slo=cls,
+                cost=int(rng.integers(1, 6)), payload=None, submit_ns=i)
+            q.push(req)
+            if i % 7 == 6:
+                q.pop()
+            if i == 10:
+                be.set_service_scale(1.75)
+            be.dispatch_request(req, i * MS)
+        log.append([r.rid for r in q.pending()])
+        log.append([(r.rid, info) for t in range(0, 200 * MS, MS)
+                    for r, info in be.poll(t)])
+        out.append(log)
+    assert out[0] == out[1]
+
+
 # -- the gateway over simulated backends --------------------------------
 
 
@@ -801,18 +832,32 @@ def test_serve_demo_defaults_to_the_card():
         port_cli.main(["serve-demo", "--requests", "1"])
 
 
-# -- the seams left for later -------------------------------------------
+# -- the journal seam and the names left for later ----------------------
 
 
-def test_journal_is_refused_not_ignored():
+def test_journal_is_refused_not_ignored(tmp_path):
+    """A gateway given a journal journals into it, as the reference's
+    does, and one given something that is not a journal refuses it at
+    construction, before any state moves."""
     be = PORT.gw.SimServeBackend("b0")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(AttributeError, match="member_event"):
         PORT.gw.Gateway([be], journal=object())
-    gw = PORT.gw.Gateway([be])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        gw.attach_journal(object())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        gw.apply_member_knobs({"sched.feedback.tslice_max_us": 900}, {})
+    with pytest.raises(AttributeError, match="member_event"):
+        PORT.gw.Gateway([be]).attach_journal(object())
+    views = []
+    for P in BOTH:
+        path = str(tmp_path / f"{P.gw.__name__}.jrnl")
+        journal = P.gw.GatewayJournal.create(path)
+        gw = P.gw.Gateway([P.gw.SimServeBackend("b0", seed=1)],
+                          clock=P.clock.VirtualClock(), journal=journal)
+        gw.register_tenant("t", P.gw.TenantQuota(rate=100.0, burst=10.0))
+        gw.submit("t", None, cost=2)
+        gw.tick()
+        journal.close()
+        views.append(P.gw.read_journal(path).records)
+    assert views[0] == views[1]
+    ops = {rec[1] for rec in views[0]}
+    assert {0x02, 0x03, 0x10, 0x11} <= ops  # MEMBER TENANT ADMIT DISPATCH
     from pbs_tpu.gateway import journal as ref_journal
     from pbs_tpu_torch.gateway import journal as port_journal
 
@@ -828,9 +873,19 @@ def test_journal_is_refused_not_ignored():
                                   "run_gateway_chaos", "ProcessFederation",
                                   "MemberSupervisor"])
 def test_unported_names_raise_naming_the_item(name):
+    """Every name of the reference's gateway resolves in the port by
+    the same name, or, while unported (the process federation), raises
+    naming its ROADMAP item."""
     import pbs_tpu_torch.gateway as port_gateway
 
-    with pytest.raises(AttributeError, match="item 12"):
-        getattr(port_gateway, name)
     assert name in pbs_tpu.gateway.__all__
-    assert name not in port_gateway.__all__
+    if name in port_gateway.NOT_PORTED:
+        with pytest.raises(AttributeError, match="item 12"):
+            getattr(port_gateway, name)
+        assert name not in port_gateway.__all__
+        return
+    assert name in port_gateway.__all__
+    got, want = getattr(port_gateway, name), getattr(pbs_tpu.gateway, name)
+    assert got.__name__ == want.__name__
+    assert got.__module__ == want.__module__.replace("pbs_tpu.",
+                                                     "pbs_tpu_torch.")

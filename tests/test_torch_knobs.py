@@ -16,8 +16,9 @@ feedback policy's knob surface against ``pbs_tpu``'s.
 - The channel file: after the same pushes the port's file and sidecars
   are byte for byte the reference's (over the same knob set), and a
   file either package writes is read, watched and pushed by the other.
-  A channel that carries the reference's canary scope sidecar is
-  refused by the port, which has no per-member adoption filter yet.
+  Canary-scoped pushes interoperate: the port reads a scope sidecar the
+  reference wrote and the reference reads the port's, and member
+  watchers of either package adopt exactly their canary set.
 - Tuned profiles: all five load through ``policy_from_profile`` into
   the same policy, which then steers a seeded run slice for slice like
   the reference's.
@@ -328,6 +329,157 @@ def k_two_watchers_on_one_channel_are_independent(K, d):
     return [wa.applied, wb.applied, got_b]
 
 
+def k_watch_loop_bounded(K, d):
+    path = str(d / "knobs.led")
+    w = K.channel.KnobChannel.create(path)
+    ro = K.channel.KnobChannel.attach(path)
+    w.push({"sched.feedback.window": 4})
+    events = []
+    n = ro.watch(lambda gen, vals: events.append(gen),
+                 timeout_s=1.0, poll_interval_s=0.01, max_events=1)
+    assert n == 1 and events == [1]  # initial snapshot = current truth
+    # Nothing new: without the initial emission, timeout returns clean.
+    assert ro.watch(lambda *_: None, timeout_s=0.05,
+                    poll_interval_s=0.01, initial=False) == 0
+    return [n, events]
+
+
+def k_scoped_push_writes_scope_sidecar_and_clears_on_global(K, d):
+    path = str(d / "knobs.led")
+    w = K.channel.KnobChannel.create(path)
+    w.push({"sched.feedback.tslice_max_us": 2000}, scope=["gw0", "gw1"])
+    first = w.knob_scopes()
+    assert first == {"sched.feedback.tslice_max_us": ["gw0", "gw1"]}
+    # A global push of the same knob clears its scope (promote path);
+    # untouched scoped knobs keep theirs.
+    w.push({"sched.feedback.window": 3}, scope=["gw2"])
+    w.push({"sched.feedback.tslice_max_us": 2000})
+    assert w.knob_scopes() == {"sched.feedback.window": ["gw2"]}
+    return [first, w.knob_scopes(), open(path + ".scope.json").read()]
+
+
+def k_scoped_push_empty_member_set_rejected(K, d):
+    path = str(d / "knobs.led")
+    w = K.channel.KnobChannel.create(path)
+    gen = w.generation
+    msg = _raises(K.knobs.KnobError,
+                  lambda: w.push({"sched.feedback.window": 3}, scope=[]))
+    assert w.generation == gen  # rejection atomic, as ever
+    return [msg, os.path.exists(path + ".scope.json")]
+
+
+def k_member_watcher_filters_scoped_push(K, d):
+    path = str(d / "knobs.led")
+    w = K.channel.KnobChannel.create(path)
+    r = K.channel.KnobChannel.attach(path)
+    wa = K.channel.KnobWatcher(r, member="gw0")
+    wb = K.channel.KnobWatcher(r, member="gw1")
+    anon = K.channel.KnobWatcher(r)  # anonymous watcher: scoped = foreign
+    w.push({"sched.feedback.tslice_max_us": 2000}, scope=["gw0"])
+    got = [wa.poll(), wb.poll(), anon.poll()]
+    assert got == [{"sched.feedback.tslice_max_us": 2000}, {}, {}]
+    assert wb.skipped == 1 and anon.skipped == 1
+    return [got, wa.skipped, wb.skipped, anon.skipped]
+
+
+def k_canary_scoping_regression_no_silent_readoption(K, d):
+    """A canary-scoped push adopted by gw0 must NOT leak into gw1
+    through the shared file when a later UNRELATED global push moves
+    the generation."""
+    path = str(d / "knobs.led")
+    w = K.channel.KnobChannel.create(path)
+    r = K.channel.KnobChannel.attach(path)
+    wa = K.channel.KnobWatcher(r, member="gw0")
+    wb = K.channel.KnobWatcher(r, member="gw1")
+    w.push({"sched.feedback.tslice_max_us": 2000}, scope=["gw0"])
+    log = [wa.poll(), wb.poll()]
+    assert "sched.feedback.tslice_max_us" in log[0]
+    assert log[1] == {}
+    w.push({"sched.feedback.window": 3})
+    got = wb.poll()
+    assert got == {"sched.feedback.window": 3}
+    # Promotion: a global push of the SAME file value re-delivers it
+    # to gw1 (scope cleared => changed vs gw1's own view).
+    w.push({"sched.feedback.tslice_max_us": 2000})
+    log += [got, wb.poll()]
+    assert log[-1] == {"sched.feedback.tslice_max_us": 2000}
+    log.append(wa.poll())
+    assert log[-1] == {"sched.feedback.window": 3}
+    assert wa.poll() is None
+    return log
+
+
+def k_rollback_push_restores_only_canary_members(K, d):
+    path = str(d / "knobs.led")
+    w = K.channel.KnobChannel.create(path)
+    r = K.channel.KnobChannel.attach(path)
+    adopted = {"gw0": {}, "gw1": {}}
+    wa = K.channel.KnobWatcher(r, member="gw0")
+    wa.add(lambda ch, vals: adopted["gw0"].update(ch))
+    wb = K.channel.KnobWatcher(r, member="gw1")
+    wb.add(lambda ch, vals: adopted["gw1"].update(ch))
+    ref_min = int(K.knobs.default("sched.feedback.tslice_min_us"))
+    ref_max = int(K.knobs.default("sched.feedback.tslice_max_us"))
+    w.push({"sched.feedback.tslice_min_us": 10,
+            "sched.feedback.tslice_max_us": 10}, scope=["gw0"])
+    wa.poll(), wb.poll()
+    assert adopted["gw0"]["sched.feedback.tslice_max_us"] == 10
+    assert adopted["gw1"] == {}
+    w.push({"sched.feedback.tslice_min_us": ref_min,
+            "sched.feedback.tslice_max_us": ref_max})  # rollback
+    wa.poll(), wb.poll()
+    assert adopted["gw0"]["sched.feedback.tslice_max_us"] == ref_max
+    assert adopted["gw1"] == {}  # never touched — truly scoped
+    return adopted
+
+
+def k_watcher_prime_delivers_current_applicable_state(K, d):
+    path = str(d / "knobs.led")
+    w = K.channel.KnobChannel.create(path)
+    w.push({"sched.feedback.window": 7}, scope=["gw9"])
+    r = K.channel.KnobChannel.attach(path)
+    seen = {}
+    watcher = K.channel.KnobWatcher(r, member="gw0")
+    watcher.add(lambda ch, vals: seen.update(ch))
+    primed = watcher.prime()
+    assert primed["sched.feedback.tslice_max_us"] == \
+        K.knobs.default("sched.feedback.tslice_max_us")
+    assert "sched.feedback.window" not in primed
+    assert seen == primed
+    return primed
+
+
+def k_appliers_never_see_foreign_scoped_values(K, d):
+    path = str(d / "knobs.led")
+    w = K.channel.KnobChannel.create(path)
+    r = K.channel.KnobChannel.attach(path)
+    seen_values = {}
+    wb = K.channel.KnobWatcher(r, member="gw1")
+    wb.add(lambda ch, vals: seen_values.update(vals))
+    w.push({"sched.feedback.tslice_min_us": 10,
+            "sched.feedback.tslice_max_us": 10}, scope=["gw0"])
+    w.push({"sched.feedback.grow_step_us": 50})  # unrelated, global
+    wb.poll()
+    assert seen_values["sched.feedback.grow_step_us"] == 50
+    assert "sched.feedback.tslice_max_us" not in seen_values
+    return seen_values
+
+
+def k_skipped_counts_filtered_deliveries_not_generations(K, d):
+    path = str(d / "knobs.led")
+    w = K.channel.KnobChannel.create(path)
+    r = K.channel.KnobChannel.attach(path)
+    wb = K.channel.KnobWatcher(r, member="gw1")
+    w.push({"sched.feedback.tslice_min_us": 10,
+            "sched.feedback.tslice_max_us": 10}, scope=["gw0"])
+    wb.poll()
+    assert wb.skipped == 2
+    w.push({"sched.feedback.grow_step_us": 50})
+    wb.poll()
+    assert wb.skipped == 2  # foreign values persisted, no new delivery
+    return wb.skipped
+
+
 def k_channel_meta_sidecar_guards_attach(K, d):
     path = str(d / "knobs.led")
     K.channel.KnobChannel.create(path)
@@ -466,6 +618,15 @@ KNOB_CASES = [
     k_watcher_push_of_current_value_is_an_empty_change,
     k_watcher_appliers_see_changes_and_full_view,
     k_two_watchers_on_one_channel_are_independent,
+    k_watch_loop_bounded,
+    k_scoped_push_writes_scope_sidecar_and_clears_on_global,
+    k_scoped_push_empty_member_set_rejected,
+    k_member_watcher_filters_scoped_push,
+    k_canary_scoping_regression_no_silent_readoption,
+    k_rollback_push_restores_only_canary_members,
+    k_watcher_prime_delivers_current_applicable_state,
+    k_appliers_never_see_foreign_scoped_values,
+    k_skipped_counts_filtered_deliveries_not_generations,
     k_channel_meta_sidecar_guards_attach,
     k_every_checked_in_profile_roundtrips,
     k_param_mapping_covers_tunable_params_exactly,
@@ -533,78 +694,6 @@ def test_channel_snapshot_never_tears_under_live_writer(tmp_path, tier):
     assert torn == []
     assert ro.generation == len(pairs)
     assert int(led.snapshot(0)[0]) == len(pairs)
-
-
-def _scoped_reference_channel(path):
-    """A channel the reference created and pushed one canary-scoped
-    knob into."""
-    w = REF.channel.KnobChannel.create(path)
-    w.push({"sched.feedback.window": 3})
-    w.push({"sched.feedback.tslice_max_us": 900}, scope=["gw0"])
-    return w
-
-
-def _refuse_attach(path, writable):
-    before = _files(path)
-    _raises(PORT.knobs.KnobError,
-            lambda: PORT.channel.KnobChannel.attach(path, writable=writable),
-            match="item 12")
-    assert _files(path) == before
-
-
-def _refuse_watcher_at_construction(path):
-    """The port's own channel, into which the reference then pushed a
-    canary-scoped knob."""
-    ch = PORT.channel.KnobChannel.create(path)
-    REF.channel.KnobChannel.attach(path, writable=True).push(
-        {"sched.feedback.tslice_max_us": 900}, scope=["gw0"])
-    _raises(PORT.knobs.KnobError, lambda: PORT.channel.KnobWatcher(ch),
-            match="scope sidecar")
-
-
-def _refuse_at_poll(path):
-    """A scoped push that lands after the watcher attached is refused at
-    the poll that sees its generation; no applier runs."""
-    w = REF.channel.KnobChannel.create(path)
-    watcher = PORT.channel.KnobWatcher(PORT.channel.KnobChannel.attach(path))
-    seen = []
-    watcher.add(lambda ch, vals: seen.append(ch))
-    w.push({"sched.feedback.window": 3})
-    assert watcher.poll() == {"sched.feedback.window": 3}
-    w.push({"sched.feedback.tslice_max_us": 900}, scope=["gw0"])
-    _raises(PORT.knobs.KnobError, watcher.poll, match="item 12")
-    assert seen == [{"sched.feedback.window": 3}]
-    assert watcher.applied == 1
-
-
-def _refuse_cleared_sidecar(path):
-    """A global push clears the knob's scope but leaves the sidecar:
-    the port still refuses the channel rather than guess."""
-    w = _scoped_reference_channel(path)
-    w.push({"sched.feedback.tslice_max_us": 900})
-    assert w.knob_scopes() == {}
-    _raises(PORT.knobs.KnobError,
-            lambda: PORT.channel.KnobChannel.attach(path), match="item 12")
-
-
-SCOPED_REFUSALS = {
-    "attach_reader": lambda p: (_scoped_reference_channel(p),
-                                _refuse_attach(p, False)),
-    "attach_writer": lambda p: (_scoped_reference_channel(p),
-                                _refuse_attach(p, True)),
-    "watcher_at_construction": _refuse_watcher_at_construction,
-    "watcher_at_poll": _refuse_at_poll,
-    "cleared_sidecar": _refuse_cleared_sidecar,
-}
-
-
-@pytest.mark.parametrize("case", sorted(SCOPED_REFUSALS))
-def test_port_refuses_a_scoped_channel(case, tmp_path):
-    """The reference's canary pushes (``scope=``) need the federation's
-    per-member adoption filter, which the port does not have yet: it
-    refuses such a channel instead of applying a scoped value to every
-    consumer."""
-    SCOPED_REFUSALS[case](str(tmp_path / "knobs.led"))
 
 
 # -- the channel file across packages -----------------------------------
@@ -696,6 +785,53 @@ def test_each_package_watches_the_others_pushes(tmp_path):
         assert _strip(seen[PORT.root][1]) == ref_log, (writer_pkg.root,
                                                        reader_pkg.root)
         assert seen[PORT.root][0].applied == seen[REF.root][0].applied
+
+
+@pytest.mark.parametrize("writer", ["ref", "port"])
+def test_scoped_channels_interoperate_across_packages(writer, tmp_path):
+    """A canary-scoped push written by either package: the scope sidecar
+    is the same bytes, the other package reads it, and each package's
+    member watchers adopt exactly the canary set, with the same changed
+    sets, skips and primed views; a global push of the same value then
+    promotes it to every member of both packages."""
+    W = {"ref": REF, "port": PORT}[writer]
+    path = str(tmp_path / "knobs.led")
+    w = W.channel.KnobChannel.create(path)
+    twin = str(tmp_path / "twin.led")
+    REF.channel.KnobChannel.create(twin).push(
+        {"sched.feedback.tslice_max_us": 2000}, scope=["gw0", "gw2"])
+    watchers = {K.root: {m: K.channel.KnobWatcher(
+        K.channel.KnobChannel.attach(path), member=m)
+        for m in ("gw0", "gw1", "gw2")} for K in (REF, PORT)}
+    w.push({"sched.feedback.tslice_max_us": 2000}, scope=["gw2", "gw0"])
+    assert open(path + ".scope.json", "rb").read() == \
+        open(twin + ".scope.json", "rb").read()
+    for K in (REF, PORT):
+        ch = K.channel.KnobChannel.attach(path)
+        assert ch.knob_scopes() == {
+            "sched.feedback.tslice_max_us": ["gw0", "gw2"]}
+    log = {}
+    for K in (REF, PORT):
+        got = {m: wt.poll() for m, wt in watchers[K.root].items()}
+        assert got == {"gw0": {"sched.feedback.tslice_max_us": 2000},
+                       "gw1": {}, "gw2": {"sched.feedback.tslice_max_us":
+                                          2000}}
+        late = K.channel.KnobWatcher(K.channel.KnobChannel.attach(path),
+                                     member="gw1")
+        primed = _strip(late.prime())
+        # A late joiner outside the canary starts from the channel's
+        # applicable truth: the scoped knob stays foreign to it.
+        assert "sched.feedback.tslice_max_us" not in primed
+        assert primed["sched.feedback.window"] == \
+            K.knobs.default("sched.feedback.window")
+        log[K.root] = [got, {m: wt.skipped
+                             for m, wt in watchers[K.root].items()}, primed]
+    assert log[PORT.root] == log[REF.root]
+    w.push({"sched.feedback.tslice_max_us": 2000})  # promotion
+    for K in (REF, PORT):
+        assert K.channel.KnobChannel.attach(path).knob_scopes() == {}
+        assert [wt.poll() for wt in watchers[K.root].values()] == [
+            {}, {"sched.feedback.tslice_max_us": 2000}, {}]
 
 
 # -- tuned profiles through policy_from_profile --------------------------
