@@ -189,6 +189,36 @@ Phases, each fatal on failure:
              (c) ``run_gateway_chaos`` and ``run_federation_chaos`` with
              the stock crash plan at the reference tests' seeds, held to
              their golden digests.
+3d. cluster — the cluster control plane at flagship width, in this
+             process on 127.0.0.1 with an auth token: two agents, each a
+             credit Partition over CudaBackend with a FeedbackPolicy,
+             behind one Controller. (a) ``train``, booted by the agents'
+             ``"image"`` workload from a warm flagship training image, and
+             ``mm``, phase 3's matmul tenant, placed on different agents
+             and driven in controller rounds; the telemetry op's counters
+             against each partition's ledger, word for word; the first
+             loss finite. (b) ``migrate_job`` of ``train``: sched_count,
+             micro_progress, counters and steps carried exactly, no
+             job-sleep hook for the quiesce, the restored state the
+             image's (device state is not carried: the job re-boots), then
+             a pause over RPC, a page-out (``list_jobs`` shows "paged"), a
+             Remus ``snapshot_record`` that leaves it paged with HBM in use
+             unchanged, and an unpause that pages it back bitwise. (c)
+             Remus replication to the other agent until 2 epochs are
+             acked, the holder killed (its jobs dropped, their HBM freed),
+             heartbeats to its death, ``recover()`` restoring ``train``
+             from the replica at no fewer steps than the last acked epoch
+             and running it to max_steps; a Controller rebuilt by
+             ``load_state`` from the Store saved before the kill holds the
+             same job map. (d) on the card host's CPU: the process
+             federation (three member processes, one SIGKILLed and
+             restarted from its journal, every invariant), two disarmed
+             runs against the digest the reference gives, and the agent
+             chaos harness's smoke scenario against the reference's golden
+             digest. Prints RPC ping p50/p99 and a 16-entry multicall, the
+             migration's parts, the Remus epoch capture and record size,
+             kill to the recovered job's next step, member spawn and
+             SIGKILL-to-recovered times, and 2.1-2.4's launches.
 4. numerics — the scoring forward through the flash kernel against the dense
              attention path on the same weights, the KV-cache prefill
              against the full forward, one micro-batch's training loss
@@ -368,6 +398,26 @@ GOLDEN_CRASH_TRACE_DIGEST = (
     "538bba5c03c74c32f2eb43cf46374365f2b445fafc4b704044f4619979e50902")
 GOLDEN_CRASH_REPORT_DIGEST = (
     "b65386f357c404918ba70d0db47bf864a060d9d0ac32817f3a6d36d36e6a5782")
+# Phase 3d, the cluster control plane: two agents on 127.0.0.1 behind one
+# Controller; train (3p's warm image, 4 steps) and mm (8 steps); pings
+# and one multicall; Remus every 0.25 s until 2 epochs are acked.
+CLUSTER_TRAIN_STEPS, CLUSTER_MM_STEPS = 4, 8
+CLUSTER_PINGS, CLUSTER_MULTICALL = 200, 16
+CLUSTER_REMUS_PERIOD_S, CLUSTER_EPOCHS, CLUSTER_EPOCH_WAIT_S = 0.25, 2, 30.0
+CLUSTER_ROUND_LIMIT = 64
+# (d) the process federation: three members, the stock kill plan; two
+# disarmed runs against the digest the reference gives for the same
+# arguments (tests/test_torch_procfed.py); and the reference's
+# tests/test_chaos_smoke.py golden (stable, seed 0, 2 agents, 2 tenants,
+# 2 rounds under FaultPlan.chaos(0)).
+PROCFED_KILL_KW = dict(workload="mixed", seed=3, n_gateways=3, n_tenants=3,
+                       ticks=120)
+PROCFED_DISARMED_KW = dict(workload="mixed", seed=5, n_gateways=3,
+                           n_tenants=3, ticks=60)
+PROCFED_DISARMED_DIGEST = (
+    "8604ac22cae1c8ee43b4ffea5b7030e5ba35501b70894d50a74c7f2504880fc2")
+GOLDEN_SMOKE_DIGEST = (
+    "d809f6d4bd0db30cea84f3b85eca3145f99c657f8f587e20915c34581528bbb1")
 H100_PEAK_BF16_FLOPS = 989e12  # dense, data sheet
 H100_PEAK_HBM_BW = 3.35e12
 
@@ -1943,9 +1993,9 @@ def write_trace_fixture(torch, gen, path: str) -> None:
 # -- phase 3p ----------------------------------------------------------------
 
 
-def state_digest(torch, state) -> list:
+def state_digest(torch, state, device="cuda") -> list:
     """One int64 sum per leaf of the state's integer view (bf16 as int16,
-    fp32 and int32 as int32), on the device, read in one transfer; Python
+    fp32 and int32 as int32), on ``device``, read in one transfer; Python
     scalars as they are. Equal digests: the same bits, leaf for leaf."""
     from pbs_tpu_torch.utils.tree import tree_leaves
 
@@ -1954,7 +2004,7 @@ def state_digest(torch, state) -> list:
     for leaf in tree_leaves(state):
         if isinstance(leaf, torch.Tensor):
             sums.append(leaf.view(ints[leaf.element_size()])
-                        .sum(dtype=torch.int64).to("cuda"))
+                        .sum(dtype=torch.int64).to(device))
         else:
             scalars.append(leaf)
     return torch.stack(sums).tolist() + scalars
@@ -1979,19 +2029,22 @@ def paging_dir(phase: str = "3p"):
     return tmp, shutil.disk_usage(tmp).free
 
 
-def build_images(torch, cfg, tmp):
-    """The corpus (PAGING_CORPUS_TOKENS from a numpy seed) and two images
-    of one manifest: ``cold`` and ``warm``, the latter holding the state
-    a cold boot of ``cold`` reaches after one step on a corpus batch —
-    built the way ``boot_job`` builds a state. Returns (the two image
-    paths, the warm state's digest and bytes, the corpus path)."""
+def build_images(torch, cfg, tmp, device="cuda",
+                 corpus_tokens=PAGING_CORPUS_TOKENS, batch=TRAIN_BATCH,
+                 seq=TRAIN_SEQ):
+    """The corpus (``corpus_tokens`` from a numpy seed) and two images of
+    one manifest: ``cold`` and ``warm``, the latter holding the state a
+    cold boot of ``cold`` on ``device`` reaches after one step on a
+    corpus batch of (``batch``, ``seq``) — built the way ``boot_job``
+    builds a state. Returns (the two image paths, the warm state's
+    digest and bytes, the corpus path)."""
     import numpy as np
 
     from pbs_tpu_torch.data import write_token_file
     from pbs_tpu_torch.runtime import boot_job, nbytes_of, save_image
 
     rng = np.random.default_rng(PAGING_SEED)
-    tokens = rng.integers(0, cfg.vocab, size=PAGING_CORPUS_TOKENS)
+    tokens = rng.integers(0, cfg.vocab, size=corpus_tokens)
     paths = {k: os.path.join(tmp, k) for k in ("cold", "warm")}
     os.makedirs(paths["cold"])
     os.makedirs(paths["warm"])
@@ -2000,18 +2053,18 @@ def build_images(torch, cfg, tmp):
     os.link(corpus, os.path.join(paths["warm"], "corpus.tok"))
     config = {k: getattr(cfg, k) for k in (
         *FLAGSHIP, "dtype", "remat", "remat_policy", "attn_impl")}
-    kw = dict(train={"batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+    kw = dict(train={"batch": batch, "seq": seq,
                      "learning_rate": TRAIN_LR, "seed": PAGING_SEED},
               data={"kind": "corpus", "path": "corpus.tok"})
     save_image(paths["cold"], "transformer", config, **kw)
-    builder = boot_job(paths["cold"], name="builder")
+    builder = boot_job(paths["cold"], name="builder", device=device)
     state, metrics = builder.step_fn(builder.state)
     loss = float(metrics["loss"])
     t0 = time.monotonic()
     save_image(paths["warm"], "transformer", config, state=state, **kw)
     save_s = time.monotonic() - t0
-    digest, nbytes = state_digest(torch, state), nbytes_of(state)
-    print(f"  image: {PAGING_CORPUS_TOKENS} corpus tokens, state "
+    digest, nbytes = state_digest(torch, state, device), nbytes_of(state)
+    print(f"  image: {corpus_tokens} corpus tokens, state "
           f"{nbytes / 1e9:.3f} GB after one step (loss {loss:.4f}), "
           f"saved in {save_s:.2f} s ({nbytes / save_s / 1e9:.2f} GB/s)",
           flush=True)
@@ -4943,6 +4996,552 @@ def run_journal_path(torch, card):
     return total, total_routes
 
 
+# -- phase 3d ----------------------------------------------------------------
+
+
+def timed_calls(record: list, fn):
+    """``fn`` wrapped to append each call's wall time in ms to
+    ``record``."""
+
+    def call(*args, **kwargs):
+        t = time.monotonic()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            record.append((time.monotonic() - t) * 1e3)
+
+    return call
+
+
+def recording_image(factory, boots: list, losses: dict, sync):
+    """An agent's ``"image"`` factory wrapped to time each boot (closed by
+    ``sync``) and to record each step's loss, by job name."""
+
+    def boot(partition, job_name, spec):
+        t = time.monotonic()
+        job = factory(partition, job_name, spec)
+        sync()
+        boots.append((time.monotonic() - t) * 1e3)
+        step_fn = job.step_fn
+
+        def step(state):
+            state, metrics = step_fn(state)
+            losses.setdefault(job_name, []).append(float(metrics["loss"]))
+            return state, metrics
+
+        job.step_fn = step
+        return job
+
+    return boot
+
+
+def mm_workload(mm_fn):
+    """The ``"mm"`` workload factory: a Job around phase 3's matmul
+    tenant step, ``spec`` giving its max_steps and sched params."""
+
+    def create(partition, job_name, spec):
+        from pbs_tpu_torch.runtime import Job, SchedParams
+
+        return partition.add_job(Job(
+            job_name, step_fn=mm_fn, state=None,
+            params=SchedParams(**spec.get("sched", {})),
+            max_steps=spec.get("max_steps")))
+
+    return create
+
+
+def drive_rounds(ctl, done, what: str, limit: int) -> int:
+    """Controller rounds of one scheduler round per agent (so the Remus
+    pump and the lock-free probes never wait long for the dispatch
+    lock) until ``done()``; returns how many ran."""
+    rounds = 0
+    while not done() and rounds < limit:
+        ctl.run_round(max_rounds=1)
+        rounds += 1
+    check(done(), f"{what}: done in {rounds} cluster rounds (at most "
+                  f"{limit})")
+    return rounds
+
+
+def ledger_counters(part, job) -> list:
+    """Each context's counters as the partition's ledger holds them."""
+    from pbs_tpu_torch.telemetry.counters import counters_dict
+
+    return [counters_dict(part.ledger.snapshot(c.ledger_slot))
+            for c in job.contexts]
+
+
+def carried_state(job) -> dict:
+    """What a save record carries of one job, read in process."""
+    return dict(sched_count=[c.sched_count for c in job.contexts],
+                micro_progress=[c.micro_progress for c in job.contexts],
+                counters=[c.counters.tolist() for c in job.contexts],
+                steps=job.steps_retired())
+
+
+def cluster_run(torch, device, warm, image_digest, mm_fn, tmp, digest_of,
+                hbm=None) -> dict:
+    """Phase 3d (a)-(c): two agents in this process on 127.0.0.1, each a
+    credit Partition over ``CudaBackend(device=device)`` with a
+    FeedbackPolicy, behind one authenticated Controller. ``train`` boots
+    from the warm image at ``warm`` (digest ``image_digest``); ``mm``
+    runs ``mm_fn``. (a) placement, rounds and telemetry over RPC; (b)
+    a live migration of ``train``, then a pause, page-out and snapshot
+    over RPC; (c) Remus replication of ``train``, the holder killed,
+    the controller's recovery, and a controller rebuilt from the Store.
+    ``hbm()`` reads device bytes in use (None on the host). Returns the
+    numbers the phase prints."""
+    import statistics
+
+    from pbs_tpu_torch.dist import Agent, Controller, RpcClient
+    from pbs_tpu_torch.runtime import Partition
+    from pbs_tpu_torch.runtime.paging import page_out_job
+    from pbs_tpu_torch.sched import FeedbackPolicy
+    from pbs_tpu_torch.store import Store
+    from pbs_tpu_torch.telemetry import CudaBackend
+    from pbs_tpu_torch.telemetry.counters import Counter
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    train_steps, mm_steps = CLUSTER_TRAIN_STEPS, CLUSTER_MM_STEPS
+    token = os.urandom(16).hex()
+    out: dict = {}
+    agents, boots, losses = [], [], {}
+    sleeps: dict[str, list] = {}
+    op_ms: dict[tuple, list] = {}
+    ctl = None
+    ctl2 = None
+    try:
+        for i in range(2):
+            name = f"a{i}"
+            part = Partition(f"{name}.pool", source=CudaBackend(device=device),
+                             scheduler="credit")
+            FeedbackPolicy(part)  # held by the partition's timer wheel
+            sleeps[name] = []
+            part.hooks.on("job-sleep", lambda ev, env, n=name:
+                          sleeps[n].append(env["PBST_JOB"]))
+            a = Agent(name, partition=part, auth_token=token, device=device,
+                      workloads={"mm": mm_workload(mm_fn)})
+            a.workloads["image"] = recording_image(a.workloads["image"],
+                                                   boots, losses, sync)
+            for op in ("save_job", "restore_job", "remove_job"):
+                rec = op_ms[(name, op)] = []
+                a.server.ops[op] = timed_calls(rec, a.server.ops[op])
+            agents.append(a.start())
+        by_name = {a.name: a for a in agents}
+        ctl = Controller(auth_token=token)
+        for a in agents:
+            ctl.add_agent(a.name, a.address)
+
+        # -- (a) the RPC, placement, rounds, telemetry --------------------
+        cli = RpcClient(agents[0].address, auth_token=token)
+        check(cli.call("ping") == "pong", "(a) an authenticated client "
+                                          "pings a0")
+        rtt = []
+        for _ in range(CLUSTER_PINGS):
+            t = time.perf_counter()
+            cli.call("ping")
+            rtt.append((time.perf_counter() - t) * 1e6)
+        rtt.sort()
+        out["ping_us"] = (statistics.median(rtt),
+                          rtt[math.ceil(0.99 * len(rtt)) - 1])
+        t = time.perf_counter()
+        res = cli.multicall([("info", {})] * CLUSTER_MULTICALL)
+        out["multicall_ms"] = (time.perf_counter() - t) * 1e3
+        check(len(res) == CLUSTER_MULTICALL
+              and all(r["ok"] and r["result"]["agent"] == "a0" for r in res),
+              f"(a) one {CLUSTER_MULTICALL}-entry multicall: every entry ok")
+        cli.close()
+
+        ctl.create_job("train", "image", {"path": warm,
+                                          "max_steps": train_steps})
+        ctl.create_job("mm", "mm", {"max_steps": mm_steps})
+        homes = {n: r.members[0].agent for n, r in ctl.jobs.items()}
+        check(homes["train"] != homes["mm"],
+              f"(a) placement: train on {homes['train']}, mm on "
+              f"{homes['mm']} (least loaded first)")
+        src = by_name[homes["train"]]
+        dst = next(a for a in agents if a is not src)
+        out["boot_ms"] = boots[-1]
+
+        def steps(job):
+            return ctl.job_steps(job)[job]
+
+        def device_ns(a):
+            return sum(int(c.counters[Counter.DEVICE_TIME_NS])
+                       for j in a.partition.jobs for c in j.contexts)
+
+        dev0, t0 = [device_ns(a) for a in agents], time.monotonic()
+        out["a_rounds"] = drive_rounds(
+            ctl, lambda: steps("train") >= 1 and steps("mm") >= 1,
+            "(a) train's and mm's first steps", CLUSTER_ROUND_LIMIT)
+        out["a_wall_s"] = time.monotonic() - t0
+        out["a_device_ms"] = [(device_ns(a) - d) / 1e6
+                              for a, d in zip(agents, dev0)]
+        out["overlap"] = sum(out["a_device_ms"]) / 1e3 / out["a_wall_s"]
+        loss = losses["train"][0]
+        check(math.isfinite(loss), f"(a) train's first step: loss {loss:.4f} "
+                                   "finite")
+        out["loss"] = loss
+        words = 0
+        for a in agents:
+            for j in a.partition.jobs:
+                tel = ctl.agents[a.name].client.call("telemetry", job=j.name)
+                got = [c["counters"] for c in tel["contexts"]]
+                check(got == ledger_counters(a.partition, j),
+                      f"(a) telemetry op on {a.name} for {j.name}: every "
+                      "counter equal to the partition's ledger snapshot")
+                words += sum(len(c) for c in got)
+        out["telemetry_words"] = words
+
+        # -- (b) live migration, pause, page-out, snapshot ----------------
+        before = carried_state(src.partition.job("train"))
+        src_digest = digest_of(src.partition.job("train").state)
+        check(src_digest != image_digest,
+              f"(b) train trained {before['steps']} step(s) on {src.name}: "
+              "its state is no longer the image's")
+        n_sleeps = len(sleeps[src.name])
+        t = time.monotonic()
+        moved = ctl.migrate_job("train", to=dst.name)
+        out["migrate_ms"] = dict(
+            total=(time.monotonic() - t) * 1e3,
+            save=op_ms[(src.name, "save_job")][-1],
+            restore=op_ms[(dst.name, "restore_job")][-1],
+            boot=boots[-1], remove=op_ms[(src.name, "remove_job")][-1])
+        new = dst.partition.job("train")
+        check(moved == {"train": dst.name}
+              and all(j.name != "train" for j in src.partition.jobs),
+              f"(b) migrate_job: train on {dst.name}, gone from {src.name}")
+        check(carried_state(new) == before,
+              f"(b) carried exactly: sched_count {before['sched_count']}, "
+              f"micro_progress {before['micro_progress']}, every counter, "
+              f"{before['steps']} step(s)")
+        check(len(sleeps[src.name]) == n_sleeps,
+              f"(b) the quiesce fired no job-sleep hook on {src.name}")
+        check(digest_of(new.state) == image_digest,
+              "(b) the restored state is the image's (digest of every "
+              "leaf), not the source's last state: device state is not "
+              "carried, the job re-boots from its image")
+        out["b_rounds"] = drive_rounds(
+            ctl, lambda: steps("train") > before["steps"],
+            f"(b) train trains on at {dst.name}", CLUSTER_ROUND_LIMIT)
+        dcli = ctl.agents[dst.name].client
+        dcli.call("pause_job", job="train", subject=ctl.subject)
+        check(sleeps[dst.name] == ["train"],
+              f"(b) pause_job over RPC fired the job-sleep hook once on "
+              f"{dst.name} ({sleeps[dst.name]})")
+        paged_digest = digest_of(new.state)
+        with dst.dispatch_lock:
+            h0 = hbm() if hbm else None
+            t = time.monotonic()
+            freed = page_out_job(dst.partition, new)
+            out["page_out_ms"] = (time.monotonic() - t) * 1e3
+            h1 = hbm() if hbm else None
+        rows = {r["job"]: r for r in dcli.call("list_jobs")}
+        check(freed > 0 and rows["train"]["state"] == "paged",
+              f"(b) paged out {freed} B; list_jobs shows "
+              f"{rows['train']['state']!r}")
+        with dst.dispatch_lock:
+            t = time.monotonic()
+            rec = dst.snapshot_record("train")
+            snap_ms = (time.monotonic() - t) * 1e3
+            h2 = hbm() if hbm else None
+        check(rec["job"] == "train" and new.paged is not None
+              and dst._job_state(new) == "paged" and h2 == h1
+              and sleeps[dst.name] == ["train"],
+              f"(b) a snapshot_record of the paged job ({snap_ms:.3f} ms) "
+              f"left it paged, HBM in use "
+              + (f"{h1} B before and {h2} B after (page-out freed "
+                 f"{h0 - h1} B)" if hbm else "not measured on the host")
+              + ", no hook fired")
+        t = time.monotonic()
+        dcli.call("unpause_job", job="train", subject=ctl.subject)
+        out["page_in_ms"] = (time.monotonic() - t) * 1e3
+        check(new.paged is None and digest_of(new.state) == paged_digest,
+              "(b) unpause_job paged it back in, every leaf as it was")
+
+        # -- (c) Remus: replicate, kill the holder, recover ----------------
+        holder, survivor = dst, src
+        peers = ctl.enable_replication("train",
+                                       period_s=CLUSTER_REMUS_PERIOD_S,
+                                       to=survivor.name)
+        check(peers == {"train": survivor.name},
+              f"(c) replication of train from {holder.name} to "
+              f"{survivor.name}")
+        sess = holder.remus["train"]
+        capture: list = []
+        holder.snapshot_record = timed_calls(capture, holder.snapshot_record)
+        t = time.monotonic()
+        c_rounds = 0
+        while (sess.epochs_committed < CLUSTER_EPOCHS
+               and time.monotonic() - t < CLUSTER_EPOCH_WAIT_S):
+            # train keeps training, short of its last step, so that the
+            # failover below restores a job with a step left to run
+            if steps("train") < train_steps - 1:
+                ctl.run_round(max_rounds=1)
+                c_rounds += 1
+            else:
+                time.sleep(CLUSTER_REMUS_PERIOD_S / 4)
+        out["c_rounds"] = c_rounds
+        replica = ctl.agents[survivor.name].client.call(
+            "get_replica", job="train", subject=ctl.subject)
+        acked_steps = sum(c["counters"][0]
+                          for c in replica["saved"]["contexts"])
+        out["epochs"] = sess.epochs_committed
+        out["epoch_capture_ms"] = statistics.median(capture) if capture \
+            else None
+        out["record_bytes"] = len(json.dumps(replica["saved"],
+                                             separators=(",", ":")))
+        check(sess.epochs_committed >= CLUSTER_EPOCHS and sess.failures == 0
+              and replica["epoch"] == sess.epochs_committed - 1,
+              f"(c) {sess.epochs_committed} epochs acked in "
+              f"{time.monotonic() - t:.2f} s (at most "
+              f"{CLUSTER_EPOCH_WAIT_S}; {sess.skipped} skipped, "
+              f"{sess.failures} failed); the replica on {survivor.name} "
+              f"holds epoch {replica['epoch']} at {acked_steps} step(s)")
+        store_path = os.path.join(tmp, "cluster.store")
+        ctl.save_state(Store(persist_path=store_path))
+        saved_map = {n: (r.workload, r.spec, [(m.agent, m.job)
+                                              for m in r.members],
+                         dict(r.replica_peers))
+                     for n, r in ctl.jobs.items()}
+
+        t_kill = time.monotonic()
+        holder.stop()
+        for j in list(holder.partition.jobs):
+            holder.partition.remove_job(j)
+        del new
+        import gc
+
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        beats = 0
+        while ctl.agents[holder.name].alive and beats < 2 * \
+                ctl.dead_after_missed:
+            ctl.heartbeat()
+            beats += 1
+        moved = ctl.recover()
+        restored = survivor.partition.job("train")
+        r_steps = restored.steps_retired()
+        check(not ctl.agents[holder.name].alive
+              and sorted(moved) == ["mm", "train"]
+              and ctl.jobs["train"].members[0].agent == survivor.name
+              and r_steps >= acked_steps,
+              f"(c) {holder.name} dead after {beats} heartbeats; recover() "
+              f"moved {sorted(moved)}; train restored on {survivor.name} "
+              f"from the replica at {r_steps} step(s) >= the last acked "
+              f"epoch's {acked_steps}")
+        check(digest_of(restored.state) == image_digest,
+              "(c) the failed-over state is the image's: re-booted, as in "
+              "a migration")
+        drive_rounds(ctl, lambda: steps("train") > r_steps,
+                     "(c) train's next step after the failover",
+                     CLUSTER_ROUND_LIMIT)
+        out["kill_to_step_ms"] = (time.monotonic() - t_kill) * 1e3
+        out["failover_boot_ms"] = boots[-1]
+        drive_rounds(ctl, lambda: restored.finished(),
+                     f"(c) train runs to max_steps {train_steps} on "
+                     f"{survivor.name}", CLUSTER_ROUND_LIMIT)
+        drive_rounds(ctl, lambda: steps("mm") >= mm_steps,
+                     f"(c) mm, re-created from its spec on {survivor.name} "
+                     f"(it had no replica), runs its {mm_steps} steps",
+                     CLUSTER_ROUND_LIMIT)
+        check(steps("train") == train_steps
+              and all(math.isfinite(x) for x in losses["train"]),
+              f"(c) train retired {train_steps} steps, every loss finite "
+              f"({len(losses['train'])} steps run in all, re-runs after "
+              "the re-boots included)")
+        ctl2 = Controller.load_state(Store(persist_path=store_path),
+                                     auth_token=token)
+        got_map = {n: (r.workload, r.spec, [(m.agent, m.job)
+                                            for m in r.members],
+                       dict(r.replica_peers))
+                   for n, r in ctl2.jobs.items()}
+        check(got_map == saved_map
+              and not ctl2.agents[holder.name].alive
+              and ctl2.agents[survivor.name].alive,
+              f"(c) Controller.load_state over the Store rebuilt the job "
+              f"map saved before the kill ({sorted(got_map)}); "
+              f"{holder.name} dead, {survivor.name} alive")
+        out["losses"] = losses["train"]
+        out["steps"] = steps("train")
+    finally:
+        for c in (ctl, ctl2):
+            if c is not None:
+                c.close()
+        for a in agents:
+            a.stop()
+    return out
+
+
+def cluster_lines(out: dict, card: str) -> None:
+    m = out["migrate_ms"]
+    print(f"  RPC ping round trip p50 {out['ping_us'][0]:.1f} us, p99 "
+          f"{out['ping_us'][1]:.1f} us over {CLUSTER_PINGS}; one "
+          f"{CLUSTER_MULTICALL}-entry multicall {out['multicall_ms']:.3f} "
+          f"ms [{card}]", flush=True)
+    print(f"  (a) image boot {out['boot_ms']:.1f} ms; {out['a_rounds']} "
+          f"rounds in {out['a_wall_s']:.3f} s; device ms a0 / a1 "
+          f"{out['a_device_ms'][0]:.2f} / {out['a_device_ms'][1]:.2f}, "
+          f"their sum over the wall {out['overlap']:.3f} (two partitions on one "
+          f"card, each quantum closed by a device synchronise); "
+          f"{out['telemetry_words']} counter words over RPC [{card}]",
+          flush=True)
+    print(f"  (b) migration {m['total']:.1f} ms: save {m['save']:.3f}, "
+          f"restore {m['restore']:.1f} (of which the image boot "
+          f"{m['boot']:.1f}), remove {m['remove']:.3f} ms; page-out "
+          f"{out['page_out_ms']:.1f} ms, page-in over RPC "
+          f"{out['page_in_ms']:.1f} ms [{card}]", flush=True)
+    cap = out["epoch_capture_ms"]
+    print(f"  (c) Remus: {out['epochs']} epochs acked, capture "
+          + (f"{cap:.3f} ms" if cap is not None else "not timed")
+          + f" (median), record {out['record_bytes']} B; kill to "
+          f"recovered train's next retired step "
+          f"{out['kill_to_step_ms']:.1f} ms (of which the image boot "
+          f"{out['failover_boot_ms']:.1f}) [{card}]", flush=True)
+
+
+def process_federation_checks(tmp) -> dict:
+    """Phase 3d (d), on the host's CPU: the process federation (three
+    member processes, one SIGKILLed and restarted from its journal, by
+    ``run_process_chaos`` and timed on a ``ProcessFederation`` of its
+    own), two disarmed runs against the pinned digest, and the cluster
+    chaos harness's smoke scenario against the reference's golden."""
+    from pbs_tpu_torch.faults import run_chaos
+    from pbs_tpu_torch.gateway import (ProcessFederation, TenantQuota,
+                                       run_process_chaos,
+                                       stock_process_kill_plan)
+    from pbs_tpu_torch.utils.clock import MS, VirtualClock
+
+    out = {}
+    t = time.monotonic()
+    r = run_process_chaos(**PROCFED_KILL_KW,
+                          kill_plan=stock_process_kill_plan(
+                              PROCFED_KILL_KW["ticks"]))
+    out["kill_s"] = time.monotonic() - t
+    kills, rec = r["process"]["kills"], r["process"]["recoveries"]
+    check(r["ok"] and len(kills) == 1 and len(rec) == 1
+          and r["process"]["members"][kills[0]["member"]]["restarts"] == 1,
+          f"(d) run_process_chaos, {PROCFED_KILL_KW['n_gateways']} member "
+          f"processes: {kills[0]['member'] if kills else '?'} SIGKILLed at "
+          f"tick {kills[0]['tick'] if kills else '?'}, restarted once, "
+          f"recovered from its journal (generation "
+          f"{rec[0]['generation'] if rec else '?'}); every invariant holds "
+          f"{r['problems'][:2]}")
+    digests = []
+    for _ in range(2):
+        t = time.monotonic()
+        d = run_process_chaos(**PROCFED_DISARMED_KW)
+        digests.append((d["ok"], d["digest"], time.monotonic() - t))
+    check(all(ok and dg == PROCFED_DISARMED_DIGEST
+              for ok, dg, _ in digests),
+          f"(d) two disarmed runs: digests {digests[0][1][:16]} and "
+          f"{digests[1][1][:16]} == the host twin's "
+          f"{PROCFED_DISARMED_DIGEST[:16]}")
+    out["disarmed_s"] = [s for _, _, s in digests]
+
+    names = [f"gw{i}" for i in range(PROCFED_KILL_KW["n_gateways"])]
+    clock = VirtualClock()
+    fed = ProcessFederation(os.path.join(tmp, "procfed"), names,
+                            clock=clock, seed=PROCFED_KILL_KW["seed"],
+                            heartbeat_ns=8 * MS, restart_backoff_ns=4 * MS)
+    try:
+        t = time.monotonic()
+        fed.start()
+        out["spawn_ms"] = (time.monotonic() - t) * 1e3
+        fed.register_tenant("t0", TenantQuota(rate=2000.0, burst=20.0))
+        for _ in range(8):
+            fed.submit("t0", cost=1)
+            clock.advance(MS)
+            fed.tick()
+        durable = set(fed.durable_rids)
+        victim = fed.ring.lookup("t0")
+        t = time.monotonic()
+        fed.kill9(victim)
+        n = 0
+        while not (fed.links[victim].recovered_from_journal
+                   and fed.sups[victim].state == "live") and n < 1000:
+            clock.advance(MS)
+            fed.tick()
+            n += 1
+        out["recover_ms"] = (time.monotonic() - t) * 1e3
+        out["recover_ticks"] = n
+        for _ in range(1000):
+            if not fed.busy():
+                break
+            clock.advance(MS)
+            fed.tick()
+        check(fed.links[victim].recovered_from_journal and durable
+              and durable <= fed.completed_rids,
+              f"(d) ProcessFederation: {len(names)} members ready in "
+              f"{out['spawn_ms']:.1f} ms; {victim} SIGKILLed and back from "
+              f"its journal in {out['recover_ms']:.1f} ms ({n} ticks); all "
+              f"{len(durable)} durably acked requests completed")
+    finally:
+        fed.stop()
+    t = time.monotonic()
+    c = run_chaos(workload="stable", seed=0, n_agents=2, n_tenants=2,
+                  rounds=2)
+    out["chaos_s"] = time.monotonic() - t
+    check(c["ok"] and c["trace_digest"] == GOLDEN_SMOKE_DIGEST,
+          f"(d) run_chaos's smoke scenario: ok {c['ok']} {c['problems'][:2]}, "
+          f"trace digest {c['trace_digest'][:16]} == the golden "
+          f"{GOLDEN_SMOKE_DIGEST[:16]}")
+    return out
+
+
+def run_cluster_path(torch, gen, card):
+    """Phase 3d on the card: the cluster control plane over the flagship
+    training image and phase 3's matmul tenant (build in a git-ignored
+    scratch directory, removed at the end), then the process federation
+    and the agent chaos harness on the card host's CPU. Returns the
+    kernel launch counts and routes of (a)-(c)."""
+    import shutil
+
+    t_phase = time.monotonic()
+    cfg = train_config(torch)
+    tmp, free = paging_dir("3d")
+    try:
+        need = 12 * cfg.num_params() + 4 * PAGING_CORPUS_TOKENS
+        check(free >= need,
+              f"disk: {free / 1e9:.1f} GB free for 3d's images, needs "
+              f"{need / 1e9:.1f} GB")
+        paths, image_digest, _, _ = build_images(torch, cfg, tmp)
+        mm_fn = mm_tenant(torch, gen)
+        wrappers = bwd_counts()
+        # Each kernel has one launching tenant (2.1-2.3 train, 2.4 mm) and
+        # a tenant lives on one agent at a time, so no count is bumped
+        # from two agent threads at once.
+        reset_counts(wrappers)
+        t = time.monotonic()
+        out = cluster_run(torch, "cuda", paths["warm"], image_digest, mm_fn,
+                          tmp, lambda s: state_digest(torch, s),
+                          hbm=torch.cuda.memory_allocated)
+        launches, routes = control_launches(wrappers)
+        cluster_lines(out, card)
+        print(f"  (a)-(c) wall {time.monotonic() - t:.1f} s; kernel "
+              f"launches {launches}, by route {routes}", flush=True)
+        for k in KERNELS:
+            n = launches[k]
+            check(n > 0 and routes[k] == {"wgmma": n, "simt": 0},
+                  f"{k}: {n} launches on the 3d path, every one on the "
+                  f"tensor-core route")
+        d = process_federation_checks(tmp)
+        print(f"  (d) run_process_chaos with a SIGKILL {d['kill_s']:.2f} s, "
+              f"disarmed {d['disarmed_s'][0]:.2f} / {d['disarmed_s'][1]:.2f} "
+              f"s; spawn to ready {d['spawn_ms']:.1f} ms for "
+              f"{PROCFED_KILL_KW['n_gateways']} members; SIGKILL to "
+              f"restarted and recovered {d['recover_ms']:.1f} ms; run_chaos "
+              f"smoke {d['chaos_s']:.2f} s, on the card host's CPU [{card}]",
+              flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not os.path.exists(tmp), f"3d's files removed ({tmp})")
+    print(f"  phase 3d wall {time.monotonic() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return launches, routes
+
+
 # -- phase 4 -----------------------------------------------------------------
 
 
@@ -5581,6 +6180,12 @@ def main() -> int:
           "harnesses")
     j_launches, j_routes = run_journal_path(torch, card_line())
 
+    phase("3d cluster control plane: two agents and a controller over RPC, "
+          "the flagship image placed, live-migrated, paged and replicated "
+          "with Remus through a holder's death, the store, the process "
+          "federation and the agent chaos harness")
+    d_launches, d_routes = run_cluster_path(torch, gen, card_line())
+
     phase("4 numerics at width")
     check_numerics(torch, gen, cfg, params)
     del params
@@ -5621,6 +6226,10 @@ def main() -> int:
         # alone, which launch none of the four
         r["journal_path_launches"] = j_launches[kernel]
         r["journal_path_launches_by_route"] = j_routes[kernel]
+        # phase 3d (a)-(c): train through a migration and a failover
+        # (2.1-2.3), mm before and after it (2.4)
+        r["cluster_path_launches"] = d_launches[kernel]
+        r["cluster_path_launches_by_route"] = d_routes[kernel]
     profile_micro_step(torch, micro_step, train_state)
     del micro_step, train_state
     profile_micro_step(torch, moe_step, moe_state, what="MoE training step")

@@ -7,9 +7,15 @@
     pbst-torch hw           the host hardware-counter plane: probe the
                             ladder, record/replay counter windows,
                             score sim-vs-real fidelity
-    pbst-torch chaos        seeded chaos runs of the serving front door:
-                            --plan gateway | federation | crash
+    pbst-torch chaos        seeded chaos runs: the cluster control plane
+                            (--plan chaos | rpc | none | FILE) or the
+                            serving front door (--plan gateway |
+                            federation | crash [--processes])
     pbst-torch journal      verify or dump a write-ahead gateway journal
+    pbst-torch create|destroy|pause|list|run|replicate|replicas|console|
+               migrate     the xl-style surface of a live agent
+                            (``--connect host:port``)
+    pbst-torch store        ls/read/write/rm on a persisted store file
 
 The port of those commands of ``pbs_tpu.cli.pbst``: the same flags
 (plus ``--device`` for ``serve-demo``), the same JSON shapes. The
@@ -22,6 +28,8 @@ reference's other commands wait for the modules they read
     python -m pbs_tpu_torch.cli.pbst sim --workload mixed --policy all
     python -m pbs_tpu_torch.cli.pbst tune --check
     python -m pbs_tpu_torch.cli.pbst chaos --plan crash --selfcheck
+    python -m pbs_tpu_torch.cli.pbst chaos --plan crash --processes
+    python -m pbs_tpu_torch.cli.pbst list --connect 127.0.0.1:7001
     python -m pbs_tpu_torch.cli.pbst journal verify gateway.jrnl
     python -m pbs_tpu_torch.cli.pbst hw replay --check \
         pbs_tpu_torch/hwtelem/windows/w0.jsonl
@@ -440,26 +448,101 @@ def _print_federation_events(report: dict, problem_label: str) -> None:
 
 
 def cmd_chaos(args) -> int:
-    """Seeded chaos run of the serving front door under an armed
-    FaultPlan, end-state invariants checked, fault-trace digest printed
-    (the determinism witness). ``--plan gateway`` attacks one gateway
-    (admission sheds/stalls, misroutes, a backend kill) with the "no
-    admitted request lost" invariant. ``--plan federation`` attacks the
-    front-door TIER (gateway deaths, partitions, lease expiries, plus a
-    seeded drain + rejoin schedule) with the no-job-lost AND
-    no-rate-inflation invariants. ``--plan crash`` is the federation
-    plan plus seeded kill-9s of the WHOLE process state, recovered from
-    the write-ahead intent journal alone (docs/DURABILITY.md).
+    """Seeded chaos run (``faults.chaos``): controller + agents over the
+    sim workload catalog under an armed FaultPlan, end-state invariants
+    checked, fault-trace digest printed (the determinism witness).
+    ``--plan gateway`` attacks the serving front door instead
+    (``gateway``: admission sheds/stalls, misroutes, a backend kill)
+    with the "no admitted request lost" invariant.
+    ``--plan federation`` attacks the front-door TIER
+    (gateway/federation.py: gateway deaths, partitions, lease
+    expiries, plus a seeded drain + rejoin schedule) with the
+    no-job-lost AND no-rate-inflation invariants.
+    ``--plan crash`` is the federation plan plus seeded kill-9s of
+    the WHOLE process state, recovered from the write-ahead intent
+    journal alone.
     ``--selfcheck`` runs the scenario twice and requires identical
-    digests. The reference's other plans (the cluster control plane's
-    ``chaos``/``rpc``/``none`` and plan files) and ``--processes`` (the
-    process federation) wait for ROADMAP queue 1 item 12. Exit contract:
-    0 = every invariant held, 1 = an invariant (or the selfcheck digest
-    match) failed, 2 = usage error."""
+    digests. ``--processes`` (federation/crash plans) runs members as
+    REAL OS processes (``gateway.procfed``): ``--plan crash`` becomes
+    literal SIGKILLs to member pids, each victim
+    recovered from its journal bytes alone under supervision.
+    Exit contract: 0 = every invariant held, 1 = an invariant (or the
+    selfcheck digest match) failed, 2 = usage error."""
+    from pbs_tpu_torch.faults import FaultPlan, run_chaos
+
+    if args.processes and args.plan not in ("federation", "crash"):
+        print("pbst-torch: --processes applies to --plan federation/crash",
+              file=sys.stderr)
+        return 2
     if args.processes:
-        raise NotImplementedError(
-            "--processes (members as real OS processes, the process "
-            "federation) is not ported (ROADMAP queue 1 item 12)")
+        from pbs_tpu_torch.gateway import run_federation_chaos
+        from pbs_tpu_torch.gateway.procfed import stock_process_kill_plan
+
+        if args.selfcheck and args.plan == "crash":
+            # The restart timeline is a host-scheduler fact; only the
+            # DISARMED process run carries a full digest.
+            print("pbst-torch: --selfcheck with --processes needs "
+                  "--plan federation (armed runs are wall-clock "
+                  "nondeterministic)", file=sys.stderr)
+            return 2
+        ticks = args.rounds * 80
+        kw = dict(workload=args.workload, seed=args.seed,
+                  n_gateways=args.gateways, n_tenants=args.tenants,
+                  ticks=ticks, process_mode=True)
+        if args.plan == "crash":
+            # Tick-positioned kills only: a real SIGKILL cannot be
+            # aimed at a byte offset (record cuts stay in-process).
+            kw["crash_plan"] = stock_process_kill_plan(ticks)
+        report = run_federation_chaos(**kw)
+        ok = report["ok"]
+        if args.selfcheck:
+            again = run_federation_chaos(**kw)
+            match = again["digest"] == report["digest"]
+            report["selfcheck"] = {
+                "digest_match": match, "second_ok": again["ok"],
+                "second_digest": again["digest"],
+            }
+            ok = ok and match and again["ok"]
+        if args.json:
+            print(json.dumps(report, indent=1, sort_keys=True))
+        else:
+            st = report["stats"]
+            proc = report["process"]
+            label = ("process crash chaos" if args.plan == "crash"
+                     else "process federation chaos")
+            print(f"{label} workload={report['workload']} "
+                  f"seed={report['seed']} gateways={report['gateways']} "
+                  f"ticks={report['ticks']}")
+            print(f"admitted={st['admitted']} "
+                  f"completed={st['completed']} "
+                  f"handoffs={st['handoffs']} "
+                  f"torn_acks={proc['torn_acks']} shed={st['shed']}")
+            for name, m in proc["members"].items():
+                print(f"  {name:<8} pid={m['pid']:>7} "
+                      f"state={m['state']:<10} "
+                      f"restarts={m['restarts']} "
+                      f"recovered_from_journal="
+                      f"{m['recovered_from_journal']}")
+            for k in proc["kills"]:
+                print(f"  SIGKILL {k['member']} pid={k['pid']} "
+                      f"@ tick {k['tick']}")
+            for r in proc["recoveries"]:
+                print(f"  recovered {r['member']} -> gen "
+                      f"{r['generation']} (recovered {r['recovered']},"
+                      f" requeued {r['requeued_inflight']}, torn "
+                      f"{r['torn_bytes']} B)")
+            for prob in report["problems"]:
+                print(f"  INVARIANT VIOLATED: {prob}")
+            if args.selfcheck:
+                sc = report["selfcheck"]
+                print(f"selfcheck: digest_match={sc['digest_match']} "
+                      f"second_ok={sc['second_ok']}")
+            print(f"arrivals_digest={report['arrivals_digest']}")
+            if "digest" in report:
+                print(f"digest={report['digest']}")
+            print("ok" if ok else "FAILED")
+        return 0 if ok else 1
+
     if args.plan in ("federation", "crash"):
         from pbs_tpu_torch.gateway import run_federation_chaos, stock_crash_plan
 
@@ -522,17 +605,70 @@ def cmd_chaos(args) -> int:
             print("ok" if ok else "FAILED")
         return 0 if ok else 1
 
-    # --plan gateway (argparse admits no other value)
-    from pbs_tpu_torch.gateway import run_gateway_chaos
+    if args.plan == "gateway":
+        from pbs_tpu_torch.gateway import run_gateway_chaos
+
+        kw = dict(workload=args.workload, seed=args.seed,
+                  n_backends=args.agents, n_tenants=args.tenants,
+                  ticks=args.rounds * 80, trace_path=args.trace,
+                  obs_dir=args.obs)
+        report = run_gateway_chaos(**kw)
+        ok = report["ok"]
+        if args.selfcheck:
+            again = run_gateway_chaos(**kw)
+            match = again["trace_digest"] == report["trace_digest"]
+            report["selfcheck"] = {
+                "digest_match": match, "second_ok": again["ok"],
+                "second_digest": again["trace_digest"],
+            }
+            ok = ok and match and again["ok"]
+        if args.json:
+            print(json.dumps(report, indent=1, sort_keys=True))
+        else:
+            st = report["stats"]
+            print(f"gateway chaos workload={report['workload']} "
+                  f"seed={report['seed']} backends={report['backends']} "
+                  f"ticks={report['ticks']} "
+                  f"killed={report['killed_backend']}")
+            print(f"admitted={st['admitted']} completed={st['completed']} "
+                  f"requeued={st['requeued']} "
+                  f"shed_rate={st['shed_rate']} "
+                  f"faults_fired={sum(report['faults_fired'].values())}")
+            for k, v in report["faults_fired"].items():
+                print(f"  {k:<32} {v}")
+            for prob in report["problems"]:
+                print(f"  INVARIANT VIOLATED: {prob}")
+            if args.selfcheck:
+                sc = report["selfcheck"]
+                print(f"selfcheck: digest_match={sc['digest_match']} "
+                      f"second_ok={sc['second_ok']}")
+            print(f"trace_digest={report['trace_digest']}")
+            print("ok" if ok else "FAILED")
+        return 0 if ok else 1
+
+    if args.plan == "chaos":
+        plan = FaultPlan.chaos(args.seed)
+    elif args.plan == "rpc":
+        plan = FaultPlan.rpc_chaos(args.seed)
+    elif args.plan == "none":
+        plan = FaultPlan(seed=args.seed)  # dry run: seams armed, no rules
+    else:
+        try:
+            with open(args.plan) as f:
+                plan = FaultPlan.from_dict(json.load(f))
+        except (OSError, ValueError, KeyError) as e:
+            print(f"pbst-torch: bad fault plan {args.plan!r}: {e}",
+                  file=sys.stderr)
+            return 2
 
     kw = dict(workload=args.workload, seed=args.seed,
-              n_backends=args.agents, n_tenants=args.tenants,
-              ticks=args.rounds * 80, trace_path=args.trace,
-              obs_dir=args.obs)
-    report = run_gateway_chaos(**kw)
+              n_agents=args.agents, n_tenants=args.tenants,
+              rounds=args.rounds, plan=plan, trace_path=args.trace,
+              replicate=not args.no_replication)
+    report = run_chaos(**kw)
     ok = report["ok"]
     if args.selfcheck:
-        again = run_gateway_chaos(**kw)
+        again = run_chaos(**kw)
         match = again["trace_digest"] == report["trace_digest"]
         report["selfcheck"] = {
             "digest_match": match, "second_ok": again["ok"],
@@ -542,15 +678,12 @@ def cmd_chaos(args) -> int:
     if args.json:
         print(json.dumps(report, indent=1, sort_keys=True))
     else:
-        st = report["stats"]
-        print(f"gateway chaos workload={report['workload']} "
-              f"seed={report['seed']} backends={report['backends']} "
-              f"ticks={report['ticks']} "
-              f"killed={report['killed_backend']}")
-        print(f"admitted={st['admitted']} completed={st['completed']} "
-              f"requeued={st['requeued']} "
-              f"shed_rate={st['shed_rate']} "
-              f"faults_fired={sum(report['faults_fired'].values())}")
+        print(f"workload={report['workload']} seed={report['seed']} "
+              f"agents={report['agents']} rounds={report['rounds']}")
+        print(f"faults_fired={sum(report['faults_fired'].values())} "
+              f"retries={report['client_retries']} "
+              f"idem_hits={report['idem_hits']} "
+              f"round_errors={report['round_errors']}")
         for k, v in report["faults_fired"].items():
             print(f"  {k:<32} {v}")
         for prob in report["problems"]:
@@ -562,6 +695,197 @@ def cmd_chaos(args) -> int:
         print(f"trace_digest={report['trace_digest']}")
         print("ok" if ok else "FAILED")
     return 0 if ok else 1
+
+
+def _parse_addr(s: str) -> tuple[str, int]:
+    host, _, port = s.rpartition(":")
+    return (host or "127.0.0.1", int(port))
+
+
+def _agent_client(args):
+    from pbs_tpu_torch.dist.rpc import RpcClient
+
+    # deadline_s bounds the whole retry loop: a dead agent fails the
+    # command in bounded time instead of hanging the terminal.
+    return RpcClient(_parse_addr(args.connect), deadline_s=60.0)
+
+
+def cmd_create(args) -> int:
+    """xl create analog: create a job on a live agent."""
+    cli = _agent_client(args)
+    spec = json.loads(args.spec) if args.spec else {}
+    if args.weight is not None:
+        spec.setdefault("sched", {})["weight"] = args.weight
+    if args.max_steps is not None:
+        spec["max_steps"] = args.max_steps
+    r = cli.call("create_job", job=args.job, workload=args.workload,
+                 spec=spec, subject=args.subject)
+    print(json.dumps(r))
+    cli.close()
+    return 0
+
+
+def cmd_destroy(args) -> int:
+    cli = _agent_client(args)
+    cli.call("remove_job", job=args.job, subject=args.subject)
+    cli.close()
+    return 0
+
+
+def cmd_pause(args) -> int:
+    cli = _agent_client(args)
+    op = "unpause_job" if args.unpause else "pause_job"
+    cli.call(op, job=args.job, subject=args.subject)
+    cli.close()
+    return 0
+
+
+def cmd_list(args) -> int:
+    """xl list analog."""
+    cli = _agent_client(args)
+    info = cli.call("info")
+    rows = cli.call("list_jobs")
+    print(f"agent={info['agent']} partition={info['partition']} "
+          f"scheduler={info['scheduler']}")
+    print(f"{'job':<16} {'state':<10} {'steps':>10} {'weight':>7} "
+          f"{'tslice':>7}")
+    for r in rows:
+        print(f"{r['job']:<16} {r.get('state', '?'):<10} "
+              f"{r.get('steps', 0):>10} {r.get('weight', ''):>7} "
+              f"{r.get('tslice_us', ''):>7}")
+    cli.close()
+    return 0
+
+
+def cmd_replicate(args) -> int:
+    """Remus surface: start/stop/status of a job's replication pump on
+    its source agent (tools/remus CLI analog)."""
+    cli = _agent_client(args)
+    try:
+        if args.action == "start":
+            if not args.peer:
+                print("pbst-torch: replicate start needs --peer host:port",
+                      file=sys.stderr)
+                return 1
+            try:
+                host, port = _parse_addr(args.peer)
+            except ValueError:
+                print(f"pbst-torch: bad --peer {args.peer!r} "
+                      "(expected host:port)", file=sys.stderr)
+                return 1
+            st = cli.call("replicate_start", job=args.job, peer_host=host,
+                          peer_port=port, period_s=args.period,
+                          subject=args.subject)
+            print(json.dumps(st))
+        elif args.action == "stop":
+            ok = cli.call("replicate_stop", job=args.job,
+                          subject=args.subject)
+            print(json.dumps({"stopped": ok}))
+        else:  # status
+            st = cli.call("replicate_status", job=args.job,
+                          subject=args.subject)
+            print(json.dumps(st, indent=1))
+    finally:
+        cli.close()
+    return 0
+
+
+def cmd_replicas(args) -> int:
+    """What replicas a backup host holds (the failover inventory)."""
+    cli = _agent_client(args)
+    try:
+        rows = cli.call("list_replicas", subject=args.subject)
+        print(f"{'job':<16} {'epoch':>8} {'source':<12} {'age_s':>8}")
+        for r in rows:
+            print(f"{r['job']:<16} {r['epoch']:>8} {r['source']:<12} "
+                  f"{r['age_s']:>8.2f}")
+    finally:
+        cli.close()
+    return 0
+
+
+def cmd_console(args) -> int:
+    """xl console analog: stream a job's console ring from an agent."""
+    import time as _t
+
+    cli = _agent_client(args)
+    since = args.since
+    try:
+        while True:
+            r = cli.call("console", job=args.job, since=since,
+                         subject=args.subject)
+            if r.get("dropped"):
+                print(f"[... {r['dropped']} line(s) lost to the ring ...]")
+            for ln in r["lines"]:
+                print(f"[{ln['seq']:>6}] {ln['line']}")
+            since = r["next"]
+            if not args.follow:
+                break
+            _t.sleep(args.interval)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        cli.close()
+    return 0
+
+
+def cmd_run(args) -> int:
+    """Drive scheduler rounds on a live agent."""
+    cli = _agent_client(args)
+    quanta = cli.call("run", _timeout=600.0, max_rounds=args.rounds)
+    print(json.dumps({"quanta": quanta}))
+    cli.close()
+    return 0
+
+
+def cmd_migrate(args) -> int:
+    """xl migrate analog: save on source, restore on dest, teardown.
+    Workload/spec default to the save record's provenance; --spec only
+    overrides deliberately."""
+    from pbs_tpu_torch.dist.rpc import RpcClient
+
+    src = RpcClient(_parse_addr(args.connect), deadline_s=60.0)
+    dst = RpcClient(_parse_addr(args.to), deadline_s=60.0)
+    try:
+        saved = src.call("save_job", job=args.job, subject=args.subject)
+        try:
+            r = dst.call("restore_job", job=args.job,
+                         workload=args.workload,
+                         spec=json.loads(args.spec) if args.spec else None,
+                         saved=saved, subject=args.subject)
+        except Exception:
+            src.call("unpause_job", job=args.job, subject=args.subject)
+            raise
+        src.call("remove_job", job=args.job, subject=args.subject)
+        print(json.dumps(r))
+    finally:
+        src.close()
+        dst.close()
+    return 0
+
+
+def cmd_store(args) -> int:
+    from pbs_tpu_torch.store import Store
+
+    s = Store(persist_path=args.db)
+    subj = args.subject
+    if args.op == "ls":
+        for name in s.ls(args.path, subject=subj):
+            print(name)
+    elif args.op == "read":
+        v = s.read(args.path, subject=subj)
+        if v is None and not s.exists(args.path, subject=subj):
+            print(f"pbst-torch: no entry {args.path}", file=sys.stderr)
+            return 1
+        print(json.dumps(v))
+    elif args.op == "write":
+        if args.value is None:
+            print("pbst-torch: store write requires a JSON value", file=sys.stderr)
+            return 2
+        s.write(args.path, json.loads(args.value), subject=subj)
+    elif args.op == "rm":
+        print(s.rm(args.path, subject=subj))
+    return 0
 
 
 def cmd_journal(args) -> int:
@@ -634,32 +958,110 @@ def main(argv=None) -> int:
     sp.set_defaults(fn=cmd_serve_demo)
 
     sp = sub.add_parser(
-        "chaos", help="seeded fault-injection run of the serving front "
-                      "door (pbs_tpu_torch.gateway)")
+        "chaos", help="seeded fault-injection run (pbs_tpu_torch.faults)")
     sp.add_argument("--workload", default="mixed",
                     help="workload mix (the sim.workload catalog)")
     sp.add_argument("--seed", type=int, default=0)
-    sp.add_argument("--agents", type=int, default=3,
-                    help="backend pool size (--plan gateway)")
+    sp.add_argument("--agents", type=int, default=3)
     sp.add_argument("--gateways", type=int, default=3,
                     help="federation members (--plan federation)")
     sp.add_argument("--tenants", type=int, default=4)
     sp.add_argument("--rounds", type=int, default=5)
-    sp.add_argument("--plan", default="gateway",
-                    choices=["gateway", "federation", "crash"],
-                    help="'gateway', 'federation', or 'crash' "
-                         "(federation + journal-recovered kill-9s)")
+    sp.add_argument("--plan", default="chaos",
+                    help="'chaos', 'rpc', 'gateway', 'federation', "
+                         "'crash' (federation + journal-recovered "
+                         "kill-9s), 'none', or a FaultPlan JSON path")
     sp.add_argument("--trace", default=None,
                     help="write the fault trace JSONL here")
     sp.add_argument("--obs", default=None, metavar="DIR",
-                    help="write span artifacts here")
+                    help="write span artifacts here (gateway/"
+                         "federation plans)")
+    sp.add_argument("--no-replication", action="store_true")
     sp.add_argument("--processes", action="store_true",
-                    help="members as real OS processes (not ported: "
-                         "ROADMAP queue 1 item 12)")
+                    help="members as REAL OS processes (federation/"
+                         "crash plans): --plan crash delivers literal "
+                         "SIGKILLs, recovery from journal bytes alone")
     sp.add_argument("--selfcheck", action="store_true",
                     help="run twice; digests must match")
     sp.add_argument("--json", action="store_true")
     sp.set_defaults(fn=cmd_chaos)
+
+    sp = sub.add_parser("store", help="store ops (xenstore)")
+    sp.add_argument("op", choices=["ls", "read", "write", "rm"])
+    sp.add_argument("path")
+    sp.add_argument("value", nargs="?")
+    sp.add_argument("--db", required=True)
+    sp.add_argument("--subject", default="operator",
+                    help="XSM label presented to the store policy")
+    sp.set_defaults(fn=cmd_store)
+
+    def agent_args(sp):
+        sp.add_argument("--connect", required=True,
+                        help="agent address host:port")
+        sp.add_argument("--subject", default="operator",
+                        help="XSM subject label")
+
+    sp = sub.add_parser("create", help="create a job on an agent (xl create)")
+    sp.add_argument("job")
+    agent_args(sp)
+    sp.add_argument("--workload", default="sim")
+    sp.add_argument("--spec", help="workload spec JSON")
+    sp.add_argument("-w", "--weight", type=int)
+    sp.add_argument("--max-steps", type=int, dest="max_steps")
+    sp.set_defaults(fn=cmd_create)
+
+    sp = sub.add_parser("destroy", help="destroy a job (xl destroy)")
+    sp.add_argument("job")
+    agent_args(sp)
+    sp.set_defaults(fn=cmd_destroy)
+
+    sp = sub.add_parser("pause", help="pause/unpause a job (xl pause)")
+    sp.add_argument("job")
+    agent_args(sp)
+    sp.add_argument("--unpause", action="store_true")
+    sp.set_defaults(fn=cmd_pause)
+
+    sp = sub.add_parser("list", help="list jobs on an agent (xl list)")
+    agent_args(sp)
+    sp.set_defaults(fn=cmd_list)
+
+    sp = sub.add_parser("run", help="drive scheduler rounds on an agent")
+    agent_args(sp)
+    sp.add_argument("--rounds", type=int, default=100)
+    sp.set_defaults(fn=cmd_run)
+
+    sp = sub.add_parser("replicate",
+                        help="Remus replication control (tools/remus)")
+    sp.add_argument("action", choices=["start", "stop", "status"])
+    sp.add_argument("job")
+    agent_args(sp)
+    sp.add_argument("--peer", default=None, help="backup host:port")
+    sp.add_argument("--period", type=float, default=0.5)
+    sp.set_defaults(fn=cmd_replicate)
+
+    sp = sub.add_parser("replicas",
+                        help="replicas held by a backup host")
+    agent_args(sp)
+    sp.set_defaults(fn=cmd_replicas)
+
+    sp = sub.add_parser("console",
+                        help="stream a job's console (xl console)")
+    sp.add_argument("job")
+    agent_args(sp)
+    sp.add_argument("--since", type=int, default=0)
+    sp.add_argument("-f", "--follow", action="store_true")
+    sp.add_argument("--interval", type=float, default=0.5)
+    sp.set_defaults(fn=cmd_console)
+
+    sp = sub.add_parser("migrate", help="migrate a job (xl migrate)")
+    sp.add_argument("job")
+    agent_args(sp)
+    sp.add_argument("--to", required=True, help="destination host:port")
+    sp.add_argument("--workload", default=None,
+                    help="override workload (default: from save record)")
+    sp.add_argument("--spec", default=None,
+                    help="override spec JSON (default: from save record)")
+    sp.set_defaults(fn=cmd_migrate)
 
     sp = sub.add_parser(
         "journal",

@@ -2,9 +2,9 @@
 
 ``FaultPlan`` (plan.py) declares *what* goes wrong where and how often;
 ``FaultInjector`` (injector.py) is the process-global registry every
-instrumented seam consults. The JAX package's chaos engine
-(``run_chaos``) drives its distributed control plane, which the port
-does not have yet (ROADMAP).
+instrumented seam consults; ``chaos.py`` drives controller + agents
+over the sim workload catalog under a plan and checks end-state
+invariants (the ``pbst-torch chaos`` engine).
 """
 
 from pbs_tpu_torch.faults.injector import (
@@ -18,6 +18,19 @@ from pbs_tpu_torch.faults.injector import (
 )
 from pbs_tpu_torch.faults.plan import POINTS, FaultPlan, FaultSpec
 
+
+def __getattr__(name: str):
+    # chaos.py pulls in sim/ and dist/, which import the very modules
+    # that host injection seams (telemetry, runtime) — an eager import
+    # here is a cycle. The seams import ``faults.injector`` directly;
+    # the chaos engine loads only when someone asks for it.
+    if name in ("run_chaos", "tenant_spec_dict"):
+        from pbs_tpu_torch.faults import chaos
+
+        return getattr(chaos, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
     "Fault",
     "FaultInjector",
@@ -28,5 +41,7 @@ __all__ = [
     "active",
     "consult",
     "install",
+    "run_chaos",
+    "tenant_spec_dict",
     "uninstall",
 ]

@@ -8,17 +8,13 @@ paper's performance-feedback loop applied at the request-queue layer.
 Beside it the durability and federation plane: the write-ahead intent
 journal, crash recovery from journal bytes alone, the federated tier
 (leased admission, consistent-hash placement, handoff), the member
-supervisor and the in-process chaos harnesses.
+supervisor, the process federation (members as real OS processes) and
+the chaos harnesses.
 
 Device-free by construction: backends arrive already built (the port's
 ``ContinuousBatcher`` via :class:`BatcherBackend`, or the simulated
 :class:`SimServeBackend`); the gateway itself imports no torch, so
 admission/fairness/routing test and run anywhere.
-
-Not ported yet (ROADMAP queue 1 item 12): the process federation
-(``ProcessFederation``, ``run_process_chaos``,
-``stock_process_kill_plan``). Looking up one of its names here raises
-``AttributeError`` naming that item.
 """
 
 from pbs_tpu_torch.gateway.admission import (
@@ -50,11 +46,6 @@ from pbs_tpu_torch.gateway.gateway import (
     SubmitResult,
 )
 
-#: The reference's names this package does not have yet.
-NOT_PORTED = frozenset({
-    "ProcessFederation", "run_process_chaos", "stock_process_kill_plan",
-})
-
 #: Lazily imported surfaces, by module: the chaos harnesses pull in the
 #: sim workload catalog, and serving callers without a journal pay for
 #: none of the durability plane.
@@ -63,6 +54,8 @@ _LAZY = {
               "stock_crash_plan"),
     "journal": ("GatewayJournal", "JournalCorrupt", "ProcessKill",
                 "read_journal"),
+    "procfed": ("ProcessFederation", "run_process_chaos",
+                "stock_process_kill_plan"),
     "recovery": ("recover_gateway", "recover_federation"),
     "supervisor": ("MemberSupervisor", "ProcessHandle"),
 }
@@ -76,10 +69,6 @@ def __getattr__(name: str):
             return getattr(
                 importlib.import_module(f"pbs_tpu_torch.gateway.{module}"),
                 name)
-    if name in NOT_PORTED:
-        raise AttributeError(
-            f"pbs_tpu_torch.gateway.{name} is not ported: the process "
-            "federation is ROADMAP queue 1 item 12")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
@@ -100,6 +89,7 @@ __all__ = [
     "LeaseBroker",
     "LeasedBucket",
     "MemberSupervisor",
+    "ProcessFederation",
     "ProcessHandle",
     "ProcessKill",
     "Request",
@@ -115,6 +105,8 @@ __all__ = [
     "recover_gateway",
     "run_federation_chaos",
     "run_gateway_chaos",
+    "run_process_chaos",
     "sched_feedback_sink",
     "stock_crash_plan",
+    "stock_process_kill_plan",
 ]

@@ -31,9 +31,10 @@ The invariants these harnesses exist to gate (docs/GATEWAY.md):
   global rate.
 - **determinism** — same seed ⇒ same digest AND same books.
 
-Not ported yet (ROADMAP queue 1 item 12): ``process_mode=True`` (the
-process federation, ``procfed``) and ``autopilot=`` (the closed tuning
-loop); both raise ``NotImplementedError`` naming that item.
+``process_mode=True`` delegates to the process federation's harness
+(``procfed.run_process_chaos``). Not ported yet (ROADMAP queue 1 item
+12): ``autopilot=`` (the closed tuning loop), which raises
+``NotImplementedError`` naming that item.
 """
 
 from __future__ import annotations
@@ -428,10 +429,12 @@ def run_federation_chaos(workload: str = "mixed", seed: int = 0,
     run — and both digests — are byte-identical to the pre-knob
     harness.
 
-    ``autopilot`` (the reference's closed tuning loop) and
-    ``process_mode=True`` (members as real OS processes) are not
-    ported: each raises ``NotImplementedError`` naming ROADMAP queue
-    1 item 12.
+    ``process_mode=True`` runs the members as REAL OS processes: it
+    delegates to :func:`~pbs_tpu_torch.gateway.procfed.run_process_chaos`,
+    and ``crash_plan`` tick entries become literal SIGKILLs to member
+    pids. ``autopilot`` (the reference's closed tuning loop) is not
+    ported: it raises ``NotImplementedError`` naming ROADMAP queue 1
+    item 12.
 
     ``arrival_model`` swaps the stock :func:`draw_arrival` stream for
     a custom :class:`ArrivalModel` (the scenario-genome traffic
@@ -465,9 +468,35 @@ def run_federation_chaos(workload: str = "mixed", seed: int = 0,
     serving engine cannot be resurrected from them). ``serve=None``
     keeps every golden byte-identical."""
     if process_mode:
-        raise NotImplementedError(
-            "process_mode (members as real OS processes, the process "
-            "federation) is not ported (ROADMAP queue 1 item 12)")
+        # Members as REAL OS processes: delegate to the procfed
+        # harness — ``crash_plan`` tick entries become literal SIGKILLs
+        # to member pids. Record-positioned cuts (``{"record": N}``)
+        # are an in-process-only instrument: a byte-precise tear needs
+        # the harness holding the journal fd, and a real SIGKILL cannot
+        # be aimed at a byte offset. The in-process knob/autopilot/
+        # serve control planes don't cross the process boundary either.
+        if any("tick" not in e for e in (crash_plan or [])):
+            raise ValueError(
+                "process_mode realizes only tick-positioned kills: "
+                "record-positioned torn-write cuts need the "
+                "in-process harness (crash_plan without "
+                "process_mode)")
+        if knob_plan or (autopilot is not None and autopilot is not
+                         False) or serve is not None or plan is not None:
+            raise ValueError(
+                "process_mode is mutually exclusive with plan/"
+                "knob_plan/autopilot/serve: those control planes "
+                "live in the harness process, not in the members")
+        from pbs_tpu_torch.gateway.procfed import run_process_chaos
+
+        return run_process_chaos(
+            workload=workload, seed=seed, n_gateways=n_gateways,
+            n_tenants=n_tenants, ticks=ticks, tick_ns=tick_ns,
+            backends_per_gateway=backends_per_gateway,
+            kill_plan=[{"tick": int(e["tick"]),
+                        **({"member": e["member"]} if "member" in e
+                           else {})}
+                       for e in (crash_plan or [])])
     if autopilot is not None and autopilot is not False:
         raise NotImplementedError(
             "autopilot (the closed tuning loop) is not ported (ROADMAP "

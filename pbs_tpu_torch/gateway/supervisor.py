@@ -24,8 +24,7 @@ Two layers, deliberately separated (docs/GATEWAY.md "Process mode"):
   finally blocks, no flush — so recovery works from the journal bytes
   that were durable *before* the kill.
 
-The process federation that drives both (``procfed``) is not ported
-yet (ROADMAP queue 1 item 12).
+The process federation (``procfed``) drives both.
 """
 
 from __future__ import annotations

@@ -18,8 +18,8 @@ the hypervisor's own ``xl dmesg`` ring: infrastructure that must report
 a condition but has no job to attribute it to (a leaked RPC server
 thread, a quarantined agent) writes here via :func:`log`.
 
-The port of ``pbs_tpu.obs.console``, line for line. The control-plane
-relay (``pbst console``) waits for the agent (ROADMAP queue 1, item 12).
+The port of ``pbs_tpu.obs.console``, line for line; the agent's
+``console`` op relays it (``pbst-torch console``).
 """
 
 from __future__ import annotations

@@ -1,3 +1,16 @@
+"""The port's runtime: jobs, partitions, executors, the event channel,
+admission (compile cache, device memory, paging, shared weights),
+images, grants, hooks, watchdogs and the security labels.
+
+The modules that touch torch (images, device memory, paging, shared
+weights, and the partition, which reads tensor sizes) load on first
+use of one of their names, so the device-free planes that only need
+jobs, events or labels (the gateway, the process federation's member
+processes) import no torch.
+"""
+
+import importlib
+
 from pbs_tpu_torch.runtime.compile_gate import (
     CompileAdmission,
     CompileBudget,
@@ -16,23 +29,7 @@ from pbs_tpu_torch.runtime.grants import (
     map_grant,
 )
 from pbs_tpu_torch.runtime.hooks import HookError, HookRegistry
-from pbs_tpu_torch.runtime.image import boot_job, image_workload, save_image
 from pbs_tpu_torch.runtime.job import ContextState, ExecutionContext, Job, SchedParams
-from pbs_tpu_torch.runtime.memory import (
-    MemoryAccount,
-    MemoryManager,
-    OutOfDeviceMemory,
-    device_memory_stats,
-    nbytes_of,
-)
-from pbs_tpu_torch.runtime.paging import (
-    PagingError,
-    page_in_job,
-    page_out_job,
-    register_paging_reclaim,
-)
-from pbs_tpu_torch.runtime.partition import Partition
-from pbs_tpu_torch.runtime.sharing import SharedWeights, WeightsRegistry
 from pbs_tpu_torch.runtime.timer import Timer, TimerWheel
 from pbs_tpu_torch.runtime.watchdog import (
     WallWatchdog,
@@ -47,6 +44,28 @@ from pbs_tpu_torch.runtime.xsm import (
     set_policy,
     xsm_check,
 )
+
+#: Names served from modules that import torch, by module; each loads
+#: on first use.
+_LAZY = {
+    "image": ("boot_job", "image_workload", "save_image"),
+    "memory": ("MemoryAccount", "MemoryManager", "OutOfDeviceMemory",
+               "device_memory_stats", "nbytes_of"),
+    "paging": ("PagingError", "page_in_job", "page_out_job",
+               "register_paging_reclaim"),
+    "partition": ("Partition",),
+    "sharing": ("SharedWeights", "WeightsRegistry"),
+}
+
+
+def __getattr__(name: str):
+    for module, names in _LAZY.items():
+        if name in names:
+            return getattr(
+                importlib.import_module(f"pbs_tpu_torch.runtime.{module}"),
+                name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     "CompileAdmission",

@@ -284,21 +284,25 @@ class Partition:
 
     # -- run-state control (vcpu_sleep/wake, schedule.c) -----------------
 
-    def sleep_job(self, job: Job) -> None:
+    def sleep_job(self, job: Job, notify: bool = True) -> None:
+        """``notify=False`` is the internal-quiesce form (Remus epoch
+        capture, migration save): a sub-second suspend/resume cycle is
+        not a lifecycle event, and hotplug scripts must not run inside
+        it."""
         changed = False
         for ctx in job.contexts:
             if ctx.runnable():
                 ctx.state = ContextState.BLOCKED
                 self.scheduler.sleep(ctx)
                 changed = True
-        if changed:
+        if changed and notify:
             try:
                 self.hooks.fire("job-sleep", self._hook_env(job),
                                 console=job.console)
             except HookError:
                 pass  # run-state changes cannot be vetoed
 
-    def wake_job(self, job: Job) -> None:
+    def wake_job(self, job: Job, notify: bool = True) -> None:
         if job.paged is not None:
             # xenpaging fault path: touching a paged tenant restores
             # its device state first (claiming HBM back; may raise
@@ -312,7 +316,7 @@ class Partition:
                 ctx.state = ContextState.RUNNABLE
                 self.scheduler.wake(ctx)
                 changed = True
-        if changed:
+        if changed and notify:
             try:
                 self.hooks.fire("job-wake", self._hook_env(job),
                                 console=job.console)

@@ -9,7 +9,8 @@ against ``pbs_tpu``'s: twins of ``tests/test_federation.py`` and
   functions of a package namespace and run on both packages; their
   observables must be equal. The controller is the reference's
   ``dist.controller.Controller``, duck-typed into either package's
-  federation (the port has no ``dist/`` yet, ROADMAP item 12).
+  federation; ``tests/test_torch_dist.py`` runs the same cases with
+  the port's own ``Controller``.
 - The chaos cases run the port's harness: the reference tests' golden
   digests as they stand (plain and knob hot-reload), then the whole
   report against the reference's for every scenario.
@@ -704,12 +705,20 @@ def test_federation_obs_export_feeds_slo_report(tmp_path, capsys):
 
 
 def test_unported_harness_modes_raise_naming_the_item():
-    for kw in (dict(process_mode=True), dict(autopilot=True),
-               dict(autopilot={})):
+    """``autopilot=`` is still unported and raises naming its item;
+    ``process_mode=True`` is ported (``tests/test_torch_procfed.py``)
+    and refuses, as the reference does, every control plane that lives
+    in the harness process — before any member is spawned."""
+    for kw in (dict(autopilot=True), dict(autopilot={})):
         with pytest.raises(NotImplementedError, match="item 12"):
             PORT.gw.run_federation_chaos(**SMOKE_KW, **kw)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        port_main(["chaos", "--plan", "crash", "--processes"])
+    for kw in (dict(autopilot=True), dict(crash_plan=[{"record": 3}]),
+               dict(knob_plan=[{"tick": 5, "set": {}}])):
+        for P in (REF, PORT):
+            with pytest.raises(ValueError, match="process_mode"):
+                P.gw.run_federation_chaos(**SMOKE_KW, process_mode=True,
+                                          **kw)
+    assert port_main(["chaos", "--plan", "gateway", "--processes"]) == 2
 
 
 # -- canary-scoped knobs through the federation -------------------------

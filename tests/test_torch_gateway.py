@@ -874,16 +874,13 @@ def test_journal_is_refused_not_ignored(tmp_path):
                                   "MemberSupervisor"])
 def test_unported_names_raise_naming_the_item(name):
     """Every name of the reference's gateway resolves in the port by
-    the same name, or, while unported (the process federation), raises
-    naming its ROADMAP item."""
+    the same name, from the same module (the process federation too,
+    since it was ported): the port's gateway exports all of them."""
     import pbs_tpu_torch.gateway as port_gateway
 
     assert name in pbs_tpu.gateway.__all__
-    if name in port_gateway.NOT_PORTED:
-        with pytest.raises(AttributeError, match="item 12"):
-            getattr(port_gateway, name)
-        assert name not in port_gateway.__all__
-        return
+    assert not hasattr(port_gateway, "NOT_PORTED")
+    assert sorted(port_gateway.__all__) == sorted(pbs_tpu.gateway.__all__)
     assert name in port_gateway.__all__
     got, want = getattr(port_gateway, name), getattr(pbs_tpu.gateway, name)
     assert got.__name__ == want.__name__

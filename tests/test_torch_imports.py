@@ -132,6 +132,64 @@ def test_port_imports_without_triton_nvcc_or_jax():
     assert out.stdout.startswith("ok")
 
 
+#: The cluster control plane and the process federation (PR 14's
+#: modules): each must be in the module list the checks above walk.
+CLUSTER_MODULES = (
+    "pbs_tpu_torch.dist", "pbs_tpu_torch.dist.rpc",
+    "pbs_tpu_torch.dist.agent", "pbs_tpu_torch.dist.controller",
+    "pbs_tpu_torch.dist.remus", "pbs_tpu_torch.store",
+    "pbs_tpu_torch.store.store", "pbs_tpu_torch.faults.chaos",
+    "pbs_tpu_torch.gateway.procfed",
+)
+
+
+def test_cluster_modules_are_covered():
+    names = set(_module_names())
+    missing = [m for m in CLUSTER_MODULES if m not in names]
+    assert not missing, missing
+
+
+def test_device_free_planes_import_no_torch():
+    """The process federation's member processes load the gateway plane,
+    the journal, recovery, spans and the RPC: none of it imports torch
+    (nor JAX), so a spawned member costs no device runtime. The package
+    inits of ``dist`` and ``runtime`` load their torch-touching modules
+    on first use for the same reason."""
+    mods = ["pbs_tpu_torch.gateway.procfed", "pbs_tpu_torch.dist",
+            "pbs_tpu_torch.dist.rpc", "pbs_tpu_torch.store",
+            "pbs_tpu_torch.gateway.gateway", "pbs_tpu_torch.gateway.journal",
+            "pbs_tpu_torch.gateway.recovery",
+            "pbs_tpu_torch.gateway.backends", "pbs_tpu_torch.obs.spans",
+            "pbs_tpu_torch.runtime.job", "pbs_tpu_torch.runtime.xsm"]
+    code = (
+        "import sys, importlib\n"
+        f"for name in {mods!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'jaxlib', 'pbs_tpu'))\n"
+        "print(bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "[]"
+
+
+def test_chip_smoke_top_level_is_stdlib_only():
+    """Spawned members re-import the parent's ``__main__``: when that is
+    ``chip_smoke.py``, its module level must load nothing but the
+    standard library (no torch, nothing CUDA before ``main()``)."""
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    tops = set()
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            tops |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            tops.add(node.module.split(".")[0])
+    assert tops <= set(sys.stdlib_module_names), tops - set(
+        sys.stdlib_module_names)
+
+
 def test_device_defaults_refuse_without_a_card():
     """With no card, the card-defaulting entry points raise RuntimeError
     (no quiet CPU fallback); with one, they land on it."""

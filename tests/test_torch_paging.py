@@ -1,6 +1,6 @@
 """HBM paging on the port, against ``pbs_tpu``: twins of
-``tests/test_paging.py`` (all but its control-plane and Remus cases,
-which wait for the agent, ROADMAP queue 1 item 12).
+``tests/test_paging.py`` (its control-plane and Remus cases are in
+``tests/test_torch_agent.py``, with the agent).
 
 Each script runs once through the JAX package and once through the
 port, the port's tenants on ``CudaBackend(device="cpu")`` with a torch
