@@ -219,6 +219,30 @@ Phases, each fatal on failure:
              migration's parts, the Remus epoch capture and record size,
              kill to the recovered job's next step, member spawn and
              SIGKILL-to-recovered times, and 2.1-2.4's launches.
+3a. autopilot — the closed tuning loop at flagship width: (a) three
+             FederatedGateway members, each a Gateway over its own bf16
+             engine on one copy of 3s's weights, 3j's script twice over to
+             six tenants on a virtual clock, an Autopilot at the reference
+             harness's cadence: the recorder's window saved and loaded
+             keeps its digest, the shadow search on it reproduces the
+             loop's proposal, only the canary's knobs move in the guard,
+             every member ends on what the decision says, admitted ==
+             completed, tokens against 3s's engine alone; (b)
+             ``run_autopilot_demo``'s loop, with and without the injected
+             pathological candidate, beside a card Partition of score
+             (2.1) and mm (2.4) under credit and a FeedbackPolicy whose
+             KnobWatcher is keyed as the canary member and which runs a
+             fixed number of quanta after each federation tick: the
+             report equals ``run_autopilot_demo``'s byte for byte, the
+             partition adopts what the canary member adopts at the same
+             generations (the 10 us band at the canary's, the reference
+             at the rollback's); per band: quanta, mm steps a quantum,
+             host ms a quantum against ``autopilot.switch_cost_ns``, the
+             device shares; (c) ``run_federation_chaos(autopilot=True)``
+             and the plain run at the reference tests' goldens; (d) the
+             demo hunt on one and two spawn workers at one digest, the
+             port's corpus replayed at its golden digests, a what-if per
+             entry, a spawn worker's start cost (no torch in it).
 4. numerics — the scoring forward through the flash kernel against the dense
              attention path on the same weights, the KV-cache prefill
              against the full forward, one micro-batch's training loss
@@ -418,6 +442,42 @@ PROCFED_DISARMED_DIGEST = (
     "8604ac22cae1c8ee43b4ffea5b7030e5ba35501b70894d50a74c7f2504880fc2")
 GOLDEN_SMOKE_DIGEST = (
     "d809f6d4bd0db30cea84f3b85eca3145f99c657f8f587e20915c34581528bbb1")
+# Phase 3a, the closed tuning loop. (a) 3j's 24 requests AP_REPEATS
+# times over (8 at tick 0, then one a tick) to six tenants, a chat budget
+# (<= GW_CHAT_MAX_NEW) to an even, interactive tenant and a bulk one to
+# an odd, batch tenant; three members over engines sharing one copy of
+# 3s's weights, 4 ms virtual ticks (so that the 13-tick guard, a third
+# of the arrival ticks, exceeds the 50 ms interactive target); an
+# Autopilot at the reference harness's cadence (record a third of the
+# arrival ticks, guard a third) and the registry's switch cost.
+AP_REPEATS = 2
+AP_TICK_NS = 4_000_000
+# (b) run_autopilot_demo's loop (seed 0, 260 ticks, both values of
+# pathological) with a card Partition beside it: 3c's score and mm
+# tenants under credit and a FeedbackPolicy, AP_CARD_QUANTA quanta after
+# each federation tick, its KnobWatcher keyed as the member the seeded
+# demo picks for its canary.
+AP_DEMO_SEED, AP_DEMO_TICKS = 0, 260
+AP_CANARY_MEMBER = "gw0"
+AP_CARD_QUANTA = 2
+AP_CARD_WEIGHTS = {"score": 256, "mm": 512}
+# (c) tests/test_autopilot_chaos.py's goldens (mixed, seed 0, 3 gateways,
+# 4 tenants, 240 ticks, autopilot=True) and tests/test_federation_chaos.py's
+# plain goldens for the same run without the loop.
+AP_CHAOS_KW = dict(workload="mixed", seed=0, n_gateways=3, n_tenants=4,
+                   ticks=240)
+GOLDEN_AP_TRACE_DIGEST = (
+    "5b3e7d637df0babef9590c9d450de41384c04e8f908298f874452b3a74b223c7")
+GOLDEN_AP_REPORT_DIGEST = (
+    "bff117e15037e45b2aebaf7cf19448fd1fa84ff8f3c15cbab49898c2db1552fe")
+GOLDEN_FED_TRACE_DIGEST = (
+    "71a188673b85cf80a67a721b247443d22e3776a09ad491fc6a5356553218d6de")
+GOLDEN_FED_REPORT_DIGEST = (
+    "1ba265a705067e8d8761aaa8d57c23b30e38c25839b29c9f1debf380b5667242")
+# (d) the archive digest of hunt(HuntConfig.demo()) (the reference's, on
+# any worker count).
+AP_HUNT_DIGEST = (
+    "fc022d121c81c49b235b5e61ec63d8d2c109ea5991afde0f0d03bb92f6033786")
 H100_PEAK_BF16_FLOPS = 989e12  # dense, data sheet
 H100_PEAK_HBM_BW = 3.35e12
 
@@ -4628,11 +4688,16 @@ def crash_lines(out: dict, card: str) -> None:
           flush=True)
 
 
-def federation_member(make_engine, name, clock, tokens, switch_cost_ns):
+def federation_member(make_engine, name, clock, tokens, switch_cost_ns,
+                      gateway=None):
     """One federation member: a Gateway over one engine, the serving
     profile model armed (``profile_switch_cost_ns``). Its backend
-    records the service scale the member's knob adoption sets."""
-    from pbs_tpu_torch.gateway import BatcherBackend, Gateway
+    records the service scale the member's knob adoption sets (the
+    engine itself does not slow down). ``gateway`` is the gateway
+    package to build it from (default: the port's)."""
+    if gateway is None:
+        import pbs_tpu_torch.gateway as gateway
+    BatcherBackend, Gateway = gateway.BatcherBackend, gateway.Gateway
 
     class ScaledBatcherBackend(BatcherBackend):
         service_scale = 1.0
@@ -5542,6 +5607,623 @@ def run_cluster_path(torch, gen, card):
     return launches, routes
 
 
+# -- phase 3a ----------------------------------------------------------------
+
+
+def autopilot_script():
+    """Phase 3a (a)'s script: 3j's 24 requests AP_REPEATS times over, 8
+    at tick 0 and then one a tick, so that arrivals go on through the
+    guard window."""
+    reqs, _ = engine_script()
+    reqs = list(reqs) * AP_REPEATS
+    arrivals = {0: list(range(ENGINE_FIRST))}
+    for i in range(ENGINE_FIRST, len(reqs)):
+        arrivals[1 + i - ENGINE_FIRST] = [i]
+    return reqs, arrivals
+
+
+def autopilot_tenant(i: int, n: int) -> str:
+    """Request i's tenant: a chat budget to an even (interactive) tenant,
+    a bulk one to an odd (batch) tenant, round robin over the three."""
+    k = i % (FED_TENANTS // 2)
+    return f"t{2 * k + (0 if n <= GW_CHAT_MAX_NEW else 1)}"
+
+
+def loop_modules():
+    """The port's modules phase 3a (a) builds its federation and loop
+    from (a host test passes another package's in their place)."""
+    import types
+
+    import pbs_tpu_torch.autopilot as autopilot
+    import pbs_tpu_torch.gateway as gateway
+    from pbs_tpu_torch.knobs import channel, profile
+    from pbs_tpu_torch.utils import clock
+
+    return types.SimpleNamespace(autopilot=autopilot, gateway=gateway,
+                                 channel=channel, profile=profile,
+                                 clock=clock)
+
+
+def applied_view(fed) -> dict:
+    return {n: dict(m.applied_knobs) for n, m in sorted(fed.members.items())}
+
+
+def autopilot_engine_loop(mods, make_engine, reqs, arrivals, tmp) -> dict:
+    """Phase 3a (a): FED_MEMBERS ``FederatedGateway`` members, each a
+    Gateway over its own engine (``make_engine``), the script to
+    FED_TENANTS tenants on a virtual clock of AP_TICK_NS ticks, and an
+    ``Autopilot`` over a knob channel in ``tmp`` at the reference
+    harness's cadence. Keeps the window the shadow search read, every
+    member's adopted knobs through the guard and every completion's
+    tokens. Every check raises ``Failed``; returns the books."""
+    tick_ns = AP_TICK_NS
+    clock = mods.clock.VirtualClock()
+    tokens: dict = {}
+    fed = mods.gateway.FederatedGateway(
+        [federation_member(make_engine, f"gw{i}", clock, tokens, 0,
+                           gateway=mods.gateway)
+         for i in range(FED_MEMBERS)],
+        clock=clock, renew_period_ns=4 * tick_ns, lease_ttl_ns=6 * tick_ns)
+    for j in range(FED_TENANTS):
+        fed.register_tenant(f"t{j}", mods.gateway.TenantQuota(
+            rate=GW_RATE, burst=GW_BURST, weight=256,
+            slo="interactive" if j % 2 == 0 else "batch",
+            max_queued=GW_MAX_QUEUED))
+    ticks = max(arrivals) + 1
+    writer = mods.channel.KnobChannel.create(
+        os.path.join(tmp, "autopilot.led"))
+    cfg = mods.autopilot.AutopilotConfig(
+        min_record_ns=(ticks // 3) * tick_ns,
+        guard_window_ns=(ticks // 3) * tick_ns, quick=True, max_rounds=1)
+    pilot = mods.autopilot.Autopilot(fed, writer, config=cfg)
+    subs, done, guard, pilot_ms = {}, [], [], []
+    window = baseline = None
+    tick = 0
+    while tick < ticks or fed.busy() or pilot.state != "done":
+        if tick >= 50 * ticks:
+            check(False, f"(a) the loop ends (tick {tick}, pilot "
+                         f"{pilot.state}, busy {fed.busy()})")
+        for i in arrivals.get(tick, []):
+            n = reqs[i][1]
+            r = fed.submit(autopilot_tenant(i, n), journal_payload(reqs, i),
+                           cost=n)
+            check(r.admitted, f"(a) request {i} admitted ({r.reason})")
+            subs[r.rid] = i
+        done.extend(fed.tick())
+        view = applied_view(fed)
+        if pilot.state == "canary":
+            guard.append(view)
+        n_hist = len(pilot.history)
+        t = time.monotonic()
+        pilot.tick()
+        pilot_ms.append((time.monotonic() - t) * 1e3)
+        if any(e["event"] == "propose" for e in pilot.history[n_hist:]):
+            # Nothing was submitted since the pilot read its recorder:
+            # this is the window its search read.
+            window, baseline = pilot.recorder.window(), view
+        clock.advance(tick_ns)
+        tick += 1
+    done.extend(fed.tick())  # the members adopt the decision's push
+
+    events = [e["event"] for e in pilot.history]
+    propose, decision = pilot.history[0], pilot.history[-1]
+    check(window is not None and events[0] == "propose"
+          and decision["event"] in ("promote", "rollback", "hold"),
+          f"(a) the loop proposed and decided: {events}")
+    check(window.digest() == propose["window_digest"],
+          f"(a) the recorder's window {window.digest()[:16]} is the one the "
+          f"search read ({propose['window_digest'][:16]})")
+    canary = pilot.history[1]["members"] if events[1:2] == ["canary"] else []
+    cand = mods.profile.params_to_knobs(cfg.policy, propose["candidate"])
+    moved = sorted({n for v in guard for n in v
+                    if n not in canary and v[n] != baseline.get(n)})
+    held = all(v[c].get(k) == x for v in guard for c in canary
+               for k, x in cand.items())
+    check(not moved and held,
+          f"(a) through the {len(guard)}-tick guard only the canary "
+          f"{canary}'s applied knobs moved (others that moved: {moved}), "
+          f"and it held the candidate {propose['candidate']}")
+    final = applied_view(fed)
+    want = cand if decision["event"] == "promote" else dict(
+        pilot.canary.reference)
+    off = {n: {k: (v.get(k), x) for k, x in want.items() if v.get(k) != x}
+           for n, v in final.items()}
+    off = {n: d for n, d in off.items() if d}
+    check(not off, f"(a) after the {decision['event']} every member is on "
+                   f"the {'candidate' if decision['event'] == 'promote' else 'reference'}"
+                   f" (off: {off})")
+    done_rids = [rid for rid, _ in done]
+    short = {subs[rid]: c["tokens"] for rid, c in done
+             if c["tokens"] != reqs[subs[rid]][1]}
+    check(not fed.busy() and fed.admitted == fed.completed == len(reqs)
+          and sorted(done_rids) == sorted(subs) and not short,
+          f"(a) after the drain admitted {fed.admitted} == completed "
+          f"{fed.completed} == {len(reqs)} requests, each once, each with "
+          f"its budget's tokens ({short})")
+    report = pilot.report()
+    report["stats"] = {"admitted": fed.admitted, "completed": fed.completed,
+                       "drained": not fed.busy()}
+    return dict(report=report, window=window, canary=canary,
+                decision=decision, propose=propose, final=final,
+                guard_ticks=len(guard), ticks=tick, pilot_ms=pilot_ms,
+                scales={n: [b.service_scale for b in m.backends]
+                        for n, m in sorted(fed.members.items())},
+                tokens={i: tokens[rid] for rid, i in subs.items()})
+
+
+def autopilot_search_check(mods, out, tmp) -> float:
+    """(a)'s window saved and loaded back keeps its digest, and the
+    shadow search on the loaded window gives the loop's proposal, key
+    for key. Returns the search's wall ms."""
+    path = os.path.join(tmp, "window.jsonl")
+    out["window"].save(path)
+    back = mods.autopilot.ShadowWindow.load(path)
+    check(back.digest() == out["window"].digest(),
+          f"(a) the window saved and loaded keeps its digest "
+          f"{back.digest()[:16]}")
+    p = out["propose"]
+    t = time.monotonic()
+    again = mods.autopilot.shadow_search(back, live_params=p["live"],
+                                         policy=p["policy"], quick=True)
+    ms = (time.monotonic() - t) * 1e3
+    differ = sorted(k for k in again if again[k] != p.get(k))
+    check(not differ, f"(a) shadow_search on the loaded window reproduces "
+                      f"the loop's proposal (keys that differ: {differ})")
+    return ms
+
+
+class CardKnobObserver:
+    """Phase 3a (b)'s card partition as an observer of the pilot's knob
+    channel: a ``KnobWatcher`` keyed as ``member`` hands what it delivers
+    to the partition's ``FeedbackPolicy`` (``fb.apply_knobs``), and after
+    each federation tick the partition runs ``quanta`` quanta. Keeps the
+    adoptions with their generations and, per band segment, the quanta,
+    the wall time and each tenant's device ns, steps and picks."""
+
+    def __init__(self, part, fb, jobs: dict, member: str, quanta: int):
+        from pbs_tpu_torch.knobs.profile import PARAM_KNOBS
+
+        self.part, self.fb, self.jobs = part, fb, jobs
+        self.member, self.quanta = member, quanta
+        self.adoptable = {k for m in PARAM_KNOBS.values() for k in m.values()}
+        self.adoptions: list = []
+        self.segments: list = []
+        self._new_segment()
+
+    def _new_segment(self) -> None:
+        self.segments.append({
+            "band": [self.fb.min_us, self.fb.max_us], "quanta": 0,
+            "wall_s": 0.0, **{k: {n: 0 for n in self.jobs}
+                              for k in ("dev_ns", "steps", "picks")}})
+
+    def attach(self, path: str) -> None:
+        from pbs_tpu_torch.knobs.channel import KnobChannel, KnobWatcher
+
+        self.reader = KnobChannel.attach(path)
+        self.watcher = KnobWatcher(self.reader, member=self.member)
+        self.watcher.add(self._adopt)
+        self.watcher.prime()
+
+    def _adopt(self, changed: dict, _values: dict) -> None:
+        knobs = {k: changed[k] for k in sorted(changed)
+                 if k in self.adoptable}
+        if not knobs:
+            return
+        band = (self.fb.min_us, self.fb.max_us)
+        self.fb.apply_knobs(changed)
+        self.adoptions.append({"generation": self.reader.generation,
+                               "knobs": knobs})
+        if (self.fb.min_us, self.fb.max_us) != band:
+            self._new_segment()
+
+    def _books(self) -> dict:
+        from pbs_tpu_torch.telemetry import Counter
+
+        return {n: (int(j.contexts[0].counters[Counter.DEVICE_TIME_NS]),
+                    j.steps_retired()) for n, j in self.jobs.items()}
+
+    def after_tick(self) -> None:
+        from pbs_tpu_torch.obs.trace import Ev
+
+        self.watcher.poll()
+        seg = self.segments[-1]
+        before = self._books()
+        t = time.monotonic()
+        seg["quanta"] += self.part.run(max_rounds=self.quanta)
+        seg["wall_s"] += time.monotonic() - t
+        for n, (dev, steps) in self._books().items():
+            seg["dev_ns"][n] += dev - before[n][0]
+            seg["steps"][n] += steps - before[n][1]
+        slot = {j.contexts[0].ledger_slot: n for n, j in self.jobs.items()}
+        for r in self.part.drain_traces(1 << 16).tolist():
+            if r[1] == int(Ev.SCHED_PICK) and r[2] in slot:
+                seg["picks"][slot[r[2]]] += 1
+
+
+def autopilot_demo_loop(seed, ticks, pathological, tmp, observer=None,
+                        tick_ns=1_000_000):
+    """``run_autopilot_demo``'s loop, statement for statement, with
+    ``observer`` beside it: ``observer.attach(path)`` once the pilot's
+    channel exists, ``observer.after_tick()`` after each ``fed.tick()`` +
+    ``pilot.tick()``. Also books the generation at which member
+    AP_CANARY_MEMBER adopted each push and the generation of each
+    decision's push. Returns (report, member adoptions, pushes)."""
+    from pbs_tpu_torch.autopilot import Autopilot, AutopilotConfig
+    from pbs_tpu_torch.faults import injector as faults_mod
+    from pbs_tpu_torch.faults.plan import FaultPlan, FaultSpec
+    from pbs_tpu_torch.gateway.chaos import (_federation_member,
+                                             catalog_arrivals, draw_arrival,
+                                             quota_for)
+    from pbs_tpu_torch.gateway.federation import FederatedGateway
+    from pbs_tpu_torch.knobs.channel import KnobChannel
+    from pbs_tpu_torch.sim.workload import build_workload
+    from pbs_tpu_torch.utils.clock import VirtualClock
+
+    plan = FaultPlan(seed=seed, specs=(
+        (FaultSpec("autopilot.candidate", "pathological", p=1.0,
+                   times=1),) if pathological else ()))
+    faults_mod.install(plan)
+    member_adoptions, pushes = [], []
+    try:
+        clock = VirtualClock()
+        members = [_federation_member(f"gw{i}", i, clock, tick_ns, seed,
+                                      n_backends=2, n_tenants=4)
+                   for i in range(3)]
+        fed = FederatedGateway(members, clock=clock,
+                               renew_period_ns=4 * tick_ns,
+                               lease_ttl_ns=6 * tick_ns)
+        tenants = build_workload("mixed", seed=seed, n_tenants=4)
+        for t in tenants:
+            fed.register_tenant(t.name, quota_for(t.name, t.slo,
+                                                  t.params.weight))
+        arrivals = catalog_arrivals(tenants, seed, tag=17)
+        path = os.path.join(tmp, f"knobs-{int(pathological)}.led")
+        writer = KnobChannel.create(path)
+        cfg = AutopilotConfig(min_record_ns=(ticks // 3) * tick_ns,
+                              guard_window_ns=(ticks // 3) * tick_ns,
+                              quick=True, max_rounds=1)
+        pilot = Autopilot(fed, writer, config=cfg)
+        seen = 0
+
+        def book() -> None:
+            nonlocal seen
+            for a in fed.knob_adoptions[seen:]:
+                if a["member"] == AP_CANARY_MEMBER:
+                    member_adoptions.append({
+                        "generation": writer.generation,
+                        "knobs": dict(sorted(a["knobs"].items()))})
+            seen = len(fed.knob_adoptions)
+
+        book()
+        if observer is not None:
+            observer.attach(path)
+
+        def step() -> None:
+            fed.tick()
+            book()
+            n_hist = len(pilot.history)
+            pilot.tick()
+            for e in pilot.history[n_hist:]:
+                if e["event"] in ("canary", "promote", "rollback"):
+                    pushes.append((e["event"], writer.generation))
+            if observer is not None:
+                observer.after_tick()
+            clock.advance(tick_ns)
+
+        for tick in range(int(ticks)):
+            for t in tenants:
+                fire, cost = draw_arrival(t, arrivals[t.name])
+                if fire:
+                    fed.submit(t.name, {"tick": tick}, cost=cost)
+            step()
+        for _ in range(int(ticks) * 6):
+            if not fed.busy():
+                break
+            step()
+        report = pilot.report()
+        report["stats"] = {
+            "admitted": fed.admitted, "completed": fed.completed,
+            "drained": not fed.busy(),
+        }
+        report["pathological"] = bool(pathological)
+        report["seed"] = int(seed)
+        report["ticks"] = int(ticks)
+        return report, member_adoptions, pushes
+    finally:
+        faults_mod.uninstall()
+
+
+def autopilot_card_checks(what, report, member_adoptions, pushes,
+                          observer, pathological) -> None:
+    """(b)'s checks: the loop's report is ``run_autopilot_demo``'s for
+    the same arguments, byte for byte; the canary sat on
+    AP_CANARY_MEMBER; the card partition adopted what that member
+    adopted at the same generations, and each decision's band at its
+    push's generation."""
+    from pbs_tpu_torch.autopilot import (PATHOLOGICAL_PARAMS,
+                                         run_autopilot_demo)
+    from pbs_tpu_torch.knobs.profile import params_to_knobs
+
+    want = run_autopilot_demo(seed=report["seed"], ticks=report["ticks"],
+                              pathological=pathological)
+    check(json.dumps(report, sort_keys=True) == json.dumps(want,
+                                                           sort_keys=True),
+          f"({what}) the loop's report == run_autopilot_demo(seed="
+          f"{report['seed']}, ticks={report['ticks']}, pathological="
+          f"{pathological})'s, byte for byte")
+    events = [e["event"] for e in report["history"]]
+    canary = [e["members"] for e in report["history"]
+              if e["event"] == "canary"]
+    check(all(m == [AP_CANARY_MEMBER] for m in canary),
+          f"({what}) the canary sat on {canary} == [[{AP_CANARY_MEMBER!r}]]")
+    check(observer.adoptions == member_adoptions,
+          f"({what}) the card partition adopted "
+          f"{[(a['generation'], len(a['knobs'])) for a in observer.adoptions]}"
+          f" == what {AP_CANARY_MEMBER} adopted (generation, knobs): "
+          f"{[(a['generation'], len(a['knobs'])) for a in member_adoptions]}")
+    gens = {a["generation"]: a["knobs"] for a in observer.adoptions}
+    bands = [s["band"] for s in observer.segments]
+    if pathological:
+        patho = params_to_knobs("feedback", PATHOLOGICAL_PARAMS)
+        (_, g_canary), (_, g_rollback) = pushes
+        check(events == ["propose", "canary", "rollback"]
+              and bands == [bands[0], [10, 10], bands[0]]
+              and g_canary in gens
+              and all(patho.get(k) == v for k, v in gens[g_canary].items())
+              and gens[g_canary].get("sched.feedback.tslice_max_us") == 10
+              and gens.get(g_rollback, {}).get(
+                  "sched.feedback.tslice_max_us") == bands[0][1],
+              f"({what}) the card partition took the pathological band at "
+              f"the canary's generation {g_canary} and the reference band "
+              f"back at the rollback's {g_rollback}: bands {bands}, pushes "
+              f"{pushes}")
+    else:
+        check(events[0] == "propose" and "rollback" not in events,
+              f"({what}) no rollback without the injection: {events}; "
+              f"bands {bands}, pushes {pushes}")
+
+
+def segment_lines(what, observer, switch_cost_ns, card) -> list:
+    """(b)'s figures per band segment; returns them."""
+    rows = []
+    for s in observer.segments:
+        dev = sum(s["dev_ns"].values())
+        host_ms = ((s["wall_s"] * 1e9 - dev) / max(1, s["quanta"])) / 1e6
+        mm_q = s["picks"].get("mm", 0)
+        row = {"band": s["band"], "quanta": s["quanta"],
+               "mm_steps_per_quantum": (s["steps"].get("mm", 0) / mm_q
+                                        if mm_q else None),
+               "host_ms_per_quantum": host_ms,
+               "device_share": {n: (d / dev if dev else None)
+                                for n, d in s["dev_ns"].items()},
+               "picks": dict(s["picks"]),
+               "switch_cost_ratio": host_ms * 1e6 / switch_cost_ns}
+        rows.append(row)
+        print(f"  ({what}) band {s['band']} us: {s['quanta']} quanta, mm "
+              f"{s['steps'].get('mm', 0)} steps in {mm_q} picks ("
+              f"{row['mm_steps_per_quantum']} a quantum), score "
+              f"{s['steps'].get('score', 0)} steps in "
+              f"{s['picks'].get('score', 0)} picks; wall "
+              f"{s['wall_s'] * 1e3:.1f} ms, device {dev / 1e6:.1f} ms; "
+              f"host {host_ms:.4f} ms a quantum = "
+              f"{row['switch_cost_ratio']:.3f} x autopilot.switch_cost_ns "
+              f"({switch_cost_ns} ns); device share "
+              f"{json.dumps({n: round(v, 4) if v is not None else None for n, v in row['device_share'].items()})}"
+              f" [{card}]", flush=True)
+    return rows
+
+
+def autopilot_chaos_checks() -> dict:
+    """Phase 3a (c): the autopilot chaos gate and the plain federation
+    run, on the host's CPU, against the reference tests' goldens."""
+    from pbs_tpu_torch.gateway import run_federation_chaos
+
+    t = time.monotonic()
+    r = run_federation_chaos(**AP_CHAOS_KW, autopilot=True)
+    ap_s = time.monotonic() - t
+    hist = r["autopilot"]["history"]
+    ref = r["autopilot"]["status"]["reference"]
+    off = sorted(n for n, a in r["autopilot"]["members"].items()
+                 if any(a.get(k) != v for k, v in ref.items()))
+    check(r["ok"] and r["trace_digest"] == GOLDEN_AP_TRACE_DIGEST
+          and r["report_digest"] == GOLDEN_AP_REPORT_DIGEST,
+          f"(c) run_federation_chaos(autopilot=True) ok {r['ok']} "
+          f"{r['problems'][:2]}, digests {r['trace_digest'][:16]} / "
+          f"{r['report_digest'][:16]} == the goldens "
+          f"{GOLDEN_AP_TRACE_DIGEST[:16]} / {GOLDEN_AP_REPORT_DIGEST[:16]}")
+    check([e["event"] for e in hist] == ["propose", "canary", "rollback"]
+          and hist[0]["injected"] and not off,
+          f"(c) the injected candidate rolled back "
+          f"({[e['event'] for e in hist]}, reason "
+          f"{hist[-1].get('reason')}) and every member is on the reference "
+          f"(off: {off})")
+    t = time.monotonic()
+    p = run_federation_chaos(**AP_CHAOS_KW)
+    plain_s = time.monotonic() - t
+    check(p["ok"] and "autopilot" not in p
+          and p["trace_digest"] == GOLDEN_FED_TRACE_DIGEST
+          and p["report_digest"] == GOLDEN_FED_REPORT_DIGEST,
+          f"(c) the plain federation run's digests {p['trace_digest'][:16]}"
+          f" / {p['report_digest'][:16]} == their pre-autopilot goldens")
+    return dict(report=r, ap_s=ap_s, plain_s=plain_s)
+
+
+def spawn_probe(_):
+    """A spawn worker's start: load the scenario plane; returns the
+    seconds it took and whether torch came with it."""
+    t = time.monotonic()
+    import pbs_tpu_torch.scenarios.score  # noqa: F401
+
+    return time.monotonic() - t, "torch" in sys.modules
+
+
+def scenario_checks() -> dict:
+    """Phase 3a (d): the demo hunt on one and two spawn workers, the
+    shipped corpus replayed at its golden digests, a what-if on each
+    entry, and what a spawn worker costs to start; on the host's CPU."""
+    import multiprocessing as mp
+
+    from pbs_tpu_torch.scenarios import (HuntConfig, corpus_paths, hunt,
+                                         load_entry, replay_corpus,
+                                         whatif_entry)
+
+    out = {"hunt_s": {}}
+    for workers in (1, 2):
+        t = time.monotonic()
+        h = hunt(HuntConfig.demo(), workers=workers)
+        out["hunt_s"][workers] = time.monotonic() - t
+        check(h["archive_digest"] == AP_HUNT_DIGEST,
+              f"(d) hunt(HuntConfig.demo(), workers={workers}): archive of "
+              f"{len(h['archive'])}, digest {h['archive_digest'][:16]} == "
+              f"{AP_HUNT_DIGEST[:16]}")
+    t = time.monotonic()
+    rep = replay_corpus(check=True)
+    out["replay_s"] = time.monotonic() - t
+    check(rep["ok"] and rep["entries"] >= 3,
+          f"(d) replay_corpus(check=True) over the port's corpus: ok "
+          f"{rep['ok']}, {rep['entries']} entries, corpus digest "
+          f"{rep['corpus_digest'][:16]}")
+    t = time.monotonic()
+    out["whatif"] = [whatif_entry(load_entry(p)) for p in corpus_paths()]
+    out["whatif_s"] = time.monotonic() - t
+    check(all(w["proposal"]["window_digest"] == w["window_digest"]
+              for w in out["whatif"]),
+          f"(d) whatif_entry on each of {len(out['whatif'])} entries")
+    t = time.monotonic()
+    with mp.get_context("spawn").Pool(2) as pool:
+        probes = pool.map(spawn_probe, range(2))
+    out["spawn_s"] = time.monotonic() - t
+    out["spawn_import_s"] = [s for s, _ in probes]
+    check(not any(torch_in for _, torch_in in probes),
+          f"(d) a spawn worker loads the scenario plane without torch "
+          f"({probes})")
+    return out
+
+
+def run_autopilot_path(torch, gen, cfg, params, a_tokens, card):
+    """Phase 3a on the card: (a) the closed loop over three members on
+    the bf16 flagship engine (3s's weights); (b) run_autopilot_demo's
+    loop, both ways, steering a card Partition of score (2.1) and mm
+    (2.4); (c) the autopilot chaos gate; (d) the scenario frontier.
+    Returns (b)'s kernel launch counts and routes."""
+    import shutil
+
+    from pbs_tpu_torch.knobs import default as knob_default
+    from pbs_tpu_torch.models import ContinuousBatcher
+    from pbs_tpu_torch.runtime import Job, Partition, SchedParams
+    from pbs_tpu_torch.sched import FeedbackPolicy
+    from pbs_tpu_torch.telemetry import CudaBackend
+
+    t_phase = time.monotonic()
+    kw = dict(n_slots=ENGINE_SLOTS, prompt_bucket=ENGINE_BUCKET,
+              max_len=ENGINE_MAX_LEN, prefix_cache_size=ENGINE_PREFIX)
+
+    def make_engine():
+        return ContinuousBatcher(cfg, params, **kw)
+
+    mods = loop_modules()
+    tmp, _ = paging_dir("3a")
+    try:
+        # -- (a) ---------------------------------------------------------
+        reqs, arrivals = autopilot_script()
+        t = time.monotonic()
+        a = autopilot_engine_loop(mods, make_engine, reqs, arrivals, tmp)
+        torch.cuda.synchronize()
+        a_wall = time.monotonic() - t
+        search_ms = autopilot_search_check(mods, a, tmp)
+        want = {k: a_tokens[k % ENGINE_REQUESTS] for k in range(len(reqs))}
+        ties = compare_tokens(torch, cfg, params, reqs, a["tokens"], want,
+                              "(a)")
+        st, d, p = a["report"]["status"], a["decision"], a["propose"]
+        print(f"  (a) {a['ticks']} ticks in {a_wall:.2f} s wall; recorded "
+              f"{st['recorded_arrivals']} arrivals, dropped "
+              f"{st['dropped_arrivals']}; window {len(a['window'].arrivals)}"
+              f" arrivals, digest {a['window'].digest()[:16]}, class "
+              f"{p['workload']}; shadow search {search_ms:.1f} ms wall; "
+              f"pilot tick p50/max "
+              f"{statistics.median(a['pilot_ms']):.3f}/"
+              f"{max(a['pilot_ms']):.1f} ms [{card}]", flush=True)
+        print(f"  (a) proposal margin_x1e6 {p['margin_x1e6']} (candidate "
+              f"{p['candidate_score_x1e6']} vs live {p['live_score_x1e6']},"
+              f" candidate {json.dumps(p['candidate'], sort_keys=True)}); "
+              f"decision {d['event']}"
+              + (f" ({d['reason']})" if "reason" in d else "")
+              + f" on canary {a['canary']} after a {a['guard_ticks']}-tick "
+              f"guard; burns per tenant {json.dumps(d.get('burns', {}))}; "
+              f"service scales {a['scales']}; token divergences at "
+              f"near-ties {len(ties)}", flush=True)
+
+        # -- (b) ---------------------------------------------------------
+        wrappers = bwd_counts()
+        reset_counts(wrappers)
+        switch_ns = int(knob_default("autopilot.switch_cost_ns"))
+        b_rows = {}
+        for pathological in (True, False):
+            what = f"b {'pathological' if pathological else 'healthy'}"
+            jobs = {}
+            for name, fn in (("score", scoring_tenant(torch, gen, cfg,
+                                                      params)),
+                             ("mm", mm_tenant(torch, gen))):
+                fn(None)  # warm outside the partition
+                jobs[name] = Job(name, step_fn=fn, params=SchedParams(
+                    weight=AP_CARD_WEIGHTS[name]))
+            torch.cuda.synchronize()
+            part = Partition(f"autopilot-{int(pathological)}",
+                             source=CudaBackend(), scheduler="credit")
+            check_native(part)
+            fb = FeedbackPolicy(part)
+            for job in jobs.values():
+                part.add_job(job)
+            obs = CardKnobObserver(part, fb, jobs, AP_CANARY_MEMBER,
+                                   AP_CARD_QUANTA)
+            t = time.monotonic()
+            report, member_adoptions, pushes = autopilot_demo_loop(
+                AP_DEMO_SEED, AP_DEMO_TICKS, pathological, tmp, obs)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t
+            autopilot_card_checks(what, report, member_adoptions, pushes,
+                                  obs, pathological)
+            for name, job in jobs.items():
+                check(job.error is None and job.steps_retired() > 0,
+                      f"({what}) {name}: {job.steps_retired()} steps, no "
+                      f"fault ({job.error})")
+            print(f"  ({what}) decisions {report['status']['decisions']}, "
+                  f"pushes {pushes}, card adoptions "
+                  f"{[(x['generation'], x['knobs'].get('sched.feedback.tslice_max_us')) for x in obs.adoptions]}"
+                  f" (generation, max_us); {wall:.2f} s wall", flush=True)
+            b_rows[what] = segment_lines(what, obs, switch_ns, card)
+            del jobs, part, fb, obs
+        launches, routes = control_launches(wrappers)
+        for k in ("flash_fwd", "instrumented_matmul"):
+            n = launches[k]
+            check(n > 0 and routes[k] == {"wgmma": n, "simt": 0},
+                  f"(b) {k}: {n} launches, every one on the tensor-core "
+                  f"route ({routes[k]})")
+        print(f"  (b) kernel launches {launches}, by route {routes}",
+              flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not os.path.exists(tmp), f"3a's files removed ({tmp})")
+
+    # -- (c), (d) ---------------------------------------------------------
+    c = autopilot_chaos_checks()
+    print(f"  (c) autopilot chaos gate {c['ap_s']:.2f} s, plain federation "
+          f"{c['plain_s']:.2f} s, on the card host's CPU [{card}]",
+          flush=True)
+    dd = scenario_checks()
+    print(f"  (d) demo hunt {dd['hunt_s'][1]:.2f} s on 1 worker, "
+          f"{dd['hunt_s'][2]:.2f} s on 2; corpus replay "
+          f"{dd['replay_s']:.2f} s; what-ifs {dd['whatif_s']:.2f} s "
+          f"({[w['workload_class'] for w in dd['whatif']]}); a spawn pool "
+          f"of 2 up with the scenario plane loaded in {dd['spawn_s']:.2f} "
+          f"s, import per worker "
+          f"{[round(s, 3) for s in dd['spawn_import_s']]} s, on the card "
+          f"host's CPU [{card}]", flush=True)
+    print(f"  phase 3a wall {time.monotonic() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return launches, routes
+
+
 # -- phase 4 -----------------------------------------------------------------
 
 
@@ -6186,6 +6868,13 @@ def main() -> int:
           "federation and the agent chaos harness")
     d_launches, d_routes = run_cluster_path(torch, gen, card_line())
 
+    phase("3a closed tuning loop: shadow capture, shadow search and an "
+          "SLO-guarded canary over engine members, the loop's decisions "
+          "steering a card partition, the autopilot chaos gate, the "
+          "scenario frontier")
+    a_launches, a_routes = run_autopilot_path(torch, gen, cfg, params,
+                                              a_tokens, card_line())
+
     phase("4 numerics at width")
     check_numerics(torch, gen, cfg, params)
     del params
@@ -6230,6 +6919,9 @@ def main() -> int:
         # (2.1-2.3), mm before and after it (2.4)
         r["cluster_path_launches"] = d_launches[kernel]
         r["cluster_path_launches_by_route"] = d_routes[kernel]
+        # phase 3a (b): score (2.1) and mm (2.4) steered by the loop
+        r["autopilot_path_launches"] = a_launches[kernel]
+        r["autopilot_path_launches_by_route"] = a_routes[kernel]
     profile_micro_step(torch, micro_step, train_state)
     del micro_step, train_state
     profile_micro_step(torch, moe_step, moe_state, what="MoE training step")

@@ -12,6 +12,11 @@
                             serving front door (--plan gateway |
                             federation | crash [--processes])
     pbst-torch journal      verify or dump a write-ahead gateway journal
+    pbst-torch autopilot    the closed tuning loop: run --demo (shadow
+                            capture, shadow search, SLO-guarded canary)
+                            and the status/history views of its report
+    pbst-torch scenarios    the scenario frontier: hunt, promote into
+                            the corpus, replay it (--check), whatif
     pbst-torch create|destroy|pause|list|run|replicate|replicas|console|
                migrate     the xl-style surface of a live agent
                             (``--connect host:port``)
@@ -22,7 +27,8 @@ The port of those commands of ``pbs_tpu.cli.pbst``: the same flags
 ``native`` stamp of ``sim`` and ``tune`` names the tier of the port's
 native sim core (built at first use), or why it is off. The
 reference's other commands wait for the modules they read
-(ROADMAP queue 1 items 8-12).
+(ROADMAP queue 1 items 8-12). ``scenarios promote`` writes into the
+port's own corpus (``pbs_tpu_torch/scenarios/corpus/``) by default.
 
     python -m pbs_tpu_torch.cli.pbst serve-demo --device cpu
     python -m pbs_tpu_torch.cli.pbst sim --workload mixed --policy all
@@ -31,6 +37,9 @@ reference's other commands wait for the modules they read
     python -m pbs_tpu_torch.cli.pbst chaos --plan crash --processes
     python -m pbs_tpu_torch.cli.pbst list --connect 127.0.0.1:7001
     python -m pbs_tpu_torch.cli.pbst journal verify gateway.jrnl
+    python -m pbs_tpu_torch.cli.pbst autopilot run --demo --pathological
+    python -m pbs_tpu_torch.cli.pbst scenarios hunt --demo
+    python -m pbs_tpu_torch.cli.pbst scenarios replay --check
     python -m pbs_tpu_torch.cli.pbst hw replay --check \
         pbs_tpu_torch/hwtelem/windows/w0.jsonl
 """
@@ -943,6 +952,293 @@ def cmd_journal(args) -> int:
     return 0
 
 
+def _autopilot_history_lines(history: list) -> list[str]:
+    out = []
+    for e in history:
+        t_ms = e.get("t_ns", 0) / 1e6
+        line = f"  t={t_ms:>8.1f}ms {e['event']:<9}"
+        if e["event"] == "propose":
+            line += (f" workload={e.get('workload')} "
+                     f"margin_x1e6={e.get('margin_x1e6')}"
+                     + (" INJECTED" if e.get("injected") else ""))
+        elif e["event"] == "canary":
+            line += f" members={','.join(e.get('members', []))}"
+        elif e["event"] in ("promote", "rollback"):
+            burns = e.get("burns") or {}
+            worst = max(burns.values(), default=0.0)
+            line += f" members={','.join(e.get('members', []))}"
+            if e["event"] == "rollback":
+                line += f" reason={e.get('reason')}"
+            line += f" worst_burn={worst}"
+        elif e["event"] == "hold":
+            if "reason" in e:
+                line += f" reason={e['reason']}"
+            if e.get("margin_x1e6") is not None:
+                line += f" margin_x1e6={e['margin_x1e6']}"
+        out.append(line)
+    return out
+
+
+def cmd_autopilot(args) -> int:
+    """Shadow-replay self-tuning loop (docs/AUTOPILOT.md).
+
+    ``run --demo`` drives one seeded end-to-end loop on a virtual
+    clock (3-member federation, catalog arrivals, quick shadow search,
+    canary, promote/rollback) and prints — or writes with ``--out`` —
+    the decision report; ``--pathological`` injects the adversarially
+    bad candidate and therefore demonstrates the guarded rollback.
+    ``status``/``history`` render a written report. Exit 0 = loop ran
+    to completion and the federation drained."""
+    if args.action == "run":
+        if not args.demo:
+            print("pbst-torch: only `autopilot run --demo` is wired to a "
+                  "self-contained loop; a live deployment embeds "
+                  "pbs_tpu_torch.autopilot.Autopilot in its own pump "
+                  "(docs/AUTOPILOT.md)", file=sys.stderr)
+            return 2
+        from pbs_tpu_torch.autopilot import run_autopilot_demo
+
+        report = run_autopilot_demo(seed=args.seed, ticks=args.ticks,
+                                    pathological=args.pathological)
+        if args.fidelity or args.fidelity_window:
+            # The sim-vs-real leg (docs/HWTELEM.md): additive key —
+            # runs without --fidelity carry no trace of it, so the
+            # demo report shape (and anything pinned on it) is
+            # untouched.
+            from pbs_tpu_torch.hwtelem import (
+                CounterWindow,
+                fidelity_report,
+                record_serving_window,
+                render_report,
+            )
+
+            if args.fidelity_window:
+                fw = CounterWindow.load(args.fidelity_window)
+            else:
+                fw, _frep = record_serving_window(seed=args.seed)
+            report["fidelity"] = fidelity_report(fw, seed=args.seed)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(report, f, indent=1, sort_keys=True)
+                f.write("\n")
+        if args.json:
+            print(json.dumps(report, indent=1, sort_keys=True))
+        else:
+            st = report["status"]
+            print(f"autopilot demo seed={report['seed']} "
+                  f"ticks={report['ticks']} "
+                  f"pathological={report['pathological']}")
+            print(f"state={st['state']} rounds={st['rounds']} "
+                  f"recorded={st['recorded_arrivals']} "
+                  f"adoptions={st['adoptions']}")
+            for line in _autopilot_history_lines(report["history"]):
+                print(line)
+            s = report["stats"]
+            print(f"admitted={s['admitted']} "
+                  f"completed={s['completed']} "
+                  f"drained={s['drained']}")
+            if "fidelity" in report:
+                print(render_report(report["fidelity"]))
+        ok = report["stats"]["drained"] and \
+            report["status"]["state"] == "done"
+        return 0 if ok else 1
+
+    # status / history read a written report artifact.
+    if not args.state:
+        print("pbst-torch: autopilot status/history need --state FILE "
+              "(written by `autopilot run --demo --out FILE`)",
+              file=sys.stderr)
+        return 2
+    try:
+        with open(args.state) as f:
+            report = json.load(f)
+    except (OSError, json.JSONDecodeError) as e:
+        print(f"pbst-torch: bad --state {args.state!r}: {e}", file=sys.stderr)
+        return 2
+    if args.action == "status":
+        if args.json:
+            print(json.dumps(report.get("status", {}), indent=1,
+                             sort_keys=True))
+        else:
+            st = report.get("status", {})
+            print(f"state={st.get('state')} rounds={st.get('rounds')} "
+                  f"decisions={','.join(st.get('decisions', []))}")
+            print(f"recorded={st.get('recorded_arrivals')} "
+                  f"dropped={st.get('dropped_arrivals')} "
+                  f"adoptions={st.get('adoptions')}")
+            for k, v in sorted(st.get("reference", {}).items()):
+                print(f"  reference {k}={v}")
+        return 0
+    if args.action == "history":
+        history = report.get("history", [])
+        if args.json:
+            print(json.dumps(history, indent=1, sort_keys=True))
+        else:
+            for line in _autopilot_history_lines(history):
+                print(line)
+            print(f"{len(history)} decision event(s)")
+        return 0
+    print(f"pbst-torch: unknown autopilot action {args.action!r}",
+          file=sys.stderr)
+    return 2
+
+
+def cmd_scenarios(args) -> int:
+    """Coverage-guided adversarial scenario frontier
+    (pbs_tpu_torch.scenarios; docs/SCENARIOS.md).
+
+    ``hunt`` runs the MAP-Elites search (``--demo``: the tier-1 smoke
+    shape, ≤5 s) and prints — or writes with ``--out`` — the archive
+    document. ``promote`` graduates a hunt archive's per-axis best
+    entries into corpus files (default: the checked-in
+    pbs_tpu_torch/scenarios/corpus/). ``replay`` re-runs the corpus through
+    the chaos invariant gate; ``--check`` additionally demands
+    byte-identical golden digests — the CI regression mode, exit 1 on
+    any drift (exactly like `pbst-torch tune --check`)."""
+    from pbs_tpu_torch import scenarios
+
+    if args.action == "hunt":
+        if args.knobs:
+            # A fresh process only sees registry defaults; adopt the
+            # channel file's values into the process overlay so
+            # a channel push of scenarios.hunt.population=32
+            # actually reshapes THIS hunt (HuntConfig.from_knobs and
+            # the scoring-weight snapshot both read through it).
+            from pbs_tpu_torch import knobs as registry
+            from pbs_tpu_torch.knobs.channel import KnobChannel
+
+            try:
+                _, vals = KnobChannel.attach(args.knobs).snapshot()
+                registry.set_local(vals)
+            except (OSError, ValueError) as e:
+                print(f"pbst-torch: bad --knobs {args.knobs!r}: {e}",
+                      file=sys.stderr)
+                return 2
+        cfg = (scenarios.HuntConfig.demo(seed=args.seed) if args.demo
+               else scenarios.HuntConfig.from_knobs(seed=args.seed))
+        progress = (None if args.json
+                    else lambda line: print(line, file=sys.stderr))
+        result = scenarios.hunt(cfg, workers=args.workers,
+                                progress=progress)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(result, f, indent=1, sort_keys=True)
+                f.write("\n")
+            print(f"wrote {args.out}", file=sys.stderr)
+        if args.json:
+            print(json.dumps(result, indent=1, sort_keys=True))
+        else:
+            print(f"{'signature':<12} {'score':>9} "
+                  f"{' '.join(f'{a:>9}' for a in scenarios.AXES)}")
+            for sig in sorted(
+                    result["archive"],
+                    key=lambda s: (-result["archive"][s]["score"], s)):
+                e = result["archive"][sig]
+                print(f"{sig:<12} {e['score']:>9.4f} "
+                      + " ".join(f"{e['axes'][a]:>9.4f}"
+                                 for a in scenarios.AXES))
+            print(f"archive {len(result['archive'])} entr(ies), "
+                  f"{len(result['rejected'])} gate-rejected, "
+                  f"digest {result['archive_digest'][:16]}…")
+        return 0
+
+    if args.action == "promote":
+        if not args.archive:
+            print("pbst-torch: promote needs --archive FILE (written by "
+                  "`scenarios hunt --out FILE`)", file=sys.stderr)
+            return 2
+        try:
+            with open(args.archive) as f:
+                hunt_result = json.load(f)
+        except (OSError, json.JSONDecodeError) as e:
+            print(f"pbst-torch: bad --archive {args.archive!r}: {e}",
+                  file=sys.stderr)
+            return 2
+        axes = (tuple(a.strip() for a in args.axes.split(",")
+                      if a.strip())
+                if args.axes else scenarios.PROMOTE_AXES)
+        if not axes:
+            print(f"pbst-torch: --axes {args.axes!r} names no stress axes",
+                  file=sys.stderr)
+            return 2
+        try:
+            outcomes = scenarios.promote_frontier(
+                hunt_result, corpus_dir=args.corpus, axes=axes)
+        except (KeyError, ValueError) as e:
+            print(f"pbst-torch: promote failed: {e}", file=sys.stderr)
+            return 2
+        if args.json:
+            print(json.dumps({"version": 1, "outcomes": outcomes},
+                             indent=1, sort_keys=True))
+        else:
+            for o in outcomes:
+                if o["promoted"]:
+                    print(f"{o['axis']:<9} promoted {o['name']} "
+                          f"(axis {o['axis_value']:.4f}, score "
+                          f"{o['score']:.4f}) -> {o['path']}")
+                else:
+                    print(f"{o['axis']:<9} SKIPPED: {o['reason']}")
+        return 0 if all(o["promoted"] for o in outcomes) else 1
+
+    if args.action == "replay":
+        try:
+            result = scenarios.replay_corpus(corpus_dir=args.corpus,
+                                             check=args.check)
+        except (OSError, ValueError) as e:
+            print(f"pbst-torch: bad corpus: {e}", file=sys.stderr)
+            return 2
+        if args.json:
+            print(json.dumps(result, indent=1, sort_keys=True))
+        else:
+            for v in result["verdicts"]:
+                status = "ok" if v["ok"] else "FAILED"
+                line = f"{v['name']:<22} {v['axis'] or '-':<9} {status}"
+                if not v["ok"]:
+                    line += f" ({'; '.join(v['problems'][:2])})"
+                print(line)
+            print(f"{'ok' if result['ok'] else 'FAILED'} "
+                  f"({result['entries']} scenario(s), corpus digest "
+                  f"{result['corpus_digest'][:16]}…"
+                  f"{', digests checked' if args.check else ''})")
+        if not result["verdicts"]:
+            print("pbst-torch: corpus is empty "
+                  f"(dir: {result['corpus_dir']})", file=sys.stderr)
+            return 2
+        return 0 if result["ok"] else 1
+
+    if args.action == "whatif":
+        paths = scenarios.corpus_paths(args.corpus)
+        if not paths:
+            print("pbst-torch: corpus is empty "
+                  f"(dir: {args.corpus or scenarios.CORPUS_DIR})",
+                  file=sys.stderr)
+            return 2
+        out = []
+        for p in paths:
+            try:
+                out.append(scenarios.whatif_entry(
+                    scenarios.load_entry(p), workers=args.workers))
+            except (OSError, ValueError) as e:
+                print(f"pbst-torch: bad corpus entry {p!r}: {e}",
+                      file=sys.stderr)
+                return 2
+        if args.json:
+            print(json.dumps({"version": 1, "whatif": out},
+                             indent=1, sort_keys=True))
+        else:
+            for w in out:
+                pr = w["proposal"]
+                print(f"{w['name']:<22} class={w['workload_class']:<9} "
+                      f"arrivals={w['arrivals']:<5} "
+                      f"margin={pr['margin_x1e6'] / 1e6:+.6f} "
+                      f"candidate={json.dumps(pr['candidate'], sort_keys=True)}")
+        return 0
+
+    print(f"pbst-torch: unknown scenarios action {args.action!r}",
+          file=sys.stderr)
+    return 2
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="pbst-torch",
                                 description="PBS-T port command line")
@@ -1151,6 +1447,73 @@ def main(argv=None) -> int:
                          "pbs_tpu_torch/sched/tuned/)")
     sp.add_argument("--json", action="store_true")
     sp.set_defaults(fn=cmd_tune)
+
+    sp = sub.add_parser(
+        "autopilot", help="shadow-replay self-tuning loop "
+                          "(docs/AUTOPILOT.md)")
+    sp.add_argument("action", choices=["run", "status", "history"])
+    sp.add_argument("--demo", action="store_true",
+                    help="run: the self-contained seeded demo loop "
+                         "(virtual clock, ≤5 s)")
+    sp.add_argument("--pathological", action="store_true",
+                    help="run --demo: inject the adversarially bad "
+                         "candidate (demonstrates guarded rollback)")
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--ticks", type=int, default=260)
+    sp.add_argument("--fidelity", action="store_true",
+                    help="run --demo: append the sim-vs-real fidelity "
+                         "leg (docs/HWTELEM.md) — records a live "
+                         "counter window on the serving pump unless "
+                         "--fidelity-window is given")
+    sp.add_argument("--fidelity-window", metavar="FILE",
+                    dest="fidelity_window",
+                    help="score this recorded window instead of "
+                         "sampling live (deterministic; the smoke "
+                         "path)")
+    sp.add_argument("--out", metavar="FILE",
+                    help="run: also write the report JSON here")
+    sp.add_argument("--state", metavar="FILE",
+                    help="status/history: report written by "
+                         "`autopilot run --demo --out FILE`")
+    sp.add_argument("--json", action="store_true")
+    sp.set_defaults(fn=cmd_autopilot)
+
+    sp = sub.add_parser(
+        "scenarios", help="adversarial scenario frontier + promoted "
+                          "regression corpus (docs/SCENARIOS.md)")
+    sp.add_argument("action",
+                    choices=["hunt", "promote", "replay", "whatif"])
+    sp.add_argument("--demo", action="store_true",
+                    help="hunt: the tier-1 smoke shape (tiny "
+                         "population/horizons, <=5 s)")
+    sp.add_argument("--seed", type=int, default=0,
+                    help="hunt seed (sha256-derived streams; same "
+                         "seed => byte-identical archive digest)")
+    sp.add_argument("--workers", type=int, default=1,
+                    help="evaluation worker processes (1 = inline; "
+                         "archive digest is worker-count invariant)")
+    sp.add_argument("--out", metavar="FILE",
+                    help="hunt: also write the archive document here "
+                         "(feeds `scenarios promote --archive`)")
+    sp.add_argument("--archive", metavar="FILE",
+                    help="promote: hunt document written by "
+                         "`scenarios hunt --out`")
+    sp.add_argument("--axes", default=None,
+                    help="promote: comma-separated stress axes "
+                         "(default: burn,fairness,slack)")
+    sp.add_argument("--corpus", metavar="DIR", default=None,
+                    help="promote/replay: corpus directory (default: "
+                         "the checked-in pbs_tpu_torch/scenarios/corpus/)")
+    sp.add_argument("--check", action="store_true",
+                    help="replay: demand byte-identical golden "
+                         "digests (the CI regression gate)")
+    sp.add_argument("--knobs", metavar="CHANNEL", default=None,
+                    help="hunt: adopt a knob-channel file's values "
+                         "(scenarios.hunt.* / scenarios.score.w_*) "
+                         "before configuring the hunt — pairs with "
+                         "a KnobChannel file pushed by the caller")
+    sp.add_argument("--json", action="store_true")
+    sp.set_defaults(fn=cmd_scenarios)
     args = p.parse_args(argv)
     return args.fn(args)
 

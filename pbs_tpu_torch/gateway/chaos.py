@@ -32,9 +32,9 @@ The invariants these harnesses exist to gate (docs/GATEWAY.md):
 - **determinism** — same seed ⇒ same digest AND same books.
 
 ``process_mode=True`` delegates to the process federation's harness
-(``procfed.run_process_chaos``). Not ported yet (ROADMAP queue 1 item
-12): ``autopilot=`` (the closed tuning loop), which raises
-``NotImplementedError`` naming that item.
+(``procfed.run_process_chaos``). ``autopilot=`` arms the closed tuning
+loop (``pbs_tpu_torch.autopilot``) over the federation and gates its
+rollback.
 """
 
 from __future__ import annotations
@@ -432,9 +432,21 @@ def run_federation_chaos(workload: str = "mixed", seed: int = 0,
     ``process_mode=True`` runs the members as REAL OS processes: it
     delegates to :func:`~pbs_tpu_torch.gateway.procfed.run_process_chaos`,
     and ``crash_plan`` tick entries become literal SIGKILLs to member
-    pids. ``autopilot`` (the reference's closed tuning loop) is not
-    ported: it raises ``NotImplementedError`` naming ROADMAP queue 1
-    item 12.
+    pids.
+
+    ``autopilot`` (True, or an ``AutopilotConfig`` kwargs dict) arms
+    the FULL closed loop (docs/AUTOPILOT.md): shadow capture at the
+    submit surface, a quick shadow search, and an SLO-burn-guarded
+    canary rollout over a real knob channel — under the
+    ``FaultPlan.autopilot`` plan by default, whose deterministic
+    ``autopilot.candidate`` injection replaces the first proposal with
+    an adversarially bad (in-range!) profile. The gate this proves:
+    the pathological candidate ROLLS BACK to the reference profile
+    within the guard window, every member ends on the reference
+    values, and no-job-lost + the piecewise mint bound hold
+    throughout; the loop's every decision and member adoption is
+    keyed into the report digest. ``autopilot=None`` keeps the digest
+    payload byte-identical to the pre-autopilot harness.
 
     ``arrival_model`` swaps the stock :func:`draw_arrival` stream for
     a custom :class:`ArrivalModel` (the scenario-genome traffic
@@ -497,14 +509,22 @@ def run_federation_chaos(workload: str = "mixed", seed: int = 0,
                         **({"member": e["member"]} if "member" in e
                            else {})}
                        for e in (crash_plan or [])])
-    if autopilot is not None and autopilot is not False:
-        raise NotImplementedError(
-            "autopilot (the closed tuning loop) is not ported (ROADMAP "
-            "queue 1 item 12)")
-    if crash_plan and knob_plan:
+    # Armed on any non-None, non-False value: autopilot={} means "the
+    # default-configured loop", not "off" (truthiness would silently
+    # disarm it).
+    ap_armed = autopilot is not None and autopilot is not False
+    if knob_plan and ap_armed:
+        # Each arms its own knob channel and the federation holds
+        # exactly one (attach_knobs refuses a second — a silently
+        # orphaned channel would validate pushes nobody adopts).
+        raise ValueError(
+            "knob_plan and autopilot are mutually exclusive: both "
+            "own the federation's knob channel")
+    if crash_plan and (knob_plan or ap_armed):
         # Recovery reconciles queues and lease books; the knob channel
-        # carries additional process state the journal deliberately
-        # does not cover (docs/DURABILITY.md "Scope").
+        # and autopilot loop carry additional process state the
+        # journal deliberately does not cover (docs/DURABILITY.md
+        # "Scope").
         raise ValueError(
             "crash_plan is mutually exclusive with knob_plan/"
             "autopilot: the journal covers gateway state, not the "
@@ -515,7 +535,8 @@ def run_federation_chaos(workload: str = "mixed", seed: int = 0,
             "rebuilds members from journal bytes, which cannot "
             "resurrect a jitted serving engine's slot state")
     if plan is None:
-        plan = FaultPlan.federation(seed)
+        plan = (FaultPlan.autopilot(seed) if ap_armed
+                else FaultPlan.federation(seed))
     if crash_plan:
         plan = FaultPlan(seed=plan.seed,
                          specs=tuple(plan.specs)
@@ -524,8 +545,10 @@ def run_federation_chaos(workload: str = "mixed", seed: int = 0,
     problems: list[str] = []
     knob_events: list[dict] = []
     knob_dir = None
+    ap_dir = None
     jr_dir = None
     journal = None
+    pilot = None
     try:
         clock = VirtualClock()
 
@@ -585,6 +608,28 @@ def run_federation_chaos(workload: str = "mixed", seed: int = 0,
             for entry in knob_plan:
                 pushes_by_tick.setdefault(int(entry["tick"]),
                                           []).append(entry)
+
+        if ap_armed:
+            import tempfile
+
+            from pbs_tpu_torch.autopilot import Autopilot, AutopilotConfig
+            from pbs_tpu_torch.knobs.channel import KnobChannel
+
+            ap_dir = tempfile.mkdtemp(prefix="pbst-autopilot-")
+            ap_writer = KnobChannel.create(f"{ap_dir}/knobs.led")
+            overrides = dict(autopilot) if isinstance(autopilot, dict) \
+                else {}
+            # Loop cadence sized to the run: record a third, guard a
+            # third — the guard must exceed the tightest SLO target
+            # (50 ms interactive) with real margin, or in-window
+            # requests cannot age past it and every verdict collapses
+            # to no-evidence; the whole decision still lands well
+            # inside the horizon, rollback included.
+            overrides.setdefault("min_record_ns", (ticks // 3) * tick_ns)
+            overrides.setdefault("guard_window_ns",
+                                 (ticks // 3) * tick_ns)
+            pilot = Autopilot(fed, ap_writer,
+                              config=AutopilotConfig(**overrides))
 
         def _push_knobs(tick: int) -> None:
             for entry in pushes_by_tick.get(tick, ()):
@@ -821,6 +866,8 @@ def run_federation_chaos(workload: str = "mixed", seed: int = 0,
                                 f"shed of {t.name} at tick {tick} "
                                 f"carries no retry-after ({r.reason})")
                 completions.extend(fed.tick())
+                if pilot is not None:
+                    pilot.tick()
                 if tick % 50 == 0:
                     _check_books(f"tick {tick}")
             except ProcessKill as pk:
@@ -843,6 +890,8 @@ def run_federation_chaos(workload: str = "mixed", seed: int = 0,
                 break
             try:
                 completions.extend(fed.tick())
+                if pilot is not None:
+                    pilot.tick()
             except ProcessKill as pk:
                 _kill9(pk)
             clock.advance(tick_ns)
@@ -923,6 +972,49 @@ def run_federation_chaos(workload: str = "mixed", seed: int = 0,
                 f"shed accounting drift: {shed_results} shed results, "
                 f"{shed_books} in the books")
 
+        if pilot is not None:
+            # THE autopilot gate: a pathological (injected) candidate
+            # must degrade to the reference profile inside the guard
+            # window — never ride out the run, never cause an outage
+            # (the no-job-lost check above already covers "outage").
+            injected = [e for e in pilot.history
+                        if e["event"] == "propose" and e.get("injected")]
+            rollbacks = [e for e in pilot.history
+                         if e["event"] == "rollback"]
+            canaries = [e for e in pilot.history
+                        if e["event"] == "canary"]
+            if injected and not rollbacks:
+                problems.append(
+                    "autopilot: injected pathological candidate was "
+                    f"never rolled back (history: "
+                    f"{[e['event'] for e in pilot.history]})")
+            if injected and rollbacks and canaries:
+                window = pilot.config.guard_window_ns + 2 * tick_ns
+                if rollbacks[0]["t_ns"] - canaries[0]["t_ns"] > window:
+                    problems.append(
+                        "autopilot: rollback landed "
+                        f"{rollbacks[0]['t_ns'] - canaries[0]['t_ns']}"
+                        f" ns after the canary — outside the guard "
+                        f"window ({window} ns)")
+            promoted_after = [e for e in pilot.history
+                              if e["event"] == "promote"
+                              and rollbacks
+                              and e["t_ns"] > rollbacks[-1]["t_ns"]]
+            if rollbacks and not promoted_after:
+                # Degraded-to-reference means every member's adopted
+                # profile IS the reference again.
+                ref = pilot.canary.reference
+                for name in sorted(fed.members):
+                    adopted = fed.members[name].applied_knobs
+                    drift = {k: (adopted.get(k), v)
+                             for k, v in ref.items()
+                             if adopted.get(k) != v}
+                    if drift:
+                        problems.append(
+                            f"autopilot: member {name} not on the "
+                            f"reference profile after rollback: "
+                            f"{drift}")
+
         if crash_plan:
             # The crash gate's own checks: every deterministic crash
             # position fired, and recovery actually recovered work.
@@ -948,10 +1040,11 @@ def run_federation_chaos(workload: str = "mixed", seed: int = 0,
         faults_mod.uninstall()
         if journal is not None:
             journal.abandon()
-        if knob_dir is not None or jr_dir is not None:
+        if knob_dir is not None or ap_dir is not None or \
+                jr_dir is not None:
             import shutil
 
-            for d in (knob_dir, jr_dir):
+            for d in (knob_dir, ap_dir, jr_dir):
                 if d is not None:
                     shutil.rmtree(d, ignore_errors=True)
 
@@ -1000,6 +1093,22 @@ def run_federation_chaos(workload: str = "mixed", seed: int = 0,
         # engine's behaviour behind gw0. Keyed in only when armed —
         # plain runs keep their digests byte-identical.
         digest_payload["serve"] = [sb.stats() for sb in serve_backends]
+    if pilot is not None:
+        # Autopilot-armed runs witness the LOOP'S RESPONSE: every
+        # decision (candidate, scores, margin, guard verdict) and
+        # every member adoption — same-seed-same-digest therefore
+        # pins the rollback itself. Keyed in only when armed, so
+        # plain runs keep their pre-autopilot digests byte-identical.
+        digest_payload["autopilot_events"] = [
+            {k: (dict(sorted(v.items()))
+                 if isinstance(v, dict) else v)
+             for k, v in sorted(e.items())}
+            for e in pilot.history]
+        digest_payload["knob_adoptions"] = [
+            {"now_ns": a["now_ns"], "member": a["member"],
+             "knobs": {k: round(float(v), 6)
+                       for k, v in sorted(a["knobs"].items())}}
+            for a in fed.knob_adoptions]
     digest_src = json.dumps(digest_payload, sort_keys=True,
                             separators=(",", ":"))
     report: dict[str, Any] = {
@@ -1034,6 +1143,8 @@ def run_federation_chaos(workload: str = "mixed", seed: int = 0,
             "final_generation": (crash_events[-1]["generation"]
                                  if crash_events else 0),
         }
+    if pilot is not None:
+        report["autopilot"] = pilot.report()
     if serve is not None:
         report["serve"] = [sb.stats() for sb in serve_backends]
     return report

@@ -24,9 +24,8 @@ default. Estimates for a job come from the byte size of its state.
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import Any, Callable
-
-import torch
 
 from pbs_tpu_torch.obs.lockprof import ProfiledLock
 from pbs_tpu_torch.obs.perfc import perfc
@@ -51,7 +50,11 @@ def nbytes_of(tree: Any) -> int:
         return sum(nbytes_of(v) for v in tree.values())
     if isinstance(tree, (list, tuple)):
         return sum(nbytes_of(v) for v in tree)
-    if isinstance(tree, torch.Tensor):
+    # A tensor can only exist once torch is loaded: look it up rather
+    # than import it, so the simulator plane (sim -> runtime.partition
+    # -> here) stays free of torch.
+    torch = sys.modules.get("torch")
+    if torch is not None and isinstance(tree, torch.Tensor):
         return tree.numel() * tree.element_size()
     nb = getattr(tree, "nbytes", None)
     return int(nb) if nb is not None else 0
@@ -61,6 +64,8 @@ def device_memory_stats(device: Any = None) -> dict:
     """Live memory numbers of a CUDA device (``bytes_in_use``,
     ``bytes_limit``), ``{}`` for a CPU device. ``device=None`` is the
     current card."""
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type != "cuda":
         return {}

@@ -705,13 +705,29 @@ def test_federation_obs_export_feeds_slo_report(tmp_path, capsys):
 
 
 def test_unported_harness_modes_raise_naming_the_item():
-    """``autopilot=`` is still unported and raises naming its item;
-    ``process_mode=True`` is ported (``tests/test_torch_procfed.py``)
-    and refuses, as the reference does, every control plane that lives
-    in the harness process — before any member is spawned."""
-    for kw in (dict(autopilot=True), dict(autopilot={})):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            PORT.gw.run_federation_chaos(**SMOKE_KW, **kw)
+    """``autopilot=`` is ported: the port refuses it beside a knob plan
+    or a crash plan with the reference's ``ValueError``s, word for
+    word and in the same order, before any run starts.
+    ``process_mode=True`` refuses, as the reference does, every control
+    plane that lives in the harness process — before any member is
+    spawned (``tests/test_torch_procfed.py`` runs the mode itself)."""
+    knob = [{"tick": 5, "set": {}}]
+    for kw, match in (
+            (dict(autopilot=True, knob_plan=knob),
+             "knob_plan and autopilot are mutually exclusive"),
+            (dict(autopilot={}, knob_plan=knob),
+             "knob_plan and autopilot are mutually exclusive"),
+            (dict(autopilot=True, crash_plan=[{"tick": 10}]),
+             "crash_plan is mutually exclusive with knob_plan/autopilot"),
+            (dict(autopilot=True, knob_plan=knob,
+                  crash_plan=[{"tick": 10}]),
+             "knob_plan and autopilot are mutually exclusive")):
+        msgs = []
+        for P in (REF, PORT):
+            with pytest.raises(ValueError, match=match) as ei:
+                P.gw.run_federation_chaos(**SMOKE_KW, **kw)
+            msgs.append(str(ei.value))
+        assert msgs[0] == msgs[1], kw
     for kw in (dict(autopilot=True), dict(crash_plan=[{"record": 3}]),
                dict(knob_plan=[{"tick": 5, "set": {}}])):
         for P in (REF, PORT):

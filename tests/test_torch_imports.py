@@ -149,18 +149,42 @@ def test_cluster_modules_are_covered():
     assert not missing, missing
 
 
+#: The closed tuning loop and the scenario frontier: each must be in the
+#: module list the checks above walk.
+LOOP_MODULES = (
+    "pbs_tpu_torch.autopilot", "pbs_tpu_torch.autopilot.recorder",
+    "pbs_tpu_torch.autopilot.shadow", "pbs_tpu_torch.autopilot.canary",
+    "pbs_tpu_torch.autopilot.pilot", "pbs_tpu_torch.scenarios",
+    "pbs_tpu_torch.scenarios.genome", "pbs_tpu_torch.scenarios.score",
+    "pbs_tpu_torch.scenarios.hunt", "pbs_tpu_torch.scenarios.corpus",
+)
+
+
+def test_loop_modules_are_covered():
+    names = set(_module_names())
+    missing = [m for m in LOOP_MODULES if m not in names]
+    assert not missing, missing
+
+
 def test_device_free_planes_import_no_torch():
     """The process federation's member processes load the gateway plane,
     the journal, recovery, spans and the RPC: none of it imports torch
     (nor JAX), so a spawned member costs no device runtime. The package
     inits of ``dist`` and ``runtime`` load their torch-touching modules
-    on first use for the same reason."""
+    on first use for the same reason. The simulator plane, the tune
+    search, the chaos harness, the closed tuning loop and the scenario
+    frontier are device-free too (``runtime.memory`` loads torch only
+    when asked for a card's numbers), so their spawn workers pay no
+    torch import."""
     mods = ["pbs_tpu_torch.gateway.procfed", "pbs_tpu_torch.dist",
             "pbs_tpu_torch.dist.rpc", "pbs_tpu_torch.store",
             "pbs_tpu_torch.gateway.gateway", "pbs_tpu_torch.gateway.journal",
             "pbs_tpu_torch.gateway.recovery",
             "pbs_tpu_torch.gateway.backends", "pbs_tpu_torch.obs.spans",
-            "pbs_tpu_torch.runtime.job", "pbs_tpu_torch.runtime.xsm"]
+            "pbs_tpu_torch.runtime.job", "pbs_tpu_torch.runtime.xsm",
+            "pbs_tpu_torch.sim", "pbs_tpu_torch.sched.tune",
+            "pbs_tpu_torch.gateway.chaos", "pbs_tpu_torch.autopilot",
+            "pbs_tpu_torch.scenarios"]
     code = (
         "import sys, importlib\n"
         f"for name in {mods!r}:\n"

@@ -133,19 +133,31 @@ def test_crash_chaos_mint_bound_and_audit_identities():
 
 
 def test_crash_plan_requires_journal_exclusive_modes():
-    """As the reference's, but ``autopilot=`` is not ported: it raises
-    ``NotImplementedError`` naming its ROADMAP item before the crash
-    plan's own check."""
-    with pytest.raises(ValueError):
-        run_federation_chaos(
-            **SMOKE_KW, crash_plan=[{"tick": 10}],
-            knob_plan=[{"tick": 5, "set": {
-                "gateway.admission.rate_scale": 0.5}}])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        run_federation_chaos(**SMOKE_KW, crash_plan=[{"tick": 10}],
-                             autopilot=True)
-    with pytest.raises(ValueError, match="names none of"):
-        run_federation_chaos(**SMOKE_KW, crash_plan=[{"banana": 1}])
+    """As the reference's: a crash plan refuses the knob plan and the
+    closed tuning loop (the journal covers gateway state, not the knob
+    control plane), ``knob_plan`` with ``autopilot=`` is refused before
+    that (both own the federation's one knob channel), and an entry
+    naming no position is refused. Each error is the reference's
+    ``ValueError``, word for word, raised in the same order."""
+    knob = [{"tick": 5, "set": {"gateway.admission.rate_scale": 0.5}}]
+    cases = [
+        (dict(crash_plan=[{"tick": 10}], knob_plan=knob),
+         "crash_plan is mutually exclusive with knob_plan"),
+        (dict(crash_plan=[{"tick": 10}], autopilot=True),
+         "crash_plan is mutually exclusive with knob_plan/autopilot"),
+        (dict(crash_plan=[{"tick": 10}], autopilot={}),
+         "crash_plan is mutually exclusive with knob_plan/autopilot"),
+        (dict(crash_plan=[{"tick": 10}], knob_plan=knob, autopilot=True),
+         "knob_plan and autopilot are mutually exclusive"),
+        (dict(crash_plan=[{"banana": 1}]), "names none of"),
+    ]
+    for kw, match in cases:
+        msgs = []
+        for run in (ref_run, run_federation_chaos):
+            with pytest.raises(ValueError, match=match) as ei:
+                run(**SMOKE_KW, **kw)
+            msgs.append(str(ei.value))
+        assert msgs[0] == msgs[1], kw
 
 
 def test_crash_chaos_cli():
