@@ -243,6 +243,22 @@ Phases, each fatal on failure:
              demo hunt on one and two spawn workers at one digest, the
              port's corpus replayed at its golden digests, a what-if per
              entry, a spawn worker's start cost (no torch in it).
+3k. check — the static checker on the card host: (a) phase 3's score
+             (2.1) and mm (2.4) tenants as jobs of one agent on 127.0.0.1
+             (credit, a FeedbackPolicy over CudaBackend, each tenant's
+             working set claimed through a MemoryManager), created and run
+             to their max_steps through an RpcClient, with the ``lockdep``
+             boot param set and every ``ProfiledLock`` acquisition fed to
+             lockdep; the graph exported, no violation; (b) ``pbst-torch
+             check --format json --lockdep-graph`` over the port's tree in
+             a child process: exit 0, no finding, exactly the four
+             justified suppressions, every pass, and no torch, JAX or
+             ``pbs_tpu`` imported; (c) a static lock edge the checker
+             records (the port's tree has none, so the port-named clean
+             fixture tree's) checked with (a)'s graph alone (exit 0) and
+             with its reverse added (exactly one ``lock-order`` finding at
+             the edge's line, exit 1). Prints the classes, edges, files
+             scanned and wall seconds.
 4. numerics — the scoring forward through the flash kernel against the dense
              attention path on the same weights, the KV-cache prefill
              against the full forward, one micro-batch's training loss
@@ -271,6 +287,7 @@ Float32 products run in full fp32 here (TF32 off).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -478,6 +495,22 @@ GOLDEN_FED_REPORT_DIGEST = (
 # any worker count).
 AP_HUNT_DIGEST = (
     "fc022d121c81c49b235b5e61ec63d8d2c109ea5991afde0f0d03bb92f6033786")
+# Phase 3k, the static checker on the card host. (a) phase 3's score and
+# mm tenants (CHECK_STEPS, weights CHECK_WEIGHTS) on one agent on
+# 127.0.0.1, a credit Partition with a FeedbackPolicy over CudaBackend and
+# a MemoryManager, created and driven in one-round ``run`` calls through an
+# RpcClient (at most CHECK_ROUND_LIMIT), every named lock fed to lockdep;
+# (b) ``pbst-torch check`` over the port's tree with (a)'s graph, in a
+# child process with no deadline but CHECK_CHILD_TIMEOUT_S; (c) the
+# reverse of one static lock edge added to (a)'s graph.
+CHECK_STEPS = {"score": 6, "mm": 8}
+CHECK_WEIGHTS = {"score": 256, "mm": 512}
+CHECK_ROUND_LIMIT = 64
+CHECK_CHILD_TIMEOUT_S = 300
+# The checker's verdict on the port's tree: no finding, and the four
+# justified suppressions the reference's own tree carries, in its order.
+CHECK_SUPPRESSED = ("rollout-push", "perf-dispatch-alloc",
+                    "perf-dispatch-alloc", "perf-emit-in-loop")
 H100_PEAK_BF16_FLOPS = 989e12  # dense, data sheet
 H100_PEAK_HBM_BW = 3.35e12
 
@@ -5100,17 +5133,19 @@ def recording_image(factory, boots: list, losses: dict, sync):
     return boot
 
 
-def mm_workload(mm_fn):
-    """The ``"mm"`` workload factory: a Job around phase 3's matmul
-    tenant step, ``spec`` giving its max_steps and sched params."""
+def tenant_workload(fn, nbytes: int | None = None):
+    """An agent workload factory: a Job around a tenant's step ``fn``
+    (phase 3's matmul in 3d), ``spec`` giving its max_steps and sched
+    params; ``nbytes``, when given, is its declared HBM working set,
+    claimed at admission by a partition with a MemoryManager."""
 
     def create(partition, job_name, spec):
         from pbs_tpu_torch.runtime import Job, SchedParams
 
         return partition.add_job(Job(
-            job_name, step_fn=mm_fn, state=None,
+            job_name, step_fn=fn, state=None,
             params=SchedParams(**spec.get("sched", {})),
-            max_steps=spec.get("max_steps")))
+            max_steps=spec.get("max_steps"), mem_bytes=nbytes))
 
     return create
 
@@ -5185,7 +5220,7 @@ def cluster_run(torch, device, warm, image_digest, mm_fn, tmp, digest_of,
             part.hooks.on("job-sleep", lambda ev, env, n=name:
                           sleeps[n].append(env["PBST_JOB"]))
             a = Agent(name, partition=part, auth_token=token, device=device,
-                      workloads={"mm": mm_workload(mm_fn)})
+                      workloads={"mm": tenant_workload(mm_fn)})
             a.workloads["image"] = recording_image(a.workloads["image"],
                                                    boots, losses, sync)
             for op in ("save_job", "restore_job", "remove_job"):
@@ -6224,6 +6259,320 @@ def run_autopilot_path(torch, gen, cfg, params, a_tokens, card):
     return launches, routes
 
 
+# -- phase 3k ----------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def locks_into_lockdep():
+    """Arm the ``lockdep`` boot param (reset its graph first) and feed it
+    every ``ProfiledLock`` acquisition, under the lock's name, for the
+    block; disarm and reset the graph after it.
+
+    A ``ProfiledLock`` carries no lockdep hook in either package (only
+    ``obs.lockdep.OrderedLock`` has one, and no lock of the runtime is
+    one), so the param alone records none of the port's named locks. The
+    bridge notes each acquisition before it blocks and each release after
+    it, as ``OrderedLock`` does, and unwinds a failed try-acquire."""
+    from pbs_tpu_torch.obs import lockdep
+    from pbs_tpu_torch.obs.lockprof import ProfiledLock
+    from pbs_tpu_torch.utils import params
+
+    acquire, release = ProfiledLock.acquire, ProfiledLock.release
+
+    def noted_acquire(self, blocking=True, timeout=-1):
+        lockdep.note_acquire(self.stats.name)
+        try:
+            got = acquire(self, blocking, timeout)
+        except BaseException:
+            lockdep.note_release(self.stats.name)
+            raise
+        if not got:
+            lockdep.note_release(self.stats.name)
+        return got
+
+    def noted_release(self):
+        release(self)
+        lockdep.note_release(self.stats.name)
+
+    armed = params.get("lockdep")
+    armed.set("on")
+    lockdep.reset()
+    ProfiledLock.acquire, ProfiledLock.release = noted_acquire, noted_release
+    try:
+        yield lockdep
+    finally:
+        ProfiledLock.acquire, ProfiledLock.release = acquire, release
+        armed.reset()
+        lockdep.reset()
+
+
+def lockdep_run(tenants: dict, device, memory, tmp) -> dict:
+    """Phase 3k (a): ``tenants`` ({name: (step fn, bytes)}) as jobs of one
+    agent on 127.0.0.1 (a credit Partition over ``CudaBackend(device)``
+    with a FeedbackPolicy and ``memory`` as its MemoryManager), created
+    and run to their max_steps in one-round ``run`` calls through an
+    RpcClient, each round's job list written to a Store, every named lock
+    fed to lockdep; the graph exported to ``tmp``. Returns the graph, its
+    path and the run's numbers."""
+    from pbs_tpu_torch.dist import Agent, RpcClient
+    from pbs_tpu_torch.runtime import Partition
+    from pbs_tpu_torch.sched import FeedbackPolicy
+    from pbs_tpu_torch.store import Store
+    from pbs_tpu_torch.telemetry import CudaBackend
+
+    token = os.urandom(16).hex()
+    agent = cli = None
+    with locks_into_lockdep() as lockdep:
+        try:
+            part = Partition("k0.pool", source=CudaBackend(device=device),
+                             scheduler="credit", memory=memory)
+            FeedbackPolicy(part)  # held by the partition's timer wheel
+            agent = Agent("k0", partition=part, auth_token=token,
+                          device=device, workloads={
+                              name: tenant_workload(fn, nbytes)
+                              for name, (fn, nbytes) in tenants.items()})
+            agent.start()
+            cli = RpcClient(agent.address, auth_token=token, deadline_s=60.0)
+            store = Store(os.path.join(tmp, "store.json"))
+            for name in tenants:
+                cli.call("create_job", job=name, workload=name, spec={
+                             "max_steps": CHECK_STEPS[name],
+                             "sched": {"weight": CHECK_WEIGHTS[name]}})
+            t = time.monotonic()
+            rounds, jobs = 0, []
+            while rounds < CHECK_ROUND_LIMIT:
+                cli.call("run", max_rounds=1, _timeout=60.0)
+                rounds += 1
+                jobs = cli.call("list_jobs")
+                store.write("/k0/jobs", {j["job"]: j["state"] for j in jobs})
+                if all(j["finished"] for j in jobs):
+                    break
+            wall = time.monotonic() - t
+            graph = lockdep.export_graph()
+            checked = lockdep.dump()["checked_edges"]
+        finally:
+            if cli is not None:
+                cli.close()
+            if agent is not None:
+                agent.stop()
+    check(all(j["finished"] and j["steps"] == CHECK_STEPS[j["job"]]
+              for j in jobs) and len(jobs) == len(tenants),
+          f"(a) {len(tenants)} jobs at their max_steps "
+          f"({ {j['job']: j['steps'] for j in jobs} }) in {rounds} rounds")
+    claims = memory.dump()
+    check(all(claims["accounts"][n]["used"] == nbytes
+              for n, (_, nbytes) in tenants.items()),
+          f"(a) each tenant's working set claimed through the "
+          f"MemoryManager ({ {n: b for n, (_, b) in tenants.items()} })")
+    check(store.read("/k0/jobs") == {n: "finished" for n in tenants},
+          "(a) the last round's job list read back from the Store")
+    check(graph["violations"] == [],
+          f"(a) no lock-order violation: {graph['violations']}")
+    check(len(graph["edges"]) > 0,
+          f"(a) the run nested named locks: {len(graph['edges'])} edges")
+    path = os.path.join(tmp, "lockdep_graph.json")
+    with open(path, "w") as f:
+        json.dump(graph, f, indent=1)
+    return dict(graph=graph, path=path, rounds=rounds, wall=wall,
+                checked_edges=checked)
+
+
+def run_checker(args: list, cwd: str) -> dict:
+    """``pbst-torch check --format json ARGS`` in a child interpreter
+    started in ``cwd`` (so findings name paths from there), its imports
+    recorded by ``-X importtime``. Returns its exit code, its JSON, the
+    top-level packages it imported and its wall seconds."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo)
+    t = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "pbs_tpu_torch.cli.pbst",
+         "check", "--format", "json", *args],
+        cwd=cwd, env=env, capture_output=True, text=True,
+        timeout=CHECK_CHILD_TIMEOUT_S)
+    wall = time.monotonic() - t
+    tops = set()
+    for ln in proc.stderr.splitlines():
+        if ln.startswith("import time:") and ln.count("|") == 2:
+            tops.add(ln.rsplit("|", 1)[1].strip().split(".")[0])
+    try:
+        out = json.loads(proc.stdout)
+    except ValueError:
+        errors = [ln for ln in proc.stderr.splitlines()
+                  if not ln.startswith("import time:")]
+        check(False, f"pbst-torch check printed no JSON (rc "
+                     f"{proc.returncode}): {errors[-5:]}")
+    return dict(rc=proc.returncode, out=out, tops=tops, wall=wall)
+
+
+def port_fixture_tree(which: str, dst: str) -> str:
+    """The checker's fixture tree ``tests/fixtures/analysis/<which>``
+    copied into ``dst`` under the port's names: its ``pbs_tpu`` package
+    becomes ``pbs_tpu_torch``, the C directory's sources go to
+    ``pbs_tpu_torch/runtime/csrc``, and the word ``pbs_tpu`` in each
+    ``.py`` file becomes ``pbs_tpu_torch``. Returns ``dst``."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(repo, "tests", "fixtures", "analysis", which)
+    check(os.path.isdir(src), f"the checker's fixture tree {src}")
+    for root, _, files in os.walk(src):
+        for name in files:
+            parts = os.path.relpath(os.path.join(root, name), src).split(
+                os.sep)
+            if parts[0] == "pbs_tpu":
+                parts[0] = "pbs_tpu_torch"
+            else:  # the fixture's C directory
+                parts = ["pbs_tpu_torch", "runtime", "csrc", *parts[1:]]
+            with open(os.path.join(root, name), encoding="utf-8") as f:
+                text = f.read()
+            if name.endswith(".py"):
+                text = re.sub(r"\bpbs_tpu\b", "pbs_tpu_torch", text)
+            out = os.path.join(dst, *parts)
+            os.makedirs(os.path.dirname(out), exist_ok=True)
+            with open(out, "w", encoding="utf-8") as f:
+                f.write(text)
+    return dst
+
+
+def static_lock_edges(paths: list, root: str) -> dict:
+    """The static lock-order edges the checker's lock pass records over
+    ``paths``: {(holder, taken): (path from ``root``, line)}."""
+    from pbs_tpu_torch.analysis import (CheckContext, SourceFile,
+                                        iter_check_files)
+    from pbs_tpu_torch.analysis.locks import LockDisciplinePass
+
+    files = []
+    for p in iter_check_files(paths):
+        if p.endswith(".py"):
+            with open(p, encoding="utf-8") as f:
+                rel = os.path.relpath(os.path.abspath(p), root)
+                files.append(SourceFile(p, f.read(),
+                                        rel_path=rel.replace(os.sep, "/")))
+    ctx = CheckContext(files)
+    lock_pass = LockDisciplinePass()
+    for src in files:
+        lock_pass.run(src, ctx)
+    return {edge: (path, pos[0]) for edge, (path, pos)
+            in ctx.state.get("static_lock_edges", {}).items()}
+
+
+def check_path_run(tenants: dict, device, memory, tmp) -> dict:
+    """Phase 3k (a)-(c). (b) the checker over the port's tree with (a)'s
+    graph; (c) one static lock edge the checker records (over the port's
+    tree if it has one, else over the port-named clean fixture tree),
+    checked with (a)'s graph alone, then with its reverse added. Every
+    check raises ``Failed``. Returns the numbers the phase prints."""
+    from pbs_tpu_torch.analysis import pass_ids
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    pkg = os.path.join(repo, "pbs_tpu_torch")
+    out = dict(a=lockdep_run(tenants, device, memory, tmp))
+    graph = out["a"]["graph"]
+
+    # -- (b) ---------------------------------------------------------------
+    b = run_checker(["--lockdep-graph", out["a"]["path"], pkg], cwd=repo)
+    r = b["out"]
+    check(b["rc"] == 0 and r["findings"] == [],
+          f"(b) the port's tree is clean with the live graph (rc "
+          f"{b['rc']}, {len(r['findings'])} findings)")
+    check([s["check"] for s in r["suppressed"]] == list(CHECK_SUPPRESSED),
+          f"(b) exactly the {len(CHECK_SUPPRESSED)} justified "
+          f"suppressions: {[s['check'] for s in r['suppressed']]}")
+    check(r["passes"] == pass_ids(),
+          f"(b) every pass ran, in order ({len(r['passes'])})")
+    check(not b["tops"] & {"torch", "jax", "jaxlib", "pbs_tpu"},
+          f"(b) the checker imported no torch, JAX or pbs_tpu "
+          f"({len(b['tops'])} top-level modules)")
+    out["b"] = b
+
+    # -- (c) ---------------------------------------------------------------
+    tree_edges = static_lock_edges([pkg], repo)
+    target, edges = pkg, tree_edges
+    cwd = repo
+    if not edges:
+        cwd = port_fixture_tree("clean", os.path.join(tmp, "clean"))
+        target = os.path.join(cwd, "pbs_tpu_torch")
+        edges = static_lock_edges([target], cwd)
+    check(len(edges) > 0, f"(c) a static lock edge to reverse "
+                          f"({len(tree_edges)} in the port's tree)")
+    (holder, taken), (where, line) = sorted(edges.items())[0]
+    base = run_checker(["--lockdep-graph", out["a"]["path"], target], cwd)
+    check(base["rc"] == 0 and base["out"]["findings"] == [],
+          f"(c) {os.path.relpath(target, cwd)} clean with the live graph "
+          f"alone (rc {base['rc']})")
+    inverted = dict(graph, edges=sorted(graph["edges"] + [[taken, holder]]))
+    inv_path = os.path.join(tmp, "lockdep_graph_inverted.json")
+    with open(inv_path, "w") as f:
+        json.dump(inverted, f, indent=1)
+    inv = run_checker(["--lockdep-graph", inv_path, target], cwd)
+    got = [(f["check"], f["path"], f["line"]) for f in inv["out"]["findings"]]
+    check(inv["rc"] == 1 and got == [("lock-order", where, line)],
+          f"(c) with {taken} -> {holder} added: exactly one lock-order "
+          f"finding at the edge {holder} -> {taken} ({where}:{line}): "
+          f"{got}, rc {inv['rc']}")
+    out["c"] = dict(tree_edges=len(tree_edges), edge=(holder, taken),
+                    where=f"{where}:{line}", base=base, inv=inv)
+    return out
+
+
+def check_path_lines(out: dict, card: str) -> None:
+    a, b, c = out["a"], out["b"], out["c"]
+    g = a["graph"]
+    print(f"  (a) {a['rounds']} rounds in {a['wall']:.2f} s; lockdep "
+          f"classes {g['classes']}; {len(g['edges'])} edges "
+          f"{[tuple(e) for e in g['edges']]}; {a['checked_edges']} nested "
+          f"acquisitions checked; violations {g['violations']}", flush=True)
+    print(f"  (b) pbst-torch check: {b['out']['files_scanned']} files, "
+          f"{len(b['out']['findings'])} findings, "
+          f"{len(b['out']['suppressed'])} suppressed, "
+          f"{b['wall']:.2f} s wall in a child process, on the card host's "
+          f"CPU [{card}]", flush=True)
+    print(f"  (c) {c['tree_edges']} static lock edges in the port's tree; "
+          f"reversed {c['edge'][0]} -> {c['edge'][1]} ({c['where']}): "
+          f"rc {c['base']['rc']} -> {c['inv']['rc']}, "
+          f"{c['base']['wall']:.2f} / {c['inv']['wall']:.2f} s", flush=True)
+
+
+def run_check_path(torch, gen, cfg, params, card):
+    """Phase 3k on the card: phase 3's score (2.1) and mm (2.4) tenants
+    under lockdep through one agent, then the checker with the live
+    graph and the negative control. Returns (a)'s kernel launch counts
+    and routes."""
+    import tempfile
+
+    from pbs_tpu_torch.runtime.memory import MemoryManager
+
+    t_phase = time.monotonic()
+    score_fn = scoring_tenant(torch, gen, cfg, params)
+    mm_fn = mm_tenant(torch, gen)
+    for fn in (score_fn, mm_fn):
+        fn(None)  # warm outside the partition
+    torch.cuda.synchronize()
+    tenants = {
+        # bf16 logits of the scored window; bf16 operands and fp32 product
+        "score": (score_fn, SCORE_BATCH * SCORE_SEQ * cfg.vocab * 2),
+        "mm": (mm_fn, 2 * MM_N * MM_N * 2 + MM_N * MM_N * 4),
+    }
+    memory = MemoryManager.for_device()
+    wrappers = bwd_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_3k_") as tmp:
+        reset_counts(wrappers)
+        out = check_path_run(tenants, "cuda", memory, tmp)
+        launches, routes = control_launches(wrappers)
+    check_path_lines(out, card)
+    for k in KERNELS:
+        n = launches[k]
+        if k in ("flash_fwd", "instrumented_matmul"):
+            check(n > 0 and routes[k] == {"wgmma": n, "simt": 0},
+                  f"(a) {k}: {n} launches, every one on the tensor-core "
+                  f"route ({routes[k]})")
+        else:
+            check(n == 0, f"(a) {k}: no launch (no backward on this path)")
+    print(f"  (a) kernel launches {launches}, by route {routes}", flush=True)
+    print(f"  phase 3k wall {time.monotonic() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return launches, routes
+
+
 # -- phase 4 -----------------------------------------------------------------
 
 
@@ -6875,6 +7224,13 @@ def main() -> int:
     a_launches, a_routes = run_autopilot_path(torch, gen, cfg, params,
                                               a_tokens, card_line())
 
+    phase("3k static checker: the port's named locks under lockdep through "
+          "one agent on the card, pbst-torch check over the port's tree "
+          "with the live lock-order graph, and a reversed edge it must "
+          "catch")
+    k_launches, k_routes = run_check_path(torch, gen, cfg, params,
+                                          card_line())
+
     phase("4 numerics at width")
     check_numerics(torch, gen, cfg, params)
     del params
@@ -6922,6 +7278,9 @@ def main() -> int:
         # phase 3a (b): score (2.1) and mm (2.4) steered by the loop
         r["autopilot_path_launches"] = a_launches[kernel]
         r["autopilot_path_launches_by_route"] = a_routes[kernel]
+        # phase 3k (a): score (2.1) and mm (2.4) under lockdep
+        r["check_path_launches"] = k_launches[kernel]
+        r["check_path_launches_by_route"] = k_routes[kernel]
     profile_micro_step(torch, micro_step, train_state)
     del micro_step, train_state
     profile_micro_step(torch, moe_step, moe_state, what="MoE training step")

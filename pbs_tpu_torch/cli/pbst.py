@@ -21,12 +21,16 @@
                migrate     the xl-style surface of a live agent
                             (``--connect host:port``)
     pbst-torch store        ls/read/write/rm on a persisted store file
+    pbst-torch check        the static invariant checkers over the port's
+                            tree (.py and runtime/csrc/*.cc); exit 0
+                            clean, 1 findings, 2 usage error
 
 The port of those commands of ``pbs_tpu.cli.pbst``: the same flags
-(plus ``--device`` for ``serve-demo``), the same JSON shapes. The
-``native`` stamp of ``sim`` and ``tune`` names the tier of the port's
-native sim core (built at first use), or why it is off. The
-reference's other commands wait for the modules they read
+(plus ``--device`` for ``serve-demo``), the same JSON shapes. ``check``
+defaults to the path ``pbs_tpu_torch`` (the reference's to ``pbs_tpu``
+and ``native``). The ``native`` stamp of ``sim`` and ``tune`` names the
+tier of the port's native sim core (built at first use), or why it is
+off. The reference's other commands wait for the modules they read
 (ROADMAP queue 1 items 8-12). ``scenarios promote`` writes into the
 port's own corpus (``pbs_tpu_torch/scenarios/corpus/``) by default.
 
@@ -40,6 +44,7 @@ port's own corpus (``pbs_tpu_torch/scenarios/corpus/``) by default.
     python -m pbs_tpu_torch.cli.pbst autopilot run --demo --pathological
     python -m pbs_tpu_torch.cli.pbst scenarios hunt --demo
     python -m pbs_tpu_torch.cli.pbst scenarios replay --check
+    python -m pbs_tpu_torch.cli.pbst check --format json
     python -m pbs_tpu_torch.cli.pbst hw replay --check \
         pbs_tpu_torch/hwtelem/windows/w0.jsonl
 """
@@ -1239,6 +1244,83 @@ def cmd_scenarios(args) -> int:
     return 2
 
 
+def cmd_check(args) -> int:
+    """Static invariant checker suite (docs/ANALYSIS.md): lock
+    discipline, time-unit consistency, scheduler-ops conformance,
+    counter-API usage. Exit 0 clean / 1 findings / 2 usage error."""
+    from pbs_tpu_torch.analysis import (
+        ALL_PASSES,
+        changed_check_files,
+        check_paths,
+        format_human,
+        list_suppressions,
+        load_dynamic_graph,
+    )
+
+    if args.list_passes:
+        for cls in ALL_PASSES:
+            print(f"{cls.id:<16} rules: {', '.join(cls.rules)}")
+            print(f"{'':<16} {cls.description}")
+        return 0
+    if args.list_suppressions:
+        sups = list_suppressions(args.paths)
+        if args.format == "json":
+            print(json.dumps({"version": 1, "count": len(sups),
+                              "suppressions": sups},
+                             indent=1, sort_keys=True))
+        else:
+            for s in sups:
+                scope = "file-wide" if s["scope"] == "file" else "line"
+                print(f"{s['path']}:{s['line']}: "
+                      f"[{', '.join(s['rules'])}] ({scope}) -- "
+                      f"{s['justification'] or 'NO JUSTIFICATION'}")
+            print(f"{len(sups)} suppression(s)")
+        return 0
+    dynamic = None
+    if args.lockdep_graph:
+        try:
+            dynamic = load_dynamic_graph(args.lockdep_graph)
+        except (OSError, ValueError, KeyError) as e:
+            print(f"pbst-torch: bad --lockdep-graph "
+                  f"{args.lockdep_graph!r}: {e}", file=sys.stderr)
+            return 2
+    paths = args.paths
+    if args.changed:
+        try:
+            paths = changed_check_files(args.changed, args.paths)
+        except ValueError as e:
+            print(f"pbst-torch: bad --changed {args.changed!r}: {e}",
+                  file=sys.stderr)
+            return 2
+        if not paths:
+            # A legitimately empty change set is clean, not a usage
+            # error — this is the pre-commit fast path.
+            print(f"pbst-torch check: no checkable files changed vs "
+                  f"{args.changed} under {args.paths}")
+            return 0
+    try:
+        result = check_paths(paths, passes=args.passes,
+                             dynamic_graph=dynamic)
+    except KeyError as e:
+        print(f"pbst-torch: {e.args[0]}", file=sys.stderr)
+        return 2
+    if result.files_scanned == 0:
+        print(f"pbst-torch: no checkable files under {paths}",
+              file=sys.stderr)
+        return 2
+    if args.format == "json":
+        print(json.dumps(result.as_dict(), indent=1, sort_keys=True))
+    else:
+        print(format_human(result))
+    return result.exit_code
+
+
+def check_entry() -> None:
+    """Console entry ``pbst-torch-check``: exactly ``pbst-torch check
+    ...`` without the subcommand word."""
+    sys.exit(main(["check", *sys.argv[1:]]))
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="pbst-torch",
                                 description="PBS-T port command line")
@@ -1514,6 +1596,31 @@ def main(argv=None) -> int:
                          "a KnobChannel file pushed by the caller")
     sp.add_argument("--json", action="store_true")
     sp.set_defaults(fn=cmd_scenarios)
+    sp = sub.add_parser(
+        "check", help="static invariant checkers (docs/ANALYSIS.md)")
+    sp.add_argument("paths", nargs="*", default=["pbs_tpu_torch"],
+                    help="files/dirs to check (default: pbs_tpu_torch, "
+                         "whose runtime/csrc/*.cc the memmodel passes "
+                         "check against their Python mirrors)")
+    sp.add_argument("--format", choices=["text", "json"], default="text")
+    sp.add_argument("--pass", dest="passes", action="append",
+                    metavar="PASS-ID",
+                    help="run only this pass (repeatable; default: all)")
+    sp.add_argument("--list-passes", action="store_true",
+                    help="list passes and rule ids, then exit")
+    sp.add_argument("--list-suppressions", action="store_true",
+                    help="audit every suppression comment (file:line, "
+                         "rules, justification), then exit")
+    sp.add_argument("--changed", metavar="REF",
+                    help="incremental mode: analyze only files changed "
+                         "vs this git ref (pre-commit fast path; "
+                         "cross-file analyses see the subset only — "
+                         "CI still runs the full tree)")
+    sp.add_argument("--lockdep-graph", metavar="GRAPH.json",
+                    help="dynamic lock-order graph (obs.lockdep."
+                         "export_graph) to cross-check static edges "
+                         "against")
+    sp.set_defaults(fn=cmd_check)
     args = p.parse_args(argv)
     return args.fn(args)
 

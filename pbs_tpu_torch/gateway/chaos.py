@@ -636,8 +636,7 @@ def run_federation_chaos(workload: str = "mixed", seed: int = 0,
                 expect_reject = entry.get("expect") == "rejected"
                 gen_before = knob_writer.generation
                 try:
-                    # The harness IS the adversary: raw mid-run pushes.
-                    gen = knob_writer.push(dict(entry["set"]))
+                    gen = knob_writer.push(dict(entry["set"]))  # pbst: ignore[rollout-push] -- chaos harness IS the adversary: the knob plan injects raw mid-run pushes to prove the consumers survive them; production writers go through autopilot/canary.py
                     applied, errors = True, []
                 except KnobError as e:
                     applied, errors = False, list(e.problems)

@@ -16,9 +16,8 @@ parses the manifest, builds the port's model and train step
 (``attn_impl: "pallas"`` routes attention through the flash kernels),
 restores the checkpoint when present, and returns a ready
 :class:`~pbs_tpu_torch.runtime.job.Job`. ``image_workload`` admits the
-booted job into a port ``Partition``; the agent and control plane that
-call it over the wire in the reference wait for ROADMAP queue 1, item
-12. ``save_image`` is the other direction (the image builder).
+booted job into a port ``Partition``. ``save_image`` is the other
+direction (the image builder).
 
 Data kind ``"corpus"`` draws the reference's windows from the same
 numpy generators, so both packages train on the same tokens. Kind

@@ -305,13 +305,13 @@ class ListSchedulerProbe:
             wait = max(0, now_ns - self._enqueued.pop(ctx, now_ns))
             ctx.counters[Counter.RUNQ_WAIT_NS] += np.uint64(wait)
             st = self._stats(ctx.job.name)
-            st.waits.append((now_ns, wait))
+            st.waits.append((now_ns, wait))  # pbst: ignore[perf-dispatch-alloc] -- reference equivalence witness, deliberately list-based
             st.dispatches += 1
             if self.timeline:
                 q_us = int(d.quantum_ns) // 1000
                 if not st.quantum_timeline or \
                         st.quantum_timeline[-1][1] != q_us:
-                    st.quantum_timeline.append((now_ns, q_us))
+                    st.quantum_timeline.append((now_ns, q_us))  # pbst: ignore[perf-dispatch-alloc] -- reference equivalence witness, deliberately list-based
             if self._last_pick.get(ex.index) is not ctx:
                 self.switches += 1
             self._last_pick[ex.index] = ctx
@@ -462,15 +462,15 @@ class SimEngine:
     def _arm_arrivals(self, job: Job, arrival) -> None:
         part = self.partition
         for t_ns, awake in arrival:
-            fn = ((lambda now, j=job: part.wake_job(j))
+            fn = ((lambda now, j=job: part.wake_job(j, notify=False))
                   if awake else
-                  (lambda now, j=job: part.sleep_job(j)))
+                  (lambda now, j=job: part.sleep_job(j, notify=False)))
             part.timers.arm(self._start_ns + int(t_ns), fn,
                             name="sim_arrival")
         # If the first flip is a wake, the tenant starts asleep until its
         # first burst arrives (first flip = sleep means it starts awake).
         if arrival and arrival[0][1]:
-            part.sleep_job(job)
+            part.sleep_job(job, notify=False)
 
     # -- run + metrics ---------------------------------------------------
 

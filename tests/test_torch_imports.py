@@ -166,6 +166,48 @@ def test_loop_modules_are_covered():
     assert not missing, missing
 
 
+#: The static checker: each of the reference's 23 modules must be in the
+#: module list the checks above walk.
+ANALYSIS_MODULES = tuple(
+    f"pbs_tpu_torch.analysis{m}" for m in (
+        "", ".core", ".runner", ".units", ".counterapi", ".schedops",
+        ".locks", ".netdiscipline", ".gatewaypass", ".perfpass",
+        ".obspass", ".hwpass", ".knobspass", ".rolloutpass",
+        ".scenariopass", ".durabilitypass", ".procpass", ".servepass",
+        ".memmodel", ".memmodel.ctokens", ".memmodel.seqlockpass",
+        ".memmodel.detpass", ".memmodel.abipass"))
+
+
+def test_analysis_modules_are_covered():
+    names = set(_module_names())
+    assert len(ANALYSIS_MODULES) == 23
+    missing = [m for m in ANALYSIS_MODULES if m not in names]
+    assert not missing, missing
+
+
+def test_analysis_plane_names_no_native_dir():
+    """The checker's copies say ``runtime/csrc/`` where the reference's
+    say ``native/``, and look for the C core there: the parametrised rule
+    above walks every one of its files."""
+    files = sorted((PORT / "analysis").rglob("*.py"))
+    assert len(files) == 23
+    assert set(files) <= set(_port_files())
+    assert [(f.name, _native_dir_refs(f)) for f in files
+            if _native_dir_refs(f)] == []
+
+
+def test_image_docstring_names_no_wait_for_the_ported_control_plane():
+    """``runtime/image.py`` no longer says the agent and control plane
+    that call ``image_workload`` are still to come: the port's agent
+    binds it as its ``"image"`` workload."""
+    image = ast.get_docstring(ast.parse(
+        (PORT / "runtime" / "image.py").read_text()))
+    assert "ROADMAP" not in image and "wait for" not in image
+    agent = (PORT / "dist" / "agent.py").read_text()
+    assert "import image_workload" in agent
+    assert '"image": functools.partial(image_workload' in agent
+
+
 def test_device_free_planes_import_no_torch():
     """The process federation's member processes load the gateway plane,
     the journal, recovery, spans and the RPC: none of it imports torch
@@ -175,7 +217,8 @@ def test_device_free_planes_import_no_torch():
     search, the chaos harness, the closed tuning loop and the scenario
     frontier are device-free too (``runtime.memory`` loads torch only
     when asked for a card's numbers), so their spawn workers pay no
-    torch import."""
+    torch import. So is the static checker with the command line around
+    it: ``pbst-torch check`` runs on a host with no device runtime."""
     mods = ["pbs_tpu_torch.gateway.procfed", "pbs_tpu_torch.dist",
             "pbs_tpu_torch.dist.rpc", "pbs_tpu_torch.store",
             "pbs_tpu_torch.gateway.gateway", "pbs_tpu_torch.gateway.journal",
@@ -184,7 +227,8 @@ def test_device_free_planes_import_no_torch():
             "pbs_tpu_torch.runtime.job", "pbs_tpu_torch.runtime.xsm",
             "pbs_tpu_torch.sim", "pbs_tpu_torch.sched.tune",
             "pbs_tpu_torch.gateway.chaos", "pbs_tpu_torch.autopilot",
-            "pbs_tpu_torch.scenarios"]
+            "pbs_tpu_torch.scenarios", "pbs_tpu_torch.analysis",
+            "pbs_tpu_torch.cli.pbst"]
     code = (
         "import sys, importlib\n"
         f"for name in {mods!r}:\n"

@@ -687,3 +687,23 @@ def test_registered_workload_runs_in_both_packages():
         with pytest.raises(KeyError):
             P.workload.build_workload("card-test")
     assert _canon(reports[1]) == _canon(reports[0])
+
+
+@pytest.mark.parametrize("workload", ["serving", "mixed", "phases"])
+def test_arrival_flips_fire_no_lifecycle_hooks(workload):
+    """The simulator's arrival flips park and wake tenants with
+    ``notify=False``, as the reference's do: a hook registered on
+    ``job-sleep``/``job-wake`` sees none of them, in either package."""
+    out = []
+    for P in (REF, PORT):
+        eng = P.sim.SimEngine(workload=workload, policy="credit", seed=0,
+                              horizon_ns=200 * MS, native=False)
+        calls = []
+        for event in ("job-sleep", "job-wake"):
+            eng.partition.hooks.on(
+                event, lambda ev, env, calls=calls: calls.append(
+                    (ev, sorted(env.items()))))
+        eng.run()
+        out.append((eng.partition.hooks.fired, calls))
+    assert out[0] == (0, [])
+    assert out[1] == out[0]
