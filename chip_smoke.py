@@ -259,6 +259,33 @@ Phases, each fatal on failure:
              with its reverse added (exactly one ``lock-order`` finding at
              the edge's line, exit 1). Prints the classes, edges, files
              scanned and wall seconds.
+3f. observe — the foreign tenants and their observers: (a) three
+             callables that follow no protocol, adopted through
+             ``Job.foreign`` (``profile_every=1``) into one credit
+             Partition on ``CudaBackend(profile_every=0)`` with a
+             file-backed ledger and trace rings and a FeedbackPolicy:
+             ``fscore`` (phase 3's scoring forward, 2.1 twelve times a
+             step), ``fmm`` (six chained bf16 ``torch.mm`` at 4096^2) and
+             ``few`` (40 tanh-scale-shift passes over 256 MiB fp32); every
+             tenant retires its steps, each cost harvested by one counted
+             invocation (``job.compiled``), fmm's DEVICE_FLOPS per step
+             6 x 2 x 4096^3 within 1%, few's measured stall fraction at
+             least 0.2 over fmm's, few's slice grown and fmm's shrunk, 2.1
+             launched 12 x (steps + 1) times, all "wgmma"; (b) meanwhile a
+             child process that imports no torch runs ``pbst-torch
+             oprofile`` on the ledger (a row per tenant, no sample lost,
+             device ms within 10% of the partition's over the window) and
+             then ``pbst-torch mon`` on the rings (the three jobs with
+             nonzero execs); (c) the phase's obs dump through ``perfc``,
+             ``lockprof``, ``params`` and ``lockdep --dump-graph`` into
+             ``check --lockdep-graph``: the clean fixture clean with the
+             live graph, and exactly one ``lock-order`` finding once the
+             fixture's edge, taken live in reverse, is dumped (3k (c)'s
+             verdicts); (d) ``pbst-torch selftest`` on every tier, ``perf
+             --json`` in python and native mode at full and quick op
+             counts recorded as a stamped baseline (``--baseline-out
+             PATH`` keeps it), ``perf --check --quick`` against it, each
+             bench's ns/op printed beside 3n(d)'s tier costs.
 4. numerics — the scoring forward through the flash kernel against the dense
              attention path on the same weights, the KV-cache prefill
              against the full forward, one micro-batch's training loss
@@ -511,6 +538,30 @@ CHECK_CHILD_TIMEOUT_S = 300
 # justified suppressions the reference's own tree carries, in its order.
 CHECK_SUPPRESSED = ("rollout-push", "perf-dispatch-alloc",
                     "perf-dispatch-alloc", "perf-emit-in-loop")
+# Phase 3f, the foreign tenants and their observers: three tenants adopted
+# through Job.foreign (profile_every=1, a first slice of OBSERVER_TSLICE_US)
+# in one credit Partition under a FeedbackPolicy ticking every round:
+# phase 3's scoring forward (OBSERVER_STEPS["fscore"] steps), a chain of
+# OBSERVER_MM_CHAIN bf16 torch.mm at MM_N^2, and OBSERVER_EW_PASSES
+# tanh-scale-shift passes over OBSERVER_EW_NUMEL fp32 (256 MiB). Each has
+# at least the feedback window's 5 ticks past its first step. The observer
+# child samples the ledger every OBSERVER_PERIOD_MS under the passive
+# domain name OBSERVER_NAME (OBSERVER_DEADLINE_S is only its deadline:
+# the parent ends it by closing its stdin), starts sampling within
+# OBSERVER_PRIME_S of saying "ready", then draws OBSERVER_MON_ITERATIONS
+# mon frames.
+OBSERVER_TSLICE_US = 500
+OBSERVER_STEPS = {"fscore": 6, "fmm": 16, "few": 8}
+OBSERVER_MM_CHAIN, OBSERVER_EW_PASSES = 6, 40
+OBSERVER_EW_NUMEL = 64 * 2 ** 20
+OBSERVER_NAME = "card"
+OBSERVER_PERIOD_MS, OBSERVER_DEADLINE_S, OBSERVER_PRIME_S = 20, 120, 0.3
+OBSERVER_MON_ITERATIONS = 2
+# torch.profiler on the card host loses device records at a session's
+# head (1-19, on the pads) and a few elsewhere (3-67 of ~4,400 launches
+# in three runs of this phase): a measured fraction is trusted while at
+# most this share of the quanta's own records is missing.
+OBSERVER_LOST_SHARE = 0.02
 H100_PEAK_BF16_FLOPS = 989e12  # dense, data sheet
 H100_PEAK_HBM_BW = 3.35e12
 
@@ -4285,7 +4336,8 @@ def run_native_path(torch, gen, cfg, params, card, built, recorded):
     a doorbell; (d) tier costs of (b)'s calls on the card host's CPU;
     (e) the native sim core on the tuned profiles and 3r's recorded
     workload (``recorded``, 3r(a)'s live run); (f) 3p's loader through
-    the native gather. Returns the launch counts and routes of (b)."""
+    the native gather. Returns the launch counts and routes of (b) and
+    (d)'s ns per call by tier."""
     import contextlib
     import shutil
 
@@ -4343,7 +4395,7 @@ def run_native_path(torch, gen, cfg, params, card, built, recorded):
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"  phase 3n wall {time.monotonic() - t_phase:.1f} s [{card}]",
           flush=True)
-    return result["launches"], result["routes"]
+    return result["launches"], result["routes"], costs
 
 
 # -- phase 3j ----------------------------------------------------------------
@@ -6573,6 +6625,545 @@ def run_check_path(torch, gen, cfg, params, card):
     return launches, routes
 
 
+# -- phase 3f ----------------------------------------------------------------
+
+#: The observer child of phase 3f(b): imports the port's command line and
+#: what its ``oprofile`` loads (no torch; the native runtime loaded), says
+#: "ready", runs ``pbst-torch oprofile`` on the partition's ledger until
+#: the parent closes its stdin (a thread of its own then interrupts its
+#: main thread: the command's own contract, a partial profile is still a
+#: profile; ``--seconds`` is only its deadline), then ``pbst-torch mon``
+#: on the meta sidecar, and prints the exit codes and the torch, JAX or
+#: ``pbs_tpu`` modules it imported. The parent signals no process.
+OBSERVER_CHILD = r"""
+import _thread, json, sys, threading
+sys.path.insert(0, sys.argv[1])
+from pbs_tpu_torch.cli.pbst import main
+import pbs_tpu_torch.obs.mon, pbs_tpu_torch.obs.oprofile
+from pbs_tpu_torch.runtime import native
+native.load()
+native.fastcall()
+ledger, name, seconds, period, iters = sys.argv[2:7]
+
+
+def stop_on_eof():
+    sys.stdin.read()
+    _thread.interrupt_main()
+
+
+threading.Thread(target=stop_on_eof, daemon=True).start()
+print("ready", flush=True)
+rc_op = main(["oprofile", "--ledger", ledger, "--name", name,
+              "--seconds", seconds, "--period", period])
+print("--- mon", flush=True)
+rc_mon = main(["mon", ledger + ".meta.json", "--iterations", iters,
+               "--interval", "0.05", "--window", "1.0", "--windows", "10"])
+bad = sorted({m.split(".")[0] for m in sys.modules}
+             & {"torch", "jax", "jaxlib", "pbs_tpu"})
+print(json.dumps({"rc_oprofile": rc_op, "rc_mon": rc_mon,
+                  "imported": bad}), flush=True)
+"""
+
+
+def foreign_tenants(torch, gen, cfg, params, device, score_shape: tuple,
+                    mm_n: int, ew_numel: int) -> dict:
+    """Phase 3f's foreign tenants: {name: (callable, args)}, none
+    following the Job protocol. ``fscore``: phase 3's scoring forward
+    through the flash kernel, a plain function of its tokens; ``fmm``:
+    OBSERVER_MM_CHAIN chained bf16 ``torch.mm`` at ``mm_n``^2, the 1/sqrt(n)
+    scale carried in the right operand (a separate scaling pass would be
+    an elementwise kernel inside the compute-bound tenant); ``few``:
+    OBSERVER_EW_PASSES tanh-scale-shift passes over ``ew_numel`` fp32.
+    ``score_shape`` is the scored window, (SCORE_BATCH, SCORE_SEQ) on the
+    card."""
+    from pbs_tpu_torch.models import forward
+
+    tokens = torch.randint(0, cfg.vocab, score_shape, device=device,
+                           generator=gen)
+    score_cfg = dataclasses.replace(cfg, attn_impl="pallas")
+
+    @torch.no_grad()
+    def fscore(tok):
+        return forward(score_cfg, params, tok)[:, -1].argmax(dim=-1)
+
+    a = torch.randn(mm_n, mm_n, device=device, generator=gen).bfloat16()
+    w = (torch.randn(mm_n, mm_n, device=device, generator=gen)
+         / math.sqrt(mm_n)).bfloat16()
+
+    def fmm(x, y):
+        for _ in range(OBSERVER_MM_CHAIN):
+            x = torch.mm(x, y)
+        return x
+
+    v = torch.randn(ew_numel, device=device, generator=gen)
+
+    def few(x, scale):
+        for _ in range(OBSERVER_EW_PASSES):
+            x = torch.tanh(x) * scale + 0.1
+        return x
+
+    return {"fscore": (fscore, (tokens,)), "fmm": (fmm, (a, w)),
+            "few": (few, (v, 0.5))}
+
+
+def pbst_child(args: list, cwd: str | None = None,
+               timeout: float = CHECK_CHILD_TIMEOUT_S) -> dict:
+    """``pbst-torch ARGS`` in a child interpreter: its exit code, stdout,
+    stderr and wall seconds."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pbs_tpu_torch.cli.pbst", *args],
+        cwd=cwd or repo, env=dict(os.environ, PYTHONPATH=repo),
+        capture_output=True, text=True, timeout=timeout)
+    return dict(rc=proc.returncode, out=proc.stdout, err=proc.stderr,
+                wall=time.monotonic() - t)
+
+
+def oprofile_rows(text: str) -> dict:
+    """The rows of ``pbst-torch oprofile``'s table: job -> numbers."""
+    rows = {}
+    for ln in text.splitlines():
+        parts = ln.split()
+        if len(parts) == 7 and parts[0] != "job":
+            rows[parts[0]] = dict(
+                samples=int(parts[1]), lost=int(parts[2]),
+                device_ms=float(parts[3]), stall_pct=float(parts[4]),
+                coll_ms=float(parts[5]), last_step=int(parts[6]))
+    return rows
+
+
+def mon_rows(text: str) -> dict:
+    """The rows of ``pbst-torch mon``'s last frame: job -> numbers."""
+    frame = text.rsplit("pbst mon", 1)[-1]
+    rows = {}
+    for ln in frame.splitlines()[2:]:
+        parts = ln.split()
+        if len(parts) == 8:
+            rows[parts[1]] = dict(slot=int(parts[0]), ctx=parts[2],
+                                  cpu_pct=float(parts[4]),
+                                  gotten_ms=float(parts[5]),
+                                  execs=int(parts[6]), wakes=int(parts[7]))
+    return rows
+
+
+def start_observer(ledger: str, name: str):
+    """Phase 3f(b)'s child, started and attached: returns the process
+    once it said "ready" (its ``oprofile`` primes its baselines a few
+    milliseconds after)."""
+    import selectors
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", OBSERVER_CHILD, repo, ledger, name,
+         str(OBSERVER_DEADLINE_S), str(OBSERVER_PERIOD_MS),
+         str(OBSERVER_MON_ITERATIONS)],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    sel = selectors.DefaultSelector()
+    sel.register(proc.stdout, selectors.EVENT_READ)
+    ready = sel.select(timeout=60) and proc.stdout.readline().strip()
+    sel.close()
+    if ready != "ready":
+        err = ""
+        try:  # ends on its own: it found no ledger, or stdin closed
+            err = proc.communicate(input="", timeout=60)[1]
+        except subprocess.TimeoutExpired:
+            pass  # its own deadline ends it
+        check(False, f"(b) the observer child attached ({ready!r}, rc "
+                     f"{proc.returncode}): {err.strip()[-400:]}")
+    time.sleep(OBSERVER_PRIME_S)
+    return proc
+
+
+def stop_observer(proc) -> dict:
+    """Closing the child's stdin ends its ``oprofile`` (after at least
+    two sampling periods past the run's end), then its ``mon`` runs;
+    returns the parsed tables and the child's final line."""
+    time.sleep(3 * OBSERVER_PERIOD_MS / 1e3)
+    try:
+        out, err = proc.communicate(input="",
+                                    timeout=OBSERVER_DEADLINE_S + 60)
+    except subprocess.TimeoutExpired:
+        check(False, "(b) the observer child ended")
+    op_text, _, mon_text = out.partition("--- mon")
+    lines = mon_text.strip().splitlines()
+    try:
+        final = json.loads(lines[-1]) if lines else {}
+    except ValueError:
+        final = {}
+    return dict(rc=proc.returncode, err=err, oprofile=oprofile_rows(op_text),
+                mon=mon_rows("\n".join(lines[:-1])), final=final,
+                oprofile_text=op_text, mon_text=mon_text)
+
+
+def observer_run(tenants: dict, device, tmp, steps: dict,
+                 flops_fmm: int) -> dict:
+    """Phase 3f (a)-(c), each check raising ``Failed``.
+
+    (a) the tenants of :func:`foreign_tenants` adopted through
+    ``Job.foreign`` (``profile_every=1``, a first slice of
+    OBSERVER_TSLICE_US) into one credit Partition on
+    ``CudaBackend(device, profile_every=0)`` with a file-backed ledger and
+    trace rings and a FeedbackPolicy ticking every round, run until each
+    retires ``steps[name]``, with the ``lock_profile`` param on and every
+    named lock fed to lockdep; (b) while it runs, a child process that
+    imports no torch profiles the ledger passively (``oprofile``), then
+    digests the rings (``mon``); (c) the phase's obs dump through the
+    ``perfc``, ``lockprof``, ``params`` and ``lockdep --dump-graph``
+    commands, the graph into ``check --lockdep-graph`` over the port-named
+    clean fixture tree, then a reversed fixture edge taken live, dumped and
+    checked. Returns the numbers the phase prints."""
+    from pbs_tpu_torch.obs.dumpfile import write_obs_dump
+    from pbs_tpu_torch.obs.lockdep import OrderedLock
+    from pbs_tpu_torch.runtime import Job, Partition, SchedParams
+    from pbs_tpu_torch.sched import FeedbackPolicy
+    from pbs_tpu_torch.telemetry import Counter, CudaBackend
+    from pbs_tpu_torch.telemetry.source import CountedCost
+    from pbs_tpu_torch.utils import params
+
+    ledger = os.path.join(tmp, "observed.ledger")
+    out: dict = {}
+    profiling = params.get("lock_profile")
+    profiling.set("on")
+    try:
+        with locks_into_lockdep() as lockdep:
+            be = CudaBackend(device=device, profile_every=0)
+            part = Partition("observed", source=be, scheduler="credit",
+                             ledger_path=ledger,
+                             trace_dir=os.path.join(tmp, "traces"))
+            FeedbackPolicy(part, tick_ns=1)  # held by the timer wheel
+            jobs = {
+                name: part.add_job(Job.foreign(
+                    name, fn, *args, profile_every=1,
+                    max_steps=steps[name],
+                    params=SchedParams(tslice_us=OBSERVER_TSLICE_US)))
+                for name, (fn, args) in tenants.items()}
+            child = start_observer(ledger, OBSERVER_NAME)
+            try:
+                before = {n: int(j.contexts[0].counters[
+                    Counter.DEVICE_TIME_NS]) for n, j in jobs.items()}
+                t = time.monotonic()
+                quanta = part.run()
+                wall = time.monotonic() - t
+            finally:
+                seen = stop_observer(child)
+            dump1 = os.path.join(tmp, "obs.json")
+            write_obs_dump(dump1)
+            # (c)'s negative control, by the reference's route: the clean
+            # fixture's static edge taken live in reverse, then dumped.
+            fixture = port_fixture_tree("clean", os.path.join(tmp, "clean"))
+            target = os.path.join(fixture, "pbs_tpu_torch")
+            edges = static_lock_edges([target], fixture)
+            check(len(edges) > 0, "(c) the clean fixture's static lock edge")
+            (holder, taken), (where, line) = sorted(edges.items())[0]
+            with OrderedLock(taken):
+                with OrderedLock(holder):
+                    pass
+            dump2 = os.path.join(tmp, "obs_reversed.json")
+            write_obs_dump(dump2)
+            violations = lockdep.violations()
+    finally:
+        profiling.reset()
+
+    # -- (a) ---------------------------------------------------------------
+    ctr = {n: j.contexts[0].counters for n, j in jobs.items()}
+    dev = {n: int(c[Counter.DEVICE_TIME_NS]) for n, c in ctr.items()}
+    check(all(j.steps_retired() == steps[n] for n, j in jobs.items()),
+          f"(a) every tenant retired its steps "
+          f"({ {n: j.steps_retired() for n, j in jobs.items()} } == {steps})"
+          f" in {quanta} quanta, {wall:.2f} s")
+    check(all(isinstance(j.compiled, CountedCost) for j in jobs.values()),
+          f"(a) job.compiled harvested for all three: "
+          f"{ {n: j.compiled for n, j in jobs.items()} } (harvest errors "
+          f"{be.harvest_errors})")
+    per_step = int(ctr["fmm"][Counter.DEVICE_FLOPS]) / steps["fmm"]
+    check(abs(per_step - flops_fmm) <= 0.01 * flops_fmm,
+          f"(a) fmm's DEVICE_FLOPS per step {per_step:.6g} == "
+          f"{OBSERVER_MM_CHAIN} x 2 x n^3 = {flops_fmm:.6g} within 1%")
+    stall = {n: be.measured(n).stall_frac if be.measured(n) else None
+             for n in jobs}
+    prof = be.profiler
+    check(stall["few"] is not None and stall["fmm"] is not None
+          and stall["few"] >= stall["fmm"] + 0.2,
+          f"(a) few's measured stall fraction {stall['few']} exceeds "
+          f"fmm's {stall['fmm']} by at least 0.2 (profiler: "
+          f"{getattr(prof, 'samples', None)} samples, "
+          f"{getattr(prof, 'failures', None)} failures, last error "
+          f"{getattr(prof, 'last_error', None)}; samples a tenant "
+          f"{ {n: c[0] for n, c in be.profile_cost.items()} })")
+    slices = {n: j.params.tslice_us for n, j in jobs.items()}
+    check(slices["few"] > OBSERVER_TSLICE_US > slices["fmm"],
+          f"(a) the feedback policy grew few's quantum and shrank fmm's "
+          f"from {OBSERVER_TSLICE_US} us: {slices}")
+    compile_ms = {n: int(c[Counter.COMPILE_TIME_NS]) / 1e6
+                  for n, c in ctr.items()}
+    check(all(v > 0 for v in compile_ms.values()),
+          f"(a) each counted invocation landed in its tenant's "
+          f"COMPILE_TIME_NS ({compile_ms} ms)")
+    check(violations == [], f"(a) no lock-order violation: {violations}")
+    lost, launched = (getattr(prof, "records_lost", 0),
+                      getattr(prof, "launches", 0))
+    check(lost <= OBSERVER_LOST_SHARE * launched,
+          f"(a) the profiled quanta's launches left without a device record: "
+          f"{lost} of {launched}, at most {OBSERVER_LOST_SHARE:.0%} (the "
+          f"session pads absorbed {getattr(prof, 'pad_lost', 0)} more over "
+          f"{getattr(prof, 'samples', 0)} samples)")
+    out["a"] = dict(quanta=quanta, wall=wall, steps=steps, slices=slices,
+                    stall=stall, compile_ms=compile_ms, dev_ms={
+                        n: v / 1e6 for n, v in dev.items()},
+                    flops_per_step={n: int(c[Counter.DEVICE_FLOPS])
+                                    / steps[n] for n, c in ctr.items()},
+                    harvest={n: j.compiled for n, j in jobs.items()},
+                    profile_cost=dict(be.profile_cost),
+                    pad_lost=getattr(prof, "pad_lost", 0), lost=lost,
+                    launched=launched)
+
+    # -- (b) ---------------------------------------------------------------
+    check(seen["rc"] == 0 and seen["final"].get("rc_oprofile") == 0
+          and seen["final"].get("rc_mon") == 0,
+          f"(b) the observer child's oprofile and mon exited 0 "
+          f"({seen['final']}, rc {seen['rc']}): {seen['err'].strip()[-300:]}")
+    check(seen["final"].get("imported") == [],
+          f"(b) the observer child imported no torch, JAX or pbs_tpu "
+          f"({seen['final'].get('imported')})")
+    rows = seen["oprofile"]
+    names = {f"{OBSERVER_NAME}/{n}" for n in jobs}
+    check(set(rows) == names, f"(b) oprofile has a row per tenant: "
+                              f"{sorted(rows)}")
+    check(all(r["lost"] == 0 for r in rows.values()),
+          f"(b) no sample lost: { {k: r['lost'] for k, r in rows.items()} }")
+    window = {n: (dev[n] - before[n]) / 1e6 for n in jobs}
+    got = {n: rows[f"{OBSERVER_NAME}/{n}"]["device_ms"] for n in jobs}
+    tot_w, tot_g = sum(window.values()), sum(got.values())
+    check(abs(tot_g - tot_w) <= 0.1 * tot_w and all(
+              abs(got[n] - window[n]) <= 0.1 * window[n] for n in jobs),
+          f"(b) oprofile's device_ms {got} (total {tot_g:.3f}) agree with "
+          f"the partition's DEVICE_TIME_NS over the window {window} (total "
+          f"{tot_w:.3f}) within 10%")
+    mon = seen["mon"]
+    check(set(mon) == set(jobs) and all(mon[n]["execs"] > 0 for n in jobs),
+          f"(b) mon's rows name the three jobs with nonzero execs: "
+          f"{ {n: r['execs'] for n, r in mon.items()} }")
+    out["b"] = dict(oprofile=rows, window=window, mon=mon)
+
+    # -- (c) ---------------------------------------------------------------
+    from concurrent.futures import ThreadPoolExecutor
+
+    argvs = {"perfc": ["perfc", dump1], "lockprof": ["lockprof", dump1],
+             "params": ["params", "--file", dump1],
+             "graph": ["lockdep", dump1, "--dump-graph"],
+             "graph_reversed": ["lockdep", dump2, "--dump-graph"]}
+    with ThreadPoolExecutor(len(argvs)) as pool:
+        cmds = dict(zip(argvs, pool.map(pbst_child, argvs.values())))
+    check(all(c["rc"] == 0 for c in cmds.values()),
+          f"(c) perfc, lockprof, params and lockdep --dump-graph on the "
+          f"dumps exited 0 ({ {k: c['rc'] for k, c in cmds.items()} })")
+    locks = [ln.split() for ln in cmds["lockprof"]["out"].splitlines()[1:]]
+    check(any(int(r[1]) > 0 for r in locks),
+          f"(c) lockprof shows the run's profiled locks "
+          f"({[r[:2] for r in locks]})")
+    check("lock_profile=true" in cmds["params"]["out"]
+          and "lockdep=true" in cmds["params"]["out"],
+          "(c) params shows lock_profile and lockdep on")
+    with open(dump1) as f:
+        dumped = json.load(f)
+    listed = [ln.split()[0] for ln in cmds["perfc"]["out"].splitlines()]
+    check(listed == list(dumped["perfc"]),
+          f"(c) perfc lists the dump's {len(listed)} counters")
+    graphs = {}
+    for key in ("graph", "graph_reversed"):
+        graphs[key] = os.path.join(tmp, f"{key}.json")
+        with open(graphs[key], "w") as f:
+            f.write(cmds[key]["out"])
+    g1 = json.loads(cmds["graph"]["out"])
+    g2 = json.loads(cmds["graph_reversed"]["out"])
+    check(g1["violations"] == [] and [taken, holder] in g2["edges"]
+          and [taken, holder] not in g1["edges"],
+          f"(c) the dumped graphs: {len(g1['edges'])} live edges, no "
+          f"violation; the reversed dump adds {taken} -> {holder}")
+    base = run_checker(["--lockdep-graph", graphs["graph"], target],
+                       fixture)
+    check(base["rc"] == 0 and base["out"]["findings"] == [],
+          f"(c) the clean fixture with the dumped live graph: rc "
+          f"{base['rc']}, {len(base['out']['findings'])} findings "
+          f"(3k (c)'s base verdict)")
+    inv = run_checker(["--lockdep-graph", graphs["graph_reversed"],
+                       target], fixture)
+    found = [(f["check"], f["path"], f["line"])
+             for f in inv["out"]["findings"]]
+    check(inv["rc"] == 1 and found == [("lock-order", where, line)],
+          f"(c) with the reversed edge dumped: exactly one lock-order "
+          f"finding at {holder} -> {taken} ({where}:{line}): {found}, rc "
+          f"{inv['rc']} (3k (c)'s verdict)")
+    out["c"] = dict(graph=g1, edge=(holder, taken), where=f"{where}:{line}",
+                    base=base, inv=inv, walls={
+                        k: c["wall"] for k, c in cmds.items()},
+                    counters=len(cmds["perfc"]["out"].splitlines()),
+                    locks=[r[:2] for r in locks])
+    return out
+
+
+def observer_lines(out: dict, card: str) -> None:
+    a, b, c = out["a"], out["b"], out["c"]
+    print(f"  (a) {a['quanta']} quanta in {a['wall']:.2f} s; device "
+          f"records lost by the profiler: {a['pad_lost']} on the sessions' "
+          f"pads, {a['lost']} of the quanta's {a['launched']} launches "
+          f"[{card}]")
+    print(f"  {'tenant':<7} {'steps':>5} {'device_ms':>10} {'stall':>6} "
+          f"{'slice_us':>13} {'flops/step':>11} {'bytes (harvest)':>16} "
+          f"{'harvest_ms':>10} {'samples':>7} {'prof_ms':>8}")
+    for n in a["steps"]:
+        cost = a["profile_cost"].get(n, [0, 0, 0])
+        st = a["stall"][n]
+        print(f"  {n:<7} {a['steps'][n]:>5} {a['dev_ms'][n]:>10.2f} "
+              f"{(f'{st:.3f}' if st is not None else '-'):>6} "
+              f"{OBSERVER_TSLICE_US:>5} -> {a['slices'][n]:>5} "
+              f"{a['flops_per_step'][n]:>11.4g} "
+              f"{a['harvest'][n].nbytes:>16} {a['compile_ms'][n]:>10.1f} "
+              f"{cost[0]:>7} {cost[2] / 1e6:>8.1f}", flush=True)
+    prof = {k: (r["samples"], r["device_ms"], r["lost"])
+            for k, r in b["oprofile"].items()}
+    window = {k: round(v, 3) for k, v in b["window"].items()}
+    mon = {k: (r["execs"], r["gotten_ms"]) for k, r in b["mon"].items()}
+    print(f"  (b) oprofile (samples, device_ms, lost): {prof} against the "
+          f"partition's {window} ms; mon (execs, gotten_ms): {mon}",
+          flush=True)
+    print(f"  (c) dump: {c['counters']} perfc counters, locks {c['locks']}, "
+          f"live graph classes {c['graph']['classes']} edges "
+          f"{c['graph']['edges']}; reversed {c['edge'][1]} -> "
+          f"{c['edge'][0]} ({c['where']}): rc {c['base']['rc']} -> "
+          f"{c['inv']['rc']}, {c['base']['wall']:.2f} / "
+          f"{c['inv']['wall']:.2f} s; command walls "
+          f"{ {k: round(v, 2) for k, v in c['walls'].items()} } s",
+          flush=True)
+
+
+def host_costs(tmp, card: str, baseline_out: str | None = None) -> dict:
+    """Phase 3f(d): ``pbst-torch selftest`` (every canary on every tier),
+    ``perf --json`` in python and native mode at full and quick op counts
+    (two lanes of child processes: the full python matrix beside the other
+    three), the four maps saved as a stamped baseline, and ``perf --check
+    --quick`` of both modes against it."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pbs_tpu_torch.perf import load_baseline, save_baseline
+
+    t = time.monotonic()
+    st = pbst_child(["selftest"])
+    rows = [ln.split() for ln in st["out"].splitlines() if ln.strip()]
+    check(st["rc"] == 0 and rows and all(r[-1] == "ok" for r in rows),
+          f"(d) selftest: every canary passes on every tier "
+          f"({len(rows)} rows, rc {st['rc']})")
+
+    def lane(argvs):
+        return [pbst_child(["perf", "--json", *a]) for a in argvs]
+
+    with ThreadPoolExecutor(2) as pool:
+        first = pool.submit(lane, [[]])
+        rest = pool.submit(lane, [["--quick"], ["--native"],
+                                  ["--native", "--quick"]])
+        runs = first.result() + rest.result()
+    check(all(r["rc"] == 0 for r in runs),
+          f"(d) perf --json in four modes exited 0 "
+          f"({[r['rc'] for r in runs]}): {[r['err'][-200:] for r in runs]}")
+    full, quick, nfull, nquick = (json.loads(r["out"]) for r in runs)
+    check(nfull["native_tier"] in ("fastcall", "ctypes"),
+          f"(d) the native matrices ran on a native tier "
+          f"({nfull['native_tier']})")
+    path = os.path.join(tmp, "baseline.json")
+    save_baseline(full, path, quick_results=quick)
+    save_baseline(nfull, path, quick_results=nquick)
+    stamp = load_baseline(path)["host"]
+    if baseline_out:
+        os.makedirs(os.path.dirname(os.path.abspath(baseline_out)),
+                    exist_ok=True)
+        with open(path) as src, open(baseline_out, "w") as dst:
+            dst.write(src.read())
+    with ThreadPoolExecutor(2) as pool:
+        gates = list(pool.map(lambda a: pbst_child(
+            ["perf", "--check", "--quick", "--baseline", path, *a]),
+            [[], ["--native"]]))
+    check(all(g["rc"] == 0 for g in gates),
+          f"(d) perf --check --quick in both modes against the maps just "
+          f"recorded exited 0 ({[g['rc'] for g in gates]}): "
+          f"{[g['err'][-300:] for g in gates]}")
+    return dict(selftest=rows, maps=dict(benches=full, quick=quick,
+                                         native=nfull, native_quick=nquick),
+                stamp=stamp, wall=time.monotonic() - t,
+                walls=[r["wall"] for r in runs] + [g["wall"] for g in gates])
+
+
+#: Phase 3n(d)'s calls beside the perf benches measuring the same path.
+BENCH_VS_TIER = {"trace.emit": "ring.emit",
+                 "ledger.snapshot_many": "ledger.snapshot_many",
+                 "hist.record_many": "hist.record_many"}
+
+
+def host_cost_lines(d: dict, card: str, native_costs: dict) -> None:
+    print(f"  (d) selftest, ns/op per tier [{card}; CPU {d['stamp']['cpu']}]:")
+    for r in d["selftest"]:
+        print(f"    {' '.join(r)}")
+    m = d["maps"]
+    tiers = list(native_costs)
+    print(f"  (d) perf ns/op, python / native (full, quick), beside 3n(d)'s "
+          f"calls per tier ({', '.join(tiers) or '3n not run'}); torch "
+          f"{d['stamp']['torch']}, native tier {d['stamp']['native_tier']}:")
+    for name, r in m["benches"]["benches"].items():
+        nat = m["native"]["benches"].get(name)
+        nq = m["native_quick"]["benches"].get(name)
+        line = (f"    {name:<22} {r['ns_per_op']:>12} "
+                f"{m['quick']['benches'][name]['ns_per_op']:>12} "
+                f"{(nat['ns_per_op'] if nat else '-'):>10} "
+                f"{(nq['ns_per_op'] if nq else '-'):>10}")
+        call = BENCH_VS_TIER.get(name)
+        if call and tiers:
+            line += (f"   3n {call}: " + " / ".join(
+                f"{native_costs[t][call]:.1f}" for t in tiers))
+        print(line)
+    print(f"  (d) {d['wall']:.1f} s (children "
+          f"{[round(w, 1) for w in d['walls']]} s)", flush=True)
+
+
+def run_observer_path(torch, gen, cfg, params, card, native_costs: dict,
+                      baseline_out: str | None = None):
+    """Phase 3f on the card: the foreign tenants and their observers, the
+    obs dump's route into the checker, the host's costs (printed beside
+    ``native_costs``, 3n(d)'s per tier, when given). Returns (a)'s kernel
+    launch counts and routes."""
+    import tempfile
+
+    t_phase = time.monotonic()
+    tenants = foreign_tenants(torch, gen, cfg, params, "cuda",
+                              (SCORE_BATCH, SCORE_SEQ), MM_N,
+                              OBSERVER_EW_NUMEL)
+    wrappers = bwd_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_3f_") as tmp:
+        reset_counts(wrappers)
+        out = observer_run(tenants, "cuda", tmp, OBSERVER_STEPS,
+                           OBSERVER_MM_CHAIN * 2 * MM_N ** 3)
+        launches, routes = control_launches(wrappers)
+        observer_lines(out, card)
+        want = cfg.n_layers * (OBSERVER_STEPS["fscore"] + 1)
+        for k in KERNELS:
+            n = launches[k]
+            if k == "flash_fwd":
+                check(n == want and routes[k] == {"wgmma": n, "simt": 0},
+                      f"(a) flash_fwd: {n} launches == {cfg.n_layers} x "
+                      f"({OBSERVER_STEPS['fscore']} fscore steps + the "
+                      f"counted invocation), all \"wgmma\" ({routes[k]})")
+            else:
+                check(n == 0, f"(a) {k}: no launch (fmm and few are "
+                              f"torch.mm and elementwise, no backward)")
+        print(f"  (a) kernel launches {launches}, by route {routes}",
+              flush=True)
+        costs = host_costs(tmp, card, baseline_out)
+    host_cost_lines(costs, card, native_costs)
+    print(f"  phase 3f wall {time.monotonic() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return launches, routes
+
+
 # -- phase 4 -----------------------------------------------------------------
 
 
@@ -7113,6 +7704,9 @@ def main() -> int:
     ap.add_argument("--trace-out", default=None,
                     help="also write one profiled quantum's trimmed Chrome "
                          "trace (kernels 2.1-2.4 and a tanh chain) here")
+    ap.add_argument("--baseline-out", default=None,
+                    help="also write phase 3f(d)'s perf baseline (the four "
+                         "maps, stamped) here")
     args = ap.parse_args()
     import torch
 
@@ -7202,7 +7796,7 @@ def main() -> int:
     phase("3n native runtime under the main path: the C ledger, rings and "
           "histograms, a monitor process over the ledger file and a "
           "doorbell, tier costs, the native sim core, the native gather")
-    n_launches, n_routes = run_native_path(
+    n_launches, n_routes, n_costs = run_native_path(
         torch, gen, cfg, params, card_line(), native_built, recorded)
 
     phase("3j durability and federation: a journaled gateway killed and "
@@ -7230,6 +7824,13 @@ def main() -> int:
           "catch")
     k_launches, k_routes = run_check_path(torch, gen, cfg, params,
                                           card_line())
+
+    phase("3f foreign tenants and their observers: three callables that "
+          "follow no protocol adopted through Job.foreign with a counted "
+          "cost harvest, profiled and monitored from a torch-free process, "
+          "the obs dump into the lock-order check, the host's costs")
+    f_launches, f_routes = run_observer_path(
+        torch, gen, cfg, params, card_line(), n_costs, args.baseline_out)
 
     phase("4 numerics at width")
     check_numerics(torch, gen, cfg, params)
@@ -7281,6 +7882,9 @@ def main() -> int:
         # phase 3k (a): score (2.1) and mm (2.4) under lockdep
         r["check_path_launches"] = k_launches[kernel]
         r["check_path_launches_by_route"] = k_routes[kernel]
+        # phase 3f (a): fscore (2.1), its counted invocation included
+        r["observer_path_launches"] = f_launches[kernel]
+        r["observer_path_launches_by_route"] = f_routes[kernel]
     profile_micro_step(torch, micro_step, train_state)
     del micro_step, train_state
     profile_micro_step(torch, moe_step, moe_state, what="MoE training step")

@@ -2,6 +2,36 @@
 
     pbst-torch serve-demo   continuous-batching serving demo behind the
                             gateway front door, on the card by default
+    pbst-torch demo         the two-tenant sim demo end to end
+    pbst-torch dump|top     one-shot counter dump / live telemetry from
+                            a partition's ledger file (the 'z' key,
+                            xentop)
+    pbst-torch trace        format a drained trace ring (xentrace_format,
+                            --chrome); 'trace spans OBS' rebuilds
+                            request timelines
+    pbst-torch slo          per-tenant SLO report from span artifacts
+    pbst-torch mon          live scheduler history from a partition's
+                            trace rings (xenmon)
+    pbst-torch oprofile     passive sampling profile of another
+                            process's ledger (xenoprof/opreport)
+    pbst-torch perfc|lockprof|lockdep|params
+                            format an obs dump (xenperf, xenlockprof,
+                            the lock-order graph with --dump-graph, the
+                            boot params; ``params`` alone reads this
+                            process's registry)
+    pbst-torch perf         hot-path microbench harness + regression
+                            gate against the port's own baseline
+    pbst-torch selftest     hot-path perf canary on every native tier
+                            (x86_tests.c)
+    pbst-torch ckpt-info    inspect a checkpoint directory
+    pbst-torch quantize     int8 weight-only quantize a param checkpoint
+    pbst-torch sched-credit adjust weight/cap/slice in a store db
+                            (xl sched-credit)
+    pbst-torch knobs        typed knob registry + atomic hot-reload
+                            channel
+    pbst-torch gateway      serving front door: demo over the sim
+                            catalog (--federated, --processes), ledger
+                            stats
     pbst-torch sim          trace-driven scheduler simulation
     pbst-torch tune         simulation-driven policy autotuning
     pbst-torch hw           the host hardware-counter plane: probe the
@@ -25,16 +55,23 @@
                             tree (.py and runtime/csrc/*.cc); exit 0
                             clean, 1 findings, 2 usage error
 
-The port of those commands of ``pbs_tpu.cli.pbst``: the same flags
-(plus ``--device`` for ``serve-demo``), the same JSON shapes. ``check``
-defaults to the path ``pbs_tpu_torch`` (the reference's to ``pbs_tpu``
-and ``native``). The ``native`` stamp of ``sim`` and ``tune`` names the
-tier of the port's native sim core (built at first use), or why it is
-off. The reference's other commands wait for the modules they read
-(ROADMAP queue 1 items 8-12). ``scenarios promote`` writes into the
-port's own corpus (``pbs_tpu_torch/scenarios/corpus/``) by default.
+The port of ``pbs_tpu.cli.pbst``: the same flags (plus ``--device`` for
+``serve-demo``), the same output text and JSON shapes; error lines start
+``pbst-torch:``. ``check`` defaults to the path ``pbs_tpu_torch`` (the
+reference's to ``pbs_tpu`` and ``native``); ``perf`` gates against
+``pbs_tpu_torch/perf/baseline.json``. The ``native`` stamp of ``sim``
+and ``tune`` names the tier of the port's native sim core (built at
+first use), or why it is off. ``scenarios promote`` writes into the
+port's own corpus (``pbs_tpu_torch/scenarios/corpus/``) by default. The
+reference's ``serve`` (the sharded serving tier) waits for ROADMAP
+queue 1 item 8.
 
     python -m pbs_tpu_torch.cli.pbst serve-demo --device cpu
+    python -m pbs_tpu_torch.cli.pbst demo --ledger /tmp/p.ledger
+    python -m pbs_tpu_torch.cli.pbst top --ledger /tmp/p.ledger
+    python -m pbs_tpu_torch.cli.pbst oprofile --ledger /tmp/p.ledger
+    python -m pbs_tpu_torch.cli.pbst perf --quick --check
+    python -m pbs_tpu_torch.cli.pbst lockdep obs.json --dump-graph
     python -m pbs_tpu_torch.cli.pbst sim --workload mixed --policy all
     python -m pbs_tpu_torch.cli.pbst tune --check
     python -m pbs_tpu_torch.cli.pbst chaos --plan crash --selfcheck
@@ -53,6 +90,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 
@@ -1244,6 +1282,904 @@ def cmd_scenarios(args) -> int:
     return 2
 
 
+def _load_meta(ledger_path: str) -> dict:
+    try:
+        with open(ledger_path + ".meta.json") as f:
+            return json.load(f)
+    except FileNotFoundError:
+        return {"partition": "?", "scheduler": "?", "slots": {}}
+
+
+def _ledger(args):
+    from pbs_tpu_torch.telemetry import Ledger
+
+    if not os.path.exists(args.ledger):
+        raise SystemExit(f"pbst-torch: no ledger at {args.ledger}")
+    # Monitors attach read-only; slot count comes from the file itself
+    # so a mismatched --slots can neither truncate nor over-index the
+    # producer's live mapping.
+    return Ledger.file_backed(args.ledger, readonly=True)
+
+
+def _fmt_row(slot, info, snap, prev=None, dt=1.0):
+    from pbs_tpu_torch.telemetry import Counter
+
+    steps = int(snap[Counter.STEPS_RETIRED])
+    dev_ms = int(snap[Counter.DEVICE_TIME_NS]) / 1e6
+    stall = int(snap[Counter.HBM_STALL_NS])
+    dev = int(snap[Counter.DEVICE_TIME_NS])
+    stall_pct = 100.0 * stall / dev if dev else 0.0
+    rate = ""
+    if prev is not None:
+        dsteps = steps - int(prev[Counter.STEPS_RETIRED])
+        rate = f"{dsteps / dt:8.1f}"
+    return (
+        f"{slot:>4} {info.get('ctx', '?'):<16} {info.get('weight', ''):>6} "
+        f"{info.get('cap', ''):>4} {info.get('tslice_us', ''):>8} "
+        f"{steps:>10} {dev_ms:>10.1f} {stall_pct:>6.1f} {rate:>8}"
+    )
+
+
+HDR = (
+    f"{'slot':>4} {'ctx':<16} {'weight':>6} {'cap':>4} {'tslice':>8} "
+    f"{'steps':>10} {'dev_ms':>10} {'stall%':>6} {'st/s':>8}"
+)
+
+
+def _fmt_source(meta: dict) -> str:
+    """Counter-source provenance line: which ladder tier feeds these
+    numbers — and WHY the better tiers aren't — so sim-sourced numbers
+    are never passed off as live. Empty for sidecars without a source
+    stamp."""
+    src = meta.get("source")
+    if not isinstance(src, dict):
+        return ""
+    tier = src.get("tier", "?")
+    if tier is None or src.get("available") is False:
+        reason = src.get("reason") or "unavailable"
+        return f"counters=none (UNAVAILABLE: {reason})"
+    degraded = src.get("degraded") or {}
+    if degraded:
+        why = "; ".join(f"{ev}: {r}" for ev, r in sorted(degraded.items()))
+        return f"counters={tier} (degraded — {why})"
+    return f"counters={tier}"
+
+
+def cmd_dump(args) -> int:
+    """One-shot counter dump of a partition's ledger file (the 'z'
+    console key, csched_dump_customized sched_credit.c:1944-1977)."""
+    led = _ledger(args)
+    meta = _load_meta(args.ledger)
+    print(f"partition={meta['partition']} scheduler={meta['scheduler']}")
+    src_line = _fmt_source(meta)
+    if src_line:
+        print(src_line)
+    print(HDR)
+    rows = sorted(meta["slots"].items(), key=lambda kv: int(kv[0]))
+    snaps = led.snapshot_many([int(s) for s, _ in rows])
+    for (slot_s, info), snap in zip(rows, snaps):
+        print(_fmt_row(int(slot_s), info, snap))
+    return 0
+
+
+def cmd_top(args) -> int:
+    """Live per-job telemetry from a shared ledger file (xentop):
+    lock-free snapshots, the meta sidecar reloaded every iteration."""
+    import time
+
+    led = _ledger(args)
+    prev: dict = {}
+    try:
+        for _ in range(args.iterations if args.iterations > 0 else 10**9):
+            meta = _load_meta(args.ledger)
+            slot_rows = sorted(meta["slots"].items(),
+                               key=lambda kv: int(kv[0]))
+            snaps = led.snapshot_many([int(s) for s, _ in slot_rows])
+            rows = []
+            for (slot_s, info), snap in zip(slot_rows, snaps):
+                slot = int(slot_s)
+                rows.append(_fmt_row(slot, info, snap, prev.get(slot),
+                                     args.interval))
+                prev[slot] = snap
+            sys.stdout.write("\x1b[2J\x1b[H" if args.clear else "")
+            print(f"pbst top — partition={meta['partition']} "
+                  f"scheduler={meta['scheduler']} "
+                  f"({time.strftime('%H:%M:%S')})")
+            src_line = _fmt_source(meta)
+            if src_line:
+                print(src_line)
+            print(HDR)
+            print("\n".join(rows))
+            time.sleep(args.interval)
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+def cmd_trace(args) -> int:
+    """Format a drained trace ring (xentrace_format), or export it as
+    Chrome trace-event JSON; ``trace spans OBS`` rebuilds request
+    timelines from span artifacts."""
+    import numpy as np
+
+    from pbs_tpu_torch.obs.trace import chrome_trace, format_records
+
+    if args.file == "spans":
+        return _cmd_trace_spans(args)
+    recs = np.load(args.file)
+    if getattr(args, "chrome", None):
+        with open(args.chrome, "w") as f:
+            json.dump(chrome_trace(recs), f)
+        print(f"wrote {len(recs)} records to {args.chrome} "
+              "(chrome://tracing / Perfetto)")
+        return 0
+    for line in format_records(recs):
+        print(line)
+    return 0
+
+
+def _load_spans(path: str, rids_path: str | None):
+    """Span artifacts from an obs dir (``gateway demo --obs``) or a bare
+    spans.npy + sidecar."""
+    import numpy as np
+
+    from pbs_tpu_torch.obs.spans import SpanAssembler, load_span_artifacts
+
+    if os.path.isdir(path):
+        recs, side = load_span_artifacts(path)
+    else:
+        recs = np.load(path)
+        side_path = rids_path or os.path.join(
+            os.path.dirname(os.path.abspath(path)), "spans.json")
+        with open(side_path) as f:
+            side = json.load(f)
+    asm = SpanAssembler(recs, side.get("rids", []),
+                        side.get("members"), side.get("tenant_table"))
+    return asm, side
+
+
+def _cmd_trace_spans(args) -> int:
+    """``trace spans OBS`` — reconstruct request timelines from drained
+    SPAN_* records: per-rid chains (text), stable JSON (--json), or
+    Chrome trace-event JSON (--chrome)."""
+    from pbs_tpu_torch.obs.spans import SPAN_ARGS
+    from pbs_tpu_torch.obs.trace import Ev
+
+    if not args.spans_path:
+        print("pbst-torch: trace spans needs a path (obs dir or "
+              "spans.npy)", file=sys.stderr)
+        return 2
+    asm, side = _load_spans(args.spans_path, args.rids)
+    if getattr(args, "chrome", None):
+        with open(args.chrome, "w") as f:
+            json.dump(asm.chrome_trace(), f)
+        print(f"wrote {len(asm.chains)} span(s) to {args.chrome} "
+              "(chrome://tracing / Perfetto)")
+        return 0
+    if args.json:
+        doc = {
+            "version": 1,
+            "spans": asm.summary(),
+            "problems": asm.validate(),
+            "chains": {
+                rid: [[ts, Ev(ev).name, *a] for ts, ev, *a in chain]
+                for rid, chain in sorted(asm.chains.items())
+            },
+        }
+        print(json.dumps(doc, indent=1, sort_keys=True))
+        return 0
+    members = side.get("members", [])
+    tenant_table = side.get("tenant_table", [])
+
+    def _member(m: int) -> str:
+        return members[m] if 0 <= m < len(members) else f"m{m}"
+
+    for rid, chain in sorted(asm.chains.items()):
+        slot = chain[0][2]
+        tenant = (tenant_table[slot] if 0 <= slot < len(tenant_table)
+                  else f"tenant{slot}")
+        print(f"span {rid} tenant={tenant}")
+        for ts, ev, *a in chain:
+            nargs, member_at = SPAN_ARGS.get(int(ev), (len(a), None))
+            shown = a[:nargs]
+            if member_at is None:  # HANDOFF: from -> to member pair
+                member = " -> ".join(_member(m) for m in shown[:2])
+            else:
+                member = _member(shown[member_at]) \
+                    if member_at < len(shown) else ""
+            print(f"  [{ts / 1e9:.6f}] {Ev(ev).name:<14} "
+                  f"{' '.join(map(str, shown))}"
+                  f"{'  @' + member if member else ''}")
+    problems = asm.validate()
+    for p in problems:
+        print(f"PROBLEM: {p}")
+    return 1 if problems else 0
+
+
+def cmd_slo(args) -> int:
+    """``slo report OBS`` — per-tenant p50/p95/p99 + SLO burn-rate from
+    span artifacts, stable JSON on stdout."""
+    asm, side = _load_spans(args.obs, None)
+    report = asm.slo_report(tenants=side.get("tenants"),
+                            run_meta=side.get("run"))
+    if side.get("lost"):
+        report["lost_records"] = int(side["lost"])
+    print(json.dumps(report, indent=1, sort_keys=True))
+    return 0
+
+
+def cmd_ckpt_info(args) -> int:
+    """Inspect a checkpoint directory (xl save artifacts)."""
+    with open(f"{args.path}/manifest.json") as f:
+        m = json.load(f)
+    print(json.dumps(
+        {k: m[k] for k in
+         ("version", "n_leaves", "bytes", "has_telemetry", "metadata",
+          "wall_time")},
+        indent=1))
+    return 0
+
+
+def cmd_sched_credit(args) -> int:
+    """xl sched-credit analog over a store db: -d job [-w W] [-c C]
+    [-t TSLICE_US]. The controller watches these keys."""
+    from pbs_tpu_torch.store import Store
+
+    s = Store(persist_path=args.db)
+    base = f"/jobs/{args.domain}/sched"
+    if args.weight is None and args.cap is None and args.tslice_us is None:
+        print(json.dumps({
+            "weight": s.read(f"{base}/weight", 256),
+            "cap": s.read(f"{base}/cap", 0),
+            "tslice_us": s.read(f"{base}/tslice_us", 100),
+        }))
+        return 0
+    # Validate everything before writing anything: a rejected update
+    # must leave the store untouched (operators assume all-or-nothing).
+    # Bounds are the dispatch-legal band (sched/base.py) so the CLI can
+    # never store a slice the schedulers would clamp away.
+    from pbs_tpu_torch.sched.base import TSLICE_MAX_US, TSLICE_MIN_US
+
+    if args.tslice_us is not None and not (
+            TSLICE_MIN_US <= args.tslice_us <= TSLICE_MAX_US):
+        print(f"pbst-torch: tslice out of bounds "
+              f"[{TSLICE_MIN_US}, {TSLICE_MAX_US}] us", file=sys.stderr)
+        return 1
+    t = s.transaction()
+    if args.weight is not None:
+        t.write(f"{base}/weight", args.weight)
+    if args.cap is not None:
+        t.write(f"{base}/cap", args.cap)
+    if args.tslice_us is not None:
+        t.write(f"{base}/tslice_us", args.tslice_us)
+    t.commit()
+    return 0
+
+
+def cmd_mon(args) -> int:
+    """xenmon analog: live per-job sched history from file-backed rings."""
+    import time
+
+    from pbs_tpu_torch.obs.mon import Monitor
+
+    mon = Monitor(args.meta, window_ns=int(args.window * 1e9))
+    hdr = (f"{'slot':>4} {'job':<12} {'ctx':<16} {'weight':>6} "
+           f"{'cpu%':>7} {'gotten_ms':>10} {'execs':>7} {'wakes':>7}")
+    n_iter = args.iterations if args.iterations > 0 else 10**9
+    try:
+        for i in range(n_iter):
+            mon.refresh_meta()
+            mon.poll()
+            sys.stdout.write("\x1b[2J\x1b[H" if args.clear else "")
+            print(f"pbst mon — partition={mon.meta.get('partition')} "
+                  f"window={args.window}s "
+                  f"records={mon.history.records_seen}")
+            print(hdr)
+            for r in mon.rows(windows=args.windows):
+                print(f"{r['slot']:>4} {r['job']:<12} {r['ctx']:<16} "
+                      f"{(r['weight'] if r['weight'] is not None else ''):>6} "
+                      f"{r['cpu_pct']:>7.2f} {r['gotten_ms']:>10.3f} "
+                      f"{r['execs']:>7} {r['wakes']:>7}")
+            if i + 1 < n_iter:  # no pointless sleep after the last frame
+                time.sleep(args.interval)
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+def cmd_oprofile(args) -> int:
+    """xenoprof/opreport analog over a live system's file-backed
+    ledger: passive-attach (zero cooperation from the profiled
+    process, like xenoprof passive domains —
+    xen-4.2.1/xen/common/xenoprof.c), sample for --seconds at
+    --period, then print the flat per-job profile."""
+    import time
+
+    from pbs_tpu_torch.obs.oprofile import ProfileSession
+
+    # Passive-only monitor session: no hosting partition, no timer —
+    # this loop drives sample_once with real timestamps.
+    sess = ProfileSession(None)
+    try:
+        sess.add_passive(args.name, args.ledger)
+        t_end = time.monotonic() + args.seconds
+        try:
+            while True:
+                sess.sample_once(time.monotonic_ns())
+                if time.monotonic() >= t_end:
+                    break
+                time.sleep(args.period / 1e3)
+        except KeyboardInterrupt:
+            pass  # partial profile is still a profile (cmd_top contract)
+        rep = sess.report()
+    finally:
+        sess.close()
+    print(f"{'job':<28} {'samples':>8} {'lost':>5} {'device_ms':>10} "
+          f"{'stall%':>7} {'coll_ms':>8} {'last_step':>9}")
+    for job, r in sorted(rep.items()):
+        print(f"{job:<28} {r['samples']:>8} {r['lost']:>5} "
+              f"{r['device_ms']:>10.3f} {r['stall_pct']:>7.2f} "
+              f"{r['collective_wait_ms']:>8.3f} {r['last_step']:>9}")
+    return 0
+
+
+def cmd_perfc(args) -> int:
+    """xenperf analog: format a published obs dump's software counters."""
+    from pbs_tpu_torch.obs.dumpfile import read_obs_dump
+
+    snap = read_obs_dump(args.file)
+    for name, val in snap.get("perfc", {}).items():
+        print(f"{name:<40} {val:>12}")
+    return 0
+
+
+def cmd_perf(args) -> int:
+    """Hot-path microbenchmark harness (pbs_tpu_torch.perf): run the
+    named benches (default: all) in python or --native mode, print
+    stable JSON or a table, optionally gate against the checked-in
+    baseline (--check fails only on >= --threshold ns/op regressions,
+    compared like-with-like per mode) or refresh it
+    (--update-baseline)."""
+    from pbs_tpu_torch.perf import (
+        format_report,
+        load_baseline,
+        run_benches,
+        save_baseline,
+    )
+    from pbs_tpu_torch.perf.report import main_check
+    from pbs_tpu_torch.runtime import native as native_mod
+
+    if args.update_baseline and args.quick:
+        print("pbst-torch: refusing to write a --quick-only baseline "
+              "(--update-baseline measures both op counts itself)",
+              file=sys.stderr)
+        return 2
+    if not native_mod.available():
+        # Diagnosable, never silent: say WHY the fast paths are off,
+        # every run.
+        reason = native_mod.unavailable_reason()
+        if args.native:
+            print(f"pbst-torch: --native requested but the native "
+                  f"runtime is unavailable: {reason}", file=sys.stderr)
+            return 2
+        print(f"pbst-torch: note: native runtime unavailable ({reason}); "
+              "python mode is also the production path on this host",
+              file=sys.stderr)
+    try:
+        results = run_benches(args.benches, quick=args.quick,
+                              native=args.native)
+    except KeyError as e:
+        print(f"pbst-torch: {e.args[0]}", file=sys.stderr)
+        return 2
+    if args.update_baseline:
+        # Both op counts: --check compares like-with-like (quick
+        # counts carry systematic per-call-overhead offsets).
+        quick_results = run_benches(args.benches, quick=True,
+                                    native=args.native)
+        path = save_baseline(results, args.baseline,
+                             quick_results=quick_results)
+        print(f"wrote baseline {path}")
+        return 0
+    if args.json:
+        print(json.dumps(results, indent=1, sort_keys=True))
+    else:
+        baseline = None
+        try:
+            baseline = load_baseline(args.baseline)
+        except (OSError, ValueError):
+            pass  # table renders without the vs_base column
+        print(format_report(results, baseline))
+    if args.check:
+        return main_check(results, args.baseline, args.threshold)
+    return 0
+
+
+def cmd_lockprof(args) -> int:
+    """xenlockprof analog: per-lock contention stats, worst wait first."""
+    from pbs_tpu_torch.obs.dumpfile import read_obs_dump
+
+    snap = read_obs_dump(args.file)
+    print(f"{'lock':<16} {'acquires':>10} {'contended':>10} "
+          f"{'wait_ms':>10} {'hold_ms':>10} {'maxwait_us':>10}")
+    for r in snap.get("lockprof", []):
+        print(f"{r['name']:<16} {r['acquires']:>10} {r['contended']:>10} "
+              f"{r['wait_ns'] / 1e6:>10.3f} {r['hold_ns'] / 1e6:>10.3f} "
+              f"{r['max_wait_ns'] / 1e3:>10.1f}")
+    return 0
+
+
+def cmd_lockdep(args) -> int:
+    """Lock-order report (the lockdep analog): established order graph
+    and any AB-BA violations from a published obs dump."""
+    from pbs_tpu_torch.obs.dumpfile import read_obs_dump
+
+    snap = read_obs_dump(args.file).get("lockdep", {})
+    if getattr(args, "dump_graph", False):
+        from pbs_tpu_torch.obs.lockdep import export_graph
+
+        # Stable export for static/dynamic cross-checking
+        # (``check --lockdep-graph``): an artifact, not a gate.
+        print(json.dumps(export_graph(snap), indent=1, sort_keys=True))
+        return 0
+    print(f"classes: {len(snap.get('classes', []))}  "
+          f"checked edges: {snap.get('checked_edges', 0)}  "
+          f"violations: {len(snap.get('violations', []))}")
+    for a, bs in snap.get("edges", {}).items():
+        print(f"  {a} -> {', '.join(bs)}")
+    for v in snap.get("violations", []):
+        print(f"VIOLATION: taking {v['taking']!r} while holding "
+              f"{v['holding']!r}; established "
+              f"{' -> '.join(v['established_order'])}")
+    return 1 if snap.get("violations") else 0
+
+
+def cmd_selftest(args) -> int:
+    """Perf canary of the telemetry hot paths (x86_tests.c analog):
+    order-of-magnitude regression gates on the per-quantum costs, on
+    every tier of the native runtime the host reaches."""
+    from pbs_tpu_torch.obs.selftest import run_selftest
+
+    results = run_selftest(n=args.n)
+    for r in results:
+        print(r.row())
+    return 0 if all(r.ok for r in results) else 1
+
+
+def cmd_params(args) -> int:
+    """Effective boot-param registry (name=value per line)."""
+    from pbs_tpu_torch.utils import params as params_mod
+
+    if args.file:
+        from pbs_tpu_torch.obs.dumpfile import read_obs_dump
+
+        vals = read_obs_dump(args.file).get("params", {})
+    else:
+        # Import the subsystems that declare params so a standalone
+        # invocation sees the full registry (param declaration happens
+        # at module import, like Xen's link-time param sections).
+        import pbs_tpu_torch.obs.lockprof  # noqa: F401
+        import pbs_tpu_torch.obs.trace  # noqa: F401
+        import pbs_tpu_torch.runtime.job  # noqa: F401
+        import pbs_tpu_torch.runtime.partition  # noqa: F401
+
+        if args.cmdline:
+            for tok in params_mod.parse_cmdline(args.cmdline):
+                print(f"pbst-torch: bad param {tok!r}", file=sys.stderr)
+        vals = params_mod.dump()
+    for name, val in vals.items():
+        print(f"{name}={json.dumps(val)}")
+    return 0
+
+
+def _parse_knob_value(raw: str):
+    """CLI value -> python value. JSON first (ints stay ints, floats
+    floats); anything unparseable passes through as the raw string so
+    the REGISTRY rejects it with a typed problem — ``knobs set
+    x=banana`` must exercise the malformed-push path, not argparse."""
+    try:
+        return json.loads(raw)
+    except json.JSONDecodeError:
+        return raw
+
+
+def cmd_knobs(args) -> int:
+    """Typed knob registry + atomic hot-reload channel. ``list`` dumps
+    the declarations; ``get``/``set``/``watch`` ride a file-backed
+    channel (``--channel``); ``init`` creates one; ``load-profile``
+    pushes a tuned profile as a knob file. Exit 0 ok / 1 rejected push
+    or watch problem / 2 usage error."""
+    from pbs_tpu_torch import knobs as registry
+    from pbs_tpu_torch.knobs.channel import KnobChannel
+    from pbs_tpu_torch.knobs.registry import KnobError
+
+    def open_channel(writable: bool, create: bool = False):
+        if not args.channel:
+            print("pbst-torch: this action needs --channel PATH",
+                  file=sys.stderr)
+            return None
+        if create and not os.path.exists(args.channel):
+            return KnobChannel.create(args.channel)
+        return KnobChannel.attach(args.channel, writable=writable)
+
+    if args.action == "list":
+        try:
+            if args.json:
+                doc = registry.schema()
+                if args.channel:
+                    ch = KnobChannel.attach(args.channel)
+                    gen, vals = ch.snapshot()
+                    doc["channel"] = {"path": args.channel,
+                                      "generation": gen, "values": vals}
+                print(json.dumps(doc, indent=1, sort_keys=True))
+                return 0
+            vals = None
+            if args.channel:
+                _, vals = KnobChannel.attach(args.channel).snapshot()
+        except (KnobError, OSError) as e:
+            print(f"pbst-torch: bad --channel {args.channel!r}: {e}",
+                  file=sys.stderr)
+            return 2
+        print(f"{'name':<42} {'type':<6} {'unit':<10} "
+              f"{'default':>12} {'range':<24} {'value':>12}")
+        for k in registry.all_knobs():
+            cur = vals.get(k.name, k.default) if vals is not None \
+                else registry.get(k.name)
+            print(f"{k.name:<42} {k.kind:<6} {k.unit or '-':<10} "
+                  f"{k.default:>12} "
+                  f"{f'[{k.lo}, {k.hi}]':<24} {cur:>12}")
+        return 0
+
+    if args.action == "init":
+        if not args.channel:
+            print("pbst-torch: init needs --channel PATH", file=sys.stderr)
+            return 2
+        try:
+            # Always a fresh create: init is also the recovery path
+            # for a wedged channel (writer crashed mid-push), so it
+            # must rewrite the file, not attach to the wreck.
+            ch = KnobChannel.create(args.channel)
+        except (KnobError, OSError) as e:
+            print(f"pbst-torch: bad --channel {args.channel!r}: {e}",
+                  file=sys.stderr)
+            return 2
+        gen, vals = ch.snapshot()
+        print(f"knob channel {args.channel}: {len(vals)} knob(s), "
+              f"generation {gen}")
+        return 0
+
+    if args.action == "get":
+        if not args.items:
+            print("pbst-torch: get needs at least one knob name",
+                  file=sys.stderr)
+            return 2
+        try:
+            ch = open_channel(writable=False) if args.channel else None
+        except (KnobError, OSError) as e:
+            print(f"pbst-torch: bad --channel {args.channel!r}: {e}",
+                  file=sys.stderr)
+            return 2
+        out = {}
+        for name in args.items:
+            if not registry.exists(name):
+                print(f"pbst-torch: unknown knob {name!r}",
+                      file=sys.stderr)
+                return 2
+            out[name] = ch.get(name) if ch is not None \
+                else registry.get(name)
+        if args.json:
+            print(json.dumps(out, indent=1, sort_keys=True))
+        else:
+            for name, v in out.items():
+                print(f"{name}={v}")
+        return 0
+
+    if args.action == "set":
+        if not args.items:
+            print("pbst-torch: set needs NAME=VALUE arguments",
+                  file=sys.stderr)
+            return 2
+        updates = {}
+        for item in args.items:
+            name, eq, raw = item.partition("=")
+            if not eq:
+                print(f"pbst-torch: set takes NAME=VALUE, got {item!r}",
+                      file=sys.stderr)
+                return 2
+            updates[name] = _parse_knob_value(raw)
+        try:
+            ch = open_channel(writable=True, create=True)
+        except (KnobError, OSError) as e:
+            print(f"pbst-torch: bad --channel {args.channel!r}: {e}",
+                  file=sys.stderr)
+            return 2
+        if ch is None:
+            return 2
+        try:
+            gen = ch.push(updates)
+        except KnobError as e:
+            print("pbst-torch: knob push REJECTED (atomic — nothing "
+                  "applied):", file=sys.stderr)
+            for p in e.problems:
+                print(f"  {p}", file=sys.stderr)
+            return 1
+        print(f"applied {len(updates)} knob(s) at generation {gen}")
+        return 0
+
+    if args.action == "watch":
+        try:
+            ch = open_channel(writable=False)
+        except (KnobError, OSError) as e:
+            print(f"pbst-torch: bad --channel {args.channel!r}: {e}",
+                  file=sys.stderr)
+            return 2
+        if ch is None:
+            return 2
+
+        def on_change(gen, values):
+            if args.json:
+                print(json.dumps({"generation": gen, "values": values},
+                                 sort_keys=True), flush=True)
+            else:
+                print(f"generation {gen}:", flush=True)
+                for k in sorted(values):
+                    print(f"  {k}={values[k]}", flush=True)
+
+        try:
+            n = ch.watch(on_change, timeout_s=args.timeout,
+                         max_events=args.max_events)
+        except KnobError as e:
+            # e.g. snapshot retries exhausted against a wedged writer.
+            print(f"pbst-torch: watch failed: {e}", file=sys.stderr)
+            return 1
+        print(f"watch done: {n} update(s)", file=sys.stderr)
+        return 0
+
+    if args.action == "load-profile":
+        from pbs_tpu_torch.knobs.profile import profile_knob_document
+        from pbs_tpu_torch.sched import tune
+
+        if not args.items:
+            print("pbst-torch: load-profile needs a workload name "
+                  f"({tune.tuned_workloads(args.tuned_dir)})",
+                  file=sys.stderr)
+            return 2
+        try:
+            prof = tune.load_profile(args.items[0], args.tuned_dir)
+            updates = profile_knob_document(prof)
+        except (OSError, ValueError, KeyError, KnobError) as e:
+            print(f"pbst-torch: bad tuned profile {args.items[0]!r}: {e}",
+                  file=sys.stderr)
+            return 2
+        if not args.channel:
+            # Dry surface: show what the profile stands for.
+            for k in sorted(updates):
+                print(f"{k}={updates[k]}")
+            return 0
+        try:
+            ch = open_channel(writable=True, create=True)
+        except (KnobError, OSError) as e:
+            print(f"pbst-torch: bad --channel {args.channel!r}: {e}",
+                  file=sys.stderr)
+            return 2
+        try:
+            gen = ch.push(updates)
+        except KnobError as e:
+            print(f"pbst-torch: profile push REJECTED: {e}",
+                  file=sys.stderr)
+            return 1
+        print(f"profile {args.items[0]!r}: {len(updates)} knob(s) "
+              f"live at generation {gen}")
+        return 0
+
+    print(f"pbst-torch: unknown knobs action {args.action!r}",
+          file=sys.stderr)
+    return 2
+
+
+def cmd_demo(args) -> int:
+    """The two-tenant sim demo end to end: a memory-bound and a
+    compute-bound tenant under the feedback policy."""
+    from pbs_tpu_torch.runtime import Job, Partition, SchedParams
+    from pbs_tpu_torch.sched import FeedbackPolicy
+    from pbs_tpu_torch.telemetry import SimBackend, SimProfile
+
+    be = SimBackend()
+    part = Partition("demo", source=be, scheduler=args.scheduler,
+                     ledger_path=args.ledger)
+    fb = FeedbackPolicy(part)
+    be.register("train", SimProfile.steady(
+        step_time_ns=200_000, stall_frac=0.5, collective_wait_ns=2_000))
+    be.register("serve", SimProfile.steady(
+        step_time_ns=50_000, stall_frac=0.02, collective_wait_ns=500))
+    part.add_job(Job("train", params=SchedParams(weight=512)))
+    part.add_job(Job("serve", params=SchedParams(weight=256)))
+    part.run(until_ns=int(args.seconds * 1e9))
+    print(json.dumps(part.dump(), indent=1))
+    print(json.dumps({"feedback": fb.dump()}, indent=1))
+    return 0
+
+
+def cmd_gateway(args) -> int:
+    """Serving front-door surface.
+
+    ``gateway demo``  — the fault-free gateway scenario over the sim
+    workload catalog (seeded arrivals, simulated backends): prints
+    admission/fairness/queue-delay stats per SLO class.
+    ``gateway demo --federated`` — the same arrivals through the
+    FEDERATED tier (``--gateways`` members, consistent-hash placement,
+    leased admission): no injected faults, but the seeded drain +
+    rejoin schedule still runs, so the handoff/remap machinery shows
+    in the stats.
+    ``gateway stats --ledger F`` — render a gateway telemetry ledger
+    (the per-class slots) the way ``dump`` renders a partition's.
+    """
+    if args.action == "stats":
+        from pbs_tpu_torch.gateway.gateway import GW_LEDGER_SLOTS
+        from pbs_tpu_torch.telemetry import Counter, Ledger
+
+        if args.ledger is None:
+            print("pbst-torch: gateway stats needs --ledger",
+                  file=sys.stderr)
+            return 2
+        led = Ledger.file_backed(args.ledger, readonly=True)
+        # Histogram sidecar: quantiles from the SAME log2 histograms
+        # ``slo report`` and the gateway's own shed/boost decisions
+        # read — not a cumulative-sum mean that hides the tail. Falls
+        # back to means on a ledger without one.
+        hist = None
+        if os.path.exists(args.ledger + ".hist.meta.json"):
+            from pbs_tpu_torch.obs.spans import LatencyHistograms
+
+            hist = LatencyHistograms.attach(args.ledger + ".hist")
+        src_line = _fmt_source(_load_meta(args.ledger))
+        if src_line:
+            print(src_line)
+        tail_hdr = (
+            f"{'qdelay_p50_ms':>14} {'qdelay_p99_ms':>14} "
+            f"{'e2e_p99_ms':>11}" if hist is not None else
+            f"{'avg_qdelay_ms':>14} {'avg_service_ms':>15}")
+        print(f"{'class':<14} {'completed':>10} {'dispatched':>10} "
+              f"{'shed':>6} {'requeued':>8} {'cost':>8} " + tail_hdr)
+        for cls, slot in GW_LEDGER_SLOTS.items():
+            snap = led.snapshot(slot)
+            dispatched = int(snap[Counter.SCHED_COUNT])
+            completed = int(snap[Counter.STEPS_RETIRED])
+            if hist is not None:
+                tail = (
+                    f"{hist.class_quantile(cls, 'queue', 0.50) / 1e6:>14.3f} "
+                    f"{hist.class_quantile(cls, 'queue', 0.99) / 1e6:>14.3f} "
+                    f"{hist.class_quantile(cls, 'e2e', 0.99) / 1e6:>11.3f}")
+            else:
+                qdelay = (int(snap[Counter.RUNQ_WAIT_NS]) / 1e6
+                          / max(1, dispatched))
+                service = (int(snap[Counter.DEVICE_TIME_NS]) / 1e6
+                           / max(1, completed))
+                tail = f"{qdelay:>14.3f} {service:>15.3f}"
+            print(f"{cls:<14} {completed:>10} "
+                  f"{dispatched:>10} "
+                  f"{int(snap[Counter.COMPILES]):>6} "
+                  f"{int(snap[Counter.YIELDS]):>8} "
+                  f"{int(snap[Counter.TOKENS]):>8} " + tail)
+        return 0
+    # demo: the chaos harness with no faults and no backend kill.
+    from pbs_tpu_torch.faults import FaultPlan
+    from pbs_tpu_torch.gateway import run_gateway_chaos
+
+    if args.processes:
+        from pbs_tpu_torch.gateway.procfed import run_process_chaos
+
+        report = run_process_chaos(
+            workload=args.workload, seed=args.seed,
+            n_gateways=args.gateways,
+            backends_per_gateway=args.backends,
+            n_tenants=args.tenants, ticks=args.ticks)
+        if args.json:
+            print(json.dumps(report, indent=1, sort_keys=True))
+            return 0 if report["ok"] else 1
+        st = report["stats"]
+        proc = report["process"]
+        print(f"process gateway demo workload={report['workload']} "
+              f"seed={report['seed']} gateways={report['gateways']} "
+              f"tenants={report['tenants']} ticks={report['ticks']}")
+        print(f"admitted={st['admitted']} completed={st['completed']} "
+              f"handoffs={st['handoffs']} shed={st['shed']}")
+        for name, m in proc["members"].items():
+            print(f"  {name:<8} pid={m['pid']:>7} "
+                  f"state={m['state']:<10} "
+                  f"restarts={m['restarts']} depth={m['depth']}")
+        for prob in report["problems"]:
+            print(f"  PROBLEM: {prob}")
+        # Fault-free ⇒ disarmed ⇒ the run carries a digest.
+        print(f"digest={report['digest']}")
+        print("ok" if report["ok"] else "FAILED")
+        return 0 if report["ok"] else 1
+
+    if args.federated:
+        from pbs_tpu_torch.gateway import run_federation_chaos
+
+        report = run_federation_chaos(
+            workload=args.workload, seed=args.seed,
+            n_gateways=args.gateways,
+            backends_per_gateway=args.backends,
+            n_tenants=args.tenants,
+            ticks=args.ticks, plan=FaultPlan(seed=args.seed),
+            obs_dir=args.obs)
+        if args.json:
+            print(json.dumps(report, indent=1, sort_keys=True))
+            return 0 if report["ok"] else 1
+        st = report["stats"]
+        print(f"federated gateway demo workload={report['workload']} "
+              f"seed={report['seed']} gateways={report['gateways']} "
+              f"tenants={report['tenants']} ticks={report['ticks']}")
+        print(f"admitted={st['admitted']} completed={st['completed']} "
+              f"handoffs={st['handoffs']} remaps={st['remaps']} "
+              f"shed={st['shed']}")
+        for name, m in st["members"].items():
+            print(f"  {name:<8} admitted={m['admitted']:>5} "
+                  f"adopted={m['adopted']:>4} queued={m['queued']:>4} "
+                  f"inflight={m['inflight']:>3}"
+                  f"{'  draining' if m['draining'] else ''}")
+        _print_federation_events(report, "PROBLEM")
+        print("ok" if report["ok"] else "FAILED")
+        return 0 if report["ok"] else 1
+
+    report = run_gateway_chaos(
+        workload=args.workload, seed=args.seed,
+        n_backends=args.backends, n_tenants=args.tenants,
+        ticks=args.ticks, plan=FaultPlan(seed=args.seed),
+        ledger_path=args.ledger, kill_backend=False,
+        obs_dir=args.obs)
+    if args.json:
+        print(json.dumps(report, indent=1, sort_keys=True))
+        return 0 if report["ok"] else 1
+    st = report["stats"]
+    print(f"gateway demo workload={report['workload']} "
+          f"seed={report['seed']} backends={report['backends']} "
+          f"tenants={report['tenants']} ticks={report['ticks']}")
+    print(f"admitted={st['admitted']} completed={st['completed']} "
+          f"shed_rate={st['shed_rate']} sheds={st['shed']}")
+    for cls, c in st["classes"].items():
+        print(f"  {cls:<12} queued={c['queued']:>4} "
+              f"qdelay_p50_ms={c['qdelay_p50_ns'] / 1e6:>8.3f} "
+              f"qdelay_p99_ms={c['qdelay_p99_ns'] / 1e6:>8.3f} "
+              f"latency_p99_ms={c['latency_p99_ns'] / 1e6:>8.3f}")
+    for prob in report["problems"]:
+        print(f"  PROBLEM: {prob}")
+    print("ok" if report["ok"] else "FAILED")
+    return 0 if report["ok"] else 1
+
+
+def cmd_quantize(args) -> int:
+    """Offline int8 weight-only quantization of a param checkpoint:
+    reads a checkpoint holding a transformer/MoE param tree, writes a
+    new checkpoint with int8 {'q','s'} leaves (models.quant layout)
+    for the serving forwards, and prints the byte accounting. Runs on
+    the host: the leaves load as CPU tensors."""
+    from pbs_tpu_torch.ckpt import load_checkpoint, save_checkpoint
+    from pbs_tpu_torch.models.quant import quantize_weights, quantized_nbytes
+
+    state, meta = load_checkpoint(args.src)
+    params = None
+    if isinstance(state, dict):
+        params = state if "embed" in state else state.get("params")
+    if not isinstance(params, dict) or "embed" not in params:
+        print("pbst-torch: checkpoint does not hold a param tree "
+              "(expected 'embed'/'layers'/... at the top level or "
+              "under 'params')", file=sys.stderr)
+        return 1
+    before = quantized_nbytes(params)
+    qp = quantize_weights(params)
+    after = quantized_nbytes(qp)
+    save_checkpoint(args.dst, qp, metadata={
+        **(meta or {}), "quantized": "int8-weight-only"})
+    print(json.dumps({
+        "src": args.src, "dst": args.dst,
+        "bytes_before": before, "bytes_after": after,
+        "ratio": round(after / max(before, 1), 4),
+    }))
+    return 0
+
+
 def cmd_check(args) -> int:
     """Static invariant checker suite (docs/ANALYSIS.md): lock
     discipline, time-unit consistency, scheduler-ops conformance,
@@ -1621,8 +2557,217 @@ def main(argv=None) -> int:
                          "export_graph) to cross-check static edges "
                          "against")
     sp.set_defaults(fn=cmd_check)
+
+    def ledger_args(sp):
+        sp.add_argument("--ledger", required=True, help="ledger file path")
+
+    sp = sub.add_parser("dump", help="one-shot counter dump ('z' key)")
+    ledger_args(sp)
+    sp.set_defaults(fn=cmd_dump)
+
+    sp = sub.add_parser("top", help="live telemetry (xentop)")
+    ledger_args(sp)
+    sp.add_argument("--interval", type=float, default=1.0)
+    sp.add_argument("--iterations", type=int, default=0, help="0=forever")
+    sp.add_argument("--clear", action="store_true")
+    sp.set_defaults(fn=cmd_top)
+
+    sp = sub.add_parser(
+        "trace",
+        help="format a trace dump (xentrace); 'trace spans OBS' "
+             "reconstructs request timelines")
+    sp.add_argument("file",
+                    help="trace .npy to format, or the literal word "
+                         "'spans' for span-timeline mode")
+    sp.add_argument("spans_path", nargs="?",
+                    help="with 'spans': obs dir (gateway demo --obs) "
+                         "or spans.npy")
+    sp.add_argument("--rids", metavar="SPANS.json",
+                    help="span sidecar when spans_path is a bare .npy "
+                         "(default: spans.json next to it)")
+    sp.add_argument("--json", action="store_true",
+                    help="with 'spans': stable JSON chains instead of "
+                         "the text timelines")
+    sp.add_argument("--chrome", metavar="OUT.json",
+                    help="write Chrome trace-event JSON instead")
+    sp.set_defaults(fn=cmd_trace)
+
+    sp = sub.add_parser(
+        "slo", help="per-tenant SLO report from span artifacts")
+    sp.add_argument("action", choices=["report"])
+    sp.add_argument("obs", help="obs dir written by gateway demo --obs "
+                                "/ chaos --obs")
+    sp.set_defaults(fn=cmd_slo)
+
+    sp = sub.add_parser("ckpt-info", help="inspect a checkpoint")
+    sp.add_argument("path")
+    sp.set_defaults(fn=cmd_ckpt_info)
+
+    sp = sub.add_parser(
+        "quantize", help="int8 weight-only quantize a param checkpoint")
+    sp.add_argument("src")
+    sp.add_argument("dst")
+    sp.set_defaults(fn=cmd_quantize)
+
+    sp = sub.add_parser("sched-credit", help="adjust job scheduling")
+    sp.add_argument("-d", "--domain", required=True)
+    sp.add_argument("-w", "--weight", type=int)
+    sp.add_argument("-c", "--cap", type=int)
+    sp.add_argument("-t", "--tslice-us", type=int, dest="tslice_us")
+    sp.add_argument("--db", required=True)
+    sp.set_defaults(fn=cmd_sched_credit)
+
+    sp = sub.add_parser("mon", help="live sched history (xenmon)")
+    sp.add_argument("meta", help="partition meta sidecar (<ledger>.meta.json)")
+
+    def _pos_int(v: str) -> int:
+        n = int(v)
+        if n < 1:
+            raise argparse.ArgumentTypeError("must be >= 1")
+        return n
+
+    sp.add_argument("--window", type=float, default=1.0, help="seconds")
+    sp.add_argument("--windows", type=_pos_int, default=1,
+                    help="windows to aggregate per row (>=1)")
+    sp.add_argument("--interval", type=float, default=1.0)
+    sp.add_argument("--iterations", type=int, default=0, help="0=forever")
+    sp.add_argument("--clear", action="store_true")
+    sp.set_defaults(fn=cmd_mon)
+
+    sp = sub.add_parser(
+        "oprofile",
+        help="passive sampling profile of a live ledger "
+             "(xenoprof/opreport)")
+    sp.add_argument("--ledger", required=True,
+                    help="file-backed ledger of the profiled partition")
+    sp.add_argument("--name", default="passive",
+                    help="label for the passive domain in the report")
+    sp.add_argument("--seconds", type=float, default=2.0)
+    sp.add_argument("--period", type=float, default=100.0,
+                    help="sampling period in ms")
+    sp.set_defaults(fn=cmd_oprofile)
+
+    sp = sub.add_parser("perfc", help="software counter dump (xenperf)")
+    sp.add_argument("file", help="obs dump JSON (obs.dumpfile)")
+    sp.set_defaults(fn=cmd_perfc)
+
+    sp = sub.add_parser("perf", help="hot-path microbench harness")
+    sp.add_argument("--bench", dest="benches", action="append",
+                    metavar="NAME",
+                    help="run only this bench (repeatable; default: all)")
+    sp.add_argument("--quick", action="store_true",
+                    help="small op counts (the quick smoke)")
+    sp.add_argument("--native", action=argparse.BooleanOptionalAction,
+                    default=False,
+                    help="bench the native runtime paths instead of "
+                         "the pure-Python fallback (--no-native, the "
+                         "default, pins python mode); gated against "
+                         "the baseline's native_* maps")
+    sp.add_argument("--check", action="store_true",
+                    help="exit 1 on >= --threshold ns/op regressions "
+                         "vs the baseline")
+    sp.add_argument("--threshold", type=float, default=2.0,
+                    help="regression factor for --check (default 2.0)")
+    sp.add_argument("--baseline", default=None,
+                    help="baseline JSON (default: the checked-in "
+                         "pbs_tpu_torch/perf/baseline.json)")
+    sp.add_argument("--update-baseline", action="store_true",
+                    dest="update_baseline",
+                    help="re-measure and overwrite the baseline")
+    sp.add_argument("--json", action="store_true",
+                    help="stable JSON report instead of the table")
+    sp.set_defaults(fn=cmd_perf)
+
+    sp = sub.add_parser("lockprof", help="lock contention (xenlockprof)")
+    sp.add_argument("file", help="obs dump JSON (obs.dumpfile)")
+    sp.set_defaults(fn=cmd_lockprof)
+
+    sp = sub.add_parser("lockdep",
+                        help="lock-order violations (lockdep)")
+    sp.add_argument("file", help="obs dump artifact")
+    sp.add_argument("--dump-graph", action="store_true", dest="dump_graph",
+                    help="print the order graph in its stable JSON form "
+                         "(consumed by check --lockdep-graph)")
+    sp.set_defaults(fn=cmd_lockdep)
+
+    sp = sub.add_parser("selftest",
+                        help="hot-path perf canary (x86_tests.c)")
+    sp.add_argument("-n", type=int, default=2000,
+                    help="iterations per canary")
+    sp.set_defaults(fn=cmd_selftest)
+
+    sp = sub.add_parser("params", help="boot-param registry dump")
+    g = sp.add_mutually_exclusive_group()
+    g.add_argument("--file", help="obs dump JSON; default: this process")
+    g.add_argument("--cmdline", help="apply a 'k=v k2 no-k3' string first")
+    sp.set_defaults(fn=cmd_params)
+
+    sp = sub.add_parser(
+        "knobs", help="typed knob registry + atomic hot-reload")
+    sp.add_argument("action",
+                    choices=["list", "init", "get", "set", "watch",
+                             "load-profile"])
+    sp.add_argument("items", nargs="*",
+                    help="get: knob names; set: NAME=VALUE pairs; "
+                         "load-profile: workload class")
+    sp.add_argument("--channel", metavar="PATH",
+                    help="file-backed knob channel (seqlock ledger "
+                         "protocol; created on init/set if missing)")
+    sp.add_argument("--timeout", type=float, default=None,
+                    help="watch: stop after this many seconds")
+    sp.add_argument("--max-events", type=int, default=None,
+                    dest="max_events",
+                    help="watch: stop after this many updates")
+    sp.add_argument("--tuned-dir", default=None, dest="tuned_dir",
+                    help="load-profile: profile directory (default: "
+                         "the checked-in pbs_tpu_torch/sched/tuned/)")
+    sp.add_argument("--json", action="store_true")
+    sp.set_defaults(fn=cmd_knobs)
+
+    sp = sub.add_parser(
+        "gateway", help="serving front door: demo over the sim catalog, "
+                        "ledger stats")
+    sp.add_argument("action", choices=["demo", "stats"])
+    sp.add_argument("--workload", default="mixed",
+                    help="workload mix (the sim.workload catalog)")
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--backends", type=int, default=3,
+                    help="backend pool size (per MEMBER with "
+                         "--federated)")
+    sp.add_argument("--federated", action="store_true",
+                    help="drive the federated tier (gateway/federation"
+                         ".py) instead of one gateway")
+    sp.add_argument("--processes", action="store_true",
+                    help="the federated tier with members as REAL OS "
+                         "processes, fault-free")
+    sp.add_argument("--gateways", type=int, default=3,
+                    help="federation members (with --federated)")
+    sp.add_argument("--tenants", type=int, default=4)
+    sp.add_argument("--ticks", type=int, default=400,
+                    help="gateway pump rounds (1 ms of virtual time each)")
+    sp.add_argument("--ledger", default=None,
+                    help="gateway telemetry ledger file (stats action)")
+    sp.add_argument("--obs", default=None, metavar="DIR",
+                    help="write span artifacts here for trace spans / "
+                         "slo report")
+    sp.add_argument("--json", action="store_true")
+    sp.set_defaults(fn=cmd_gateway)
+
+    sp = sub.add_parser("demo", help="run the two-tenant sim demo")
+    sp.add_argument("--scheduler", default="credit")
+    sp.add_argument("--seconds", type=float, default=2.0)
+    sp.add_argument("--ledger", default=None)
+    sp.set_defaults(fn=cmd_demo)
+
     args = p.parse_args(argv)
-    return args.fn(args)
+    try:
+        return args.fn(args)
+    except FileNotFoundError as e:
+        print(f"pbst-torch: not found: {e.filename or e}", file=sys.stderr)
+        return 1
+    except json.JSONDecodeError as e:
+        print(f"pbst-torch: invalid JSON value: {e}", file=sys.stderr)
+        return 1
 
 
 if __name__ == "__main__":

@@ -15,9 +15,8 @@ Each job carries its console ring (``Job.log`` is the guest printk),
 its security label, its declared HBM working set (``mem_bytes``, which
 the partition's memory admission claims) and the paging fields the
 pager (``runtime.paging``) fills while its state lives in host memory.
-The partition's xsm checks read the label. Not ported yet (ROADMAP):
-``Job.foreign`` (adopting a callable that follows no protocol, which
-leans on XLA executables).
+The partition's xsm checks read the label. ``Job.foreign`` adopts a
+callable that follows no protocol (the HVM vPMU analog).
 """
 
 from __future__ import annotations
@@ -133,8 +132,13 @@ class Job:
         self.sched_priv: Any = None
         # Measured-telemetry override: profile every N-th invocation of
         # THIS job regardless of the backend-wide default (None = use
-        # the backend's).
+        # the backend's). Foreign tenants set this so they get measured
+        # phases without cooperating (the HVM vPMU analog).
         self.profile_every: int | None = None
+        # (fn, args, kwargs) of a foreign callable adopted via
+        # Job.foreign — lets the backend harvest its cost from one
+        # counted invocation, attributed to this job.
+        self._foreign_spec: tuple | None = None
         # Per-job console ring (the xl console analog): lifecycle
         # events land here; the workload writes via Job.log.
         self.console = Console()
@@ -144,6 +148,57 @@ class Job:
         self.paged = None
         self.paged_bytes = 0
         self.paged_acct_bytes = 0
+
+    @classmethod
+    def foreign(
+        cls,
+        name: str,
+        fn: Callable[..., Any],
+        *call_args: Any,
+        params: "SchedParams | None" = None,
+        max_steps: int | None = None,
+        profile_every: int = 8,
+        **call_kwargs: Any,
+    ) -> "Job":
+        """Adopt an arbitrary PyTorch callable as a tenant — the HVM
+        vPMU analog.
+
+        The reference fully virtualizes the PMU for guests that know
+        nothing about the hypervisor: ``vpmu_core2.c`` saves/loads the
+        real counter MSRs around each vcpu switch and traps the guest's
+        own MSR accesses (``core2_vpmu_save``/``__core2_vpmu_load``,
+        ``xen-4.2.1/xen/arch/x86/hvm/vmx/vpmu_core2.c:267-518``), so a
+        non-paravirtualized HVM guest still yields measured telemetry.
+        Here the same claim: ``fn`` follows no framework protocol — any
+        signature, any return value, no metrics dict — yet the job gets
+        *measured* stall/collective phases, because the backend samples
+        ``torch.profiler`` around its quanta (``telemetry/profiler.py``)
+        and harvests its FLOPs and bytes from one counted invocation
+        (``CudaBackend._job_cost``), rather than asking the workload to
+        report.
+
+        Each step invokes ``fn(*call_args, **call_kwargs)`` (the backend
+        synchronises the card after it); the arguments are fixed (a
+        tenant that wants to thread state through steps is by definition
+        cooperating — use the normal ``Job`` protocol). The port has no
+        ahead-of-time executable to dispatch through, so every step
+        calls ``fn`` itself; ``job.compiled`` holds only the harvested
+        cost.
+        """
+        job = cls(name, step_fn=None, state=None, params=params,
+                  max_steps=max_steps)
+
+        def step_fn(_state):
+            # Pin the no-cooperation contract: wrap in (state, {}) so
+            # a foreign fn returning (output, some_dict) — an ordinary
+            # (out, aux) shape — is never sniffed as the cooperative
+            # metrics protocol by the backend.
+            return fn(*call_args, **call_kwargs), {}
+
+        job.step_fn = step_fn
+        job.profile_every = max(1, int(profile_every))
+        job._foreign_spec = (fn, call_args, call_kwargs)
+        return job
 
     def log(self, line: str) -> int:
         """Workload-side console write (the guest printk)."""

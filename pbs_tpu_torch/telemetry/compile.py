@@ -26,10 +26,13 @@ from typing import Iterator
 
 #: One finished ``nvcc`` run: one real compilation, one cache entry.
 BACKEND_COMPILE_EVENT = "/pbs_tpu_torch/cuda_build/nvcc_duration"
-#: First-use work that fills no cache entry (loading a built library),
-#: attributed to the job but not counted as a "compile".
+#: First-use work that fills no cache entry (loading a built library;
+#: the counted invocation that harvests a foreign tenant's cost,
+#: ``telemetry.source.count_invocation``), attributed to the job but not
+#: counted as a "compile".
 FRONTEND_EVENTS = (
     "/pbs_tpu_torch/cuda_build/load_duration",
+    "/pbs_tpu_torch/telemetry/cost_harvest_duration",
 )
 
 

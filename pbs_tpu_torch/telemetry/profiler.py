@@ -24,6 +24,19 @@ host's ``aten::`` ops (``source="host"``), each billed its *exclusive*
 time, because host ops nest (``aten::linear`` spans ``aten::addmm``,
 which spans ``aten::copy_``) where device kernels do not.
 
+On the card a session can lose device records: on the H100 host, once
+a process has launched kernels from libraries loaded outside PyTorch
+(the port's own), each new session drops the device records of its
+first 1 to 19 launches (now and then up to 131, or its last few) while
+keeping their launch records, so a quantum of a few kernels reads as no
+device activity at all; a few other records (under 2% of a late
+session's launches on that host) go missing at random. A CUDA session
+therefore opens with ``HEAD_PAD`` empty spin kernels and closes with
+``TAIL_PAD``, each group followed by a synchronise, outside the
+quantum's time, for the loss to land on; the parser drops the pads'
+records by their launches' correlation ids, and counts any other launch
+left without a device record in ``TraceStats.lost_records``.
+
 Profiling every quantum would double step latency; like i-mode
 sampling, the backend profiles every N-th quantum and carries the
 measured fractions forward until the next sample. The static roofline
@@ -53,6 +66,16 @@ __all__ = [
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 #: Category of the host's ATen operators.
 HOST_CAT = "cpu_op"
+#: Host records of launches that put work on the card (a kernel, a
+#: memset, a copy): each should have a device record of the same
+#: correlation id.
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+_LAUNCH_RE = re.compile(r"Launch|Memset|Memcpy")
+#: Empty kernels a CUDA session launches before and after the quantum,
+#: for the records it loses at its head or its tail to land on (the
+#: module docstring). Most sessions lose 17-19 head records there, and
+#: now and then one loses 76-131.
+HEAD_PAD, TAIL_PAD = 256, 64
 
 #: The port's own kernels (``ops/csrc/*.cu``), on either route: the
 #: counterparts of the Pallas kernels the reference bills to the MXU.
@@ -100,6 +123,12 @@ class TraceStats:
     n_ops: int = 0
     top_ops: list[tuple[str, int]] = dataclasses.field(default_factory=list)
     source: str = "none"  # 'device' (CUDA kernels) or 'host' (aten ops)
+    # Launches of the quantum (the pads excluded; counted in a padded
+    # session only), those with no device record, and the pads that lost
+    # theirs.
+    launches: int = 0
+    lost_records: int = 0
+    pad_lost: int = 0
 
     @property
     def stall_frac(self) -> float:
@@ -151,18 +180,38 @@ def _exclusive(ops: list[tuple[int, int, Any, str]]) -> list[int]:
     return [max(0, x) for x in excl]
 
 
-def parse_trace_events(events: Iterable[dict]) -> TraceStats:
+def parse_trace_events(events: Iterable[dict], skip_head: int = 0,
+                       skip_tail: int = 0) -> TraceStats:
     """Aggregate a ``torch.profiler`` Chrome trace's ``traceEvents`` into
     :class:`TraceStats`.
 
     Prefers device activity (``cat`` kernel/gpu_memcpy/gpu_memset) when
     the trace has any (a quantum on the card); otherwise falls back to
     the host's ``cpu_op`` events billed by exclusive time, so the same
-    parser serves CI and production.
+    parser serves CI and production. ``skip_head`` and ``skip_tail``
+    drop the device records of the first and the last that many launches
+    (a session's pads); the launches between them without a device
+    record count as ``lost_records``.
     """
     events = [e for e in events if e.get("ph") == "X"]
-    device = [e for e in events if e.get("cat") in DEVICE_CATS]
+    launches = sorted(
+        (e for e in events if e.get("cat") in LAUNCH_CATS
+         and _LAUNCH_RE.search(e.get("name", ""))
+         and "correlation" in e.get("args", {})),
+        key=lambda e: float(e.get("ts", 0)))
+    body = launches[skip_head:len(launches) - skip_tail]
+    pads = {e["args"]["correlation"] for e in launches} - {
+        e["args"]["correlation"] for e in body}
+    device_all = [e for e in events if e.get("cat") in DEVICE_CATS]
+    recorded = {e.get("args", {}).get("correlation") for e in device_all}
+    device = [e for e in device_all
+              if e.get("args", {}).get("correlation") not in pads]
     stats = TraceStats(source="device" if device else "host")
+    if skip_head or skip_tail:
+        stats.launches = len(body)
+        stats.pad_lost = len(pads - recorded)
+        stats.lost_records = sum(
+            1 for e in body if e["args"]["correlation"] not in recorded)
     # (ts ns, dur ns, thread, name) of every billable op, trace order;
     # trace timestamps are µs floats, kept to ns precision.
     ops = [(int(float(e.get("ts", 0)) * 1000),
@@ -190,11 +239,13 @@ def parse_trace_events(events: Iterable[dict]) -> TraceStats:
     return stats
 
 
-def parse_trace_file(path: str) -> TraceStats:
+def parse_trace_file(path: str, skip_head: int = 0,
+                     skip_tail: int = 0) -> TraceStats:
     """Parse one exported Chrome trace (``export_chrome_trace``)."""
     with open(path) as f:
         doc = json.load(f)
-    return parse_trace_events(doc.get("traceEvents", []))
+    return parse_trace_events(doc.get("traceEvents", []), skip_head,
+                              skip_tail)
 
 
 # One profiler session per process (Kineto/CUPTI enforce this); a
@@ -212,7 +263,10 @@ class TorchQuantumProfiler:
     The profiled callable must end with a device synchronise, so its
     kernels finish inside the session (``CudaBackend`` profiles such a
     closure). ``keep_dir`` keeps each sample's exported trace there as
-    ``trace_<n>.json`` instead of deleting it.
+    ``trace_<n>.json`` instead of deleting it. A CUDA session opens with
+    ``HEAD_PAD`` pads and closes with ``TAIL_PAD`` (the module
+    docstring); ``launches``, ``records_lost`` and ``pad_lost`` sum each
+    sample's launches, the records lost among them and on its pads.
 
     The profiler's own cost — starting and stopping the session,
     exporting and parsing the trace, everything outside ``fn`` — is kept
@@ -228,6 +282,22 @@ class TorchQuantumProfiler:
         self.last_error: str | None = None
         self.last_overhead_ns = 0
         self.overhead_ns = 0
+        self.launches = 0
+        self.records_lost = 0
+        self.pad_lost = 0
+
+    def _pad(self, n: int) -> int:
+        """Launch ``n`` pads on the current stream and wait for them, so
+        none runs inside the quantum's time; returns their number (0 off
+        the card)."""
+        if self.device_type != "cuda":
+            return 0
+        import torch
+
+        for _ in range(n):
+            torch.cuda._sleep(0)
+        torch.cuda.synchronize()
+        return n
 
     def _session(self):
         from torch.profiler import ProfilerActivity, profile
@@ -275,6 +345,7 @@ class TorchQuantumProfiler:
             # either way (a data-loading step advances external cursors;
             # re-running it would double-step the job).
             session = None
+            head = tail = 0
             try:
                 session = self._session()
                 session.__enter__()
@@ -282,10 +353,19 @@ class TorchQuantumProfiler:
                 self.failures += 1
                 self.last_error = f"{type(e).__name__}: {e}"
                 session = None
+            if session is not None:
+                try:
+                    head = self._pad(HEAD_PAD)
+                except Exception as e:  # noqa: BLE001 — sample unpadded
+                    self.last_error = f"{type(e).__name__}: {e}"
             try:
                 out = fn()
             finally:
                 if session is not None:
+                    try:
+                        tail = self._pad(TAIL_PAD)
+                    except Exception as e:  # noqa: BLE001 — unpadded
+                        self.last_error = f"{type(e).__name__}: {e}"
                     try:
                         session.__exit__(None, None, None)
                     except Exception as e:  # noqa: BLE001 — sample lost
@@ -298,8 +378,12 @@ class TorchQuantumProfiler:
             try:
                 path = self._trace_path()
                 session.export_chrome_trace(path)
-                stats = parse_trace_file(path)
+                stats = parse_trace_file(path, skip_head=head,
+                                         skip_tail=tail)
                 self.samples += 1
+                self.launches += stats.launches
+                self.records_lost += stats.lost_records
+                self.pad_lost += stats.pad_lost
                 return out, stats
             except Exception as e:
                 self.failures += 1

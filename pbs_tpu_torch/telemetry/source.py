@@ -377,6 +377,95 @@ def cost_analysis_of(compiled) -> tuple[int, int]:
         return 0, 0
 
 
+class CountedCost:
+    """The cost of one counted invocation of a foreign callable: what
+    the port has in place of the reference's XLA executable. Its
+    ``cost_analysis()`` answers in XLA's keys, so
+    :func:`cost_analysis_of` reads it as it reads any other."""
+
+    def __init__(self, flops: int, nbytes: int, n_ops: int):
+        self.flops = int(flops)
+        self.nbytes = int(nbytes)
+        self.n_ops = int(n_ops)
+
+    def cost_analysis(self) -> dict:
+        return {"flops": float(self.flops),
+                "bytes accessed": float(self.nbytes)}
+
+    def __repr__(self) -> str:
+        return (f"CountedCost(flops={self.flops}, bytes={self.nbytes}, "
+                f"ops={self.n_ops})")
+
+
+#: The front-end compile event a counted invocation reports its wall
+#: time as (``telemetry.compile.FRONTEND_EVENTS``).
+HARVEST_EVENT = "/pbs_tpu_torch/telemetry/cost_harvest_duration"
+
+
+def _byte_counter():
+    """A ``TorchDispatchMode`` that adds the bytes of every aten op's
+    tensor inputs and outputs — the analog of XLA's "bytes accessed".
+    Views move no data and allocations read none, so neither counts;
+    an in-place op reads and writes its operand and counts both."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class ByteCounter(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.nbytes = 0
+            self.n_ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            self.n_ops += 1
+            aliased = [r.alias_info for r in func._schema.returns
+                       if r.alias_info is not None]
+            if aliased and not any(a.is_write for a in aliased):
+                return out  # a view: no data moved
+            ins = [t for t in tree_leaves((args, kwargs))
+                   if isinstance(t, torch.Tensor)]
+            if not ins and func._schema.name.split("::")[-1].startswith(
+                    ("empty", "new_empty")):
+                return out  # an allocation writes nothing
+            for t in ins + [t for t in tree_leaves(out)
+                            if isinstance(t, torch.Tensor)]:
+                self.nbytes += t.numel() * t.element_size()
+            return out
+
+    return ByteCounter()
+
+
+def count_invocation(fn: Callable[..., Any], args: tuple, kwargs: dict,
+                     sync: Callable[[], None] | None = None
+                     ) -> CountedCost | None:
+    """Run ``fn(*args, **kwargs)`` once under
+    ``torch.utils.flop_counter.FlopCounterMode`` (FLOPs) and a byte
+    counter (:func:`_byte_counter`), synchronise, throw the outputs away
+    and return the counted cost; None when the invocation runs no aten
+    op (nothing was counted). What the invocation raises propagates.
+
+    Kernels launched through ``ctypes`` with raw ``data_ptr``s — the
+    port's four (``ops/attention.py``, ``ops/matmul.py``) — bypass the
+    dispatcher, so their FLOPs and bytes are not counted; the
+    reference's ``pallas_call``s carry no ``cost_estimate`` and XLA
+    counts none for them either."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    bytes_mode = _byte_counter()
+    with FlopCounterMode(display=False) as flops_mode, bytes_mode:
+        out = fn(*args, **kwargs)
+        del out
+    if sync is not None:
+        sync()
+    if bytes_mode.n_ops == 0:
+        return None
+    return CountedCost(flops_mode.get_total_flops(), bytes_mode.nbytes,
+                       bytes_mode.n_ops)
+
+
 class CudaBackend:
     """Measures real PyTorch jobs on a CUDA device: wall time closed by
     ``torch.cuda.synchronize`` + static cost estimate + step metrics.
@@ -393,6 +482,11 @@ class CudaBackend:
     measured stall fraction of the latest sample then sets
     HBM_STALL_NS, and the roofline estimate serves only before a job's
     first sample. 0 = roofline estimate only.
+
+    A foreign tenant (``Job.foreign``) has its FLOPs and bytes harvested
+    from one counted invocation (:func:`count_invocation`) before its
+    first quantum; the result, a :class:`CountedCost`, becomes
+    ``job.compiled``.
 
     ``device`` defaults to ``cuda``; with no card that raises rather
     than measuring the CPU under a device metric's name. The tests pass
@@ -424,6 +518,11 @@ class CudaBackend:
         self.peak_hbm_bw = peak_hbm_bw
         # per-job (flops, bytes) from cost analysis, captured at first run
         self._costs: dict[str, tuple[int, int]] = {}
+        # job name -> (compiles, compile_ns) of a foreign tenant's
+        # counted invocation, charged with its first quantum
+        self._harvest: dict[str, tuple[int, int]] = {}
+        # job name -> why its counted invocation harvested nothing
+        self.harvest_errors: dict[str, str] = {}
         # Measured-telemetry sampling: every N-th invocation per job runs
         # under the profiler; the parsed per-kernel time fills the stall/
         # collective counters and its fractions carry forward until the
@@ -450,9 +549,44 @@ class CudaBackend:
         c = self._costs.get(job.name)
         if c is None:
             compiled = getattr(job, "compiled", None)
+            if compiled is None and getattr(job, "_foreign_spec", None):
+                # Foreign tenant (Job.foreign): harvest its cost without
+                # the workload's help — the MSR-interception analog
+                # (vpmu_core2.c:367-418 reads the guest's counter MSRs;
+                # here one counted invocation reads its ops). The port
+                # has no executable to lower and compile as the
+                # reference does: the invocation's wall time is its
+                # front-end compile event, in the job's COMPILE_* slots
+                # and never its DEVICE_TIME_NS.
+                # An invocation that raises or runs no aten op leaves
+                # ``compiled`` None (the reference's "not a jit stage"):
+                # the profiler alone measures the tenant, and
+                # ``harvest_errors`` says why.
+                fn, a, k = job._foreign_spec
+                t0 = time.monotonic_ns()
+                with self.compile_meter.attribute(job.name):
+                    try:
+                        compiled = count_invocation(fn, a, k,
+                                                    sync=self._sync)
+                    except Exception as e:  # noqa: BLE001 — the tenant's
+                        compiled = None
+                        self.harvest_errors[job.name] = (
+                            f"{type(e).__name__}: {e}")
+                    self.compile_meter._on_event(
+                        HARVEST_EVENT, (time.monotonic_ns() - t0) / 1e9)
+                job.compiled = compiled
+                # Drained here and added to the quantum by execute: left
+                # pending, the first step's take() would subtract the
+                # harvest from that step's own wall time.
+                self._harvest[job.name] = self.compile_meter.take(job.name)
             c = cost_analysis_of(compiled) if compiled is not None else (0, 0)
             self._costs[job.name] = c
         return c
+
+    def _take_harvest(self, job, deltas: np.ndarray) -> None:
+        n_c, c_ns = self._harvest.pop(job.name, (0, 0))
+        deltas[Counter.COMPILES] += n_c
+        deltas[Counter.COMPILE_TIME_NS] += c_ns
 
     _METRIC_KEYS = (
         ("collective_wait_ns", Counter.COLLECTIVE_WAIT_NS),
@@ -566,6 +700,7 @@ class CudaBackend:
         job = ctx.job
         deltas = np.zeros(NUM_COUNTERS, dtype=np.uint64)
         flops, nbytes = self._job_cost(job)
+        self._take_harvest(job, deltas)
         for _ in range(n_steps):
             dt, metrics, n_c, c_ns = self._invoke(job, job.step_fn)
             self._charge(deltas, dt, flops, nbytes, metrics,
@@ -592,6 +727,7 @@ class CudaBackend:
                 "micro_step_fn; provide a chunk-sized step")
         deltas = np.zeros(NUM_COUNTERS, dtype=np.uint64)
         flops, nbytes = self._job_cost(job)
+        self._take_harvest(job, deltas)
         for _ in range(n_micro):
             dt, metrics, n_c, c_ns = self._invoke(job, fn)
             self._charge(deltas, dt, flops // K, nbytes // K, metrics,

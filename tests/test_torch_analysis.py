@@ -292,10 +292,12 @@ def test_cli_list_passes(capsys):
 
 
 def test_static_dynamic_crosscheck(tmp_path, capsys):
-    """The lockdep bridge: a dynamic A->B edge exported by
-    ``obs.lockdep.export_graph`` makes a static B->A nesting a
+    """The lockdep bridge, by the reference's route: a dynamic A->B edge
+    written to an obs dump (``write_obs_dump``) and exported by
+    ``pbst-torch lockdep --dump-graph`` makes a static B->A nesting a
     finding."""
     from pbs_tpu_torch.obs import lockdep
+    from pbs_tpu_torch.obs.dumpfile import write_obs_dump
 
     lockdep.lockdep.set("1")
     lockdep.reset()
@@ -305,11 +307,14 @@ def test_static_dynamic_crosscheck(tmp_path, capsys):
         with outer:
             with inner:  # dynamic edge dyn_outer -> dyn_inner
                 pass
-        graph = lockdep.export_graph()
+        dump_path = str(tmp_path / "obs.json")
+        write_obs_dump(dump_path)
     finally:
         lockdep.lockdep.reset()
         lockdep.reset()
 
+    assert main(["lockdep", dump_path, "--dump-graph"]) == 0
+    graph = json.loads(capsys.readouterr().out)
     assert graph["version"] == 1
     assert ["dyn_outer", "dyn_inner"] in graph["edges"]
     graph_path = tmp_path / "graph.json"

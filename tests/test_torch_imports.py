@@ -185,6 +185,39 @@ def test_analysis_modules_are_covered():
     assert not missing, missing
 
 
+#: The observers, the self-test, the obs dump and the perf harness: each
+#: must be in the module list the checks above walk.
+OBSERVER_MODULES = (
+    "pbs_tpu_torch.obs.dumpfile", "pbs_tpu_torch.obs.mon",
+    "pbs_tpu_torch.obs.oprofile", "pbs_tpu_torch.obs.selftest",
+    "pbs_tpu_torch.perf", "pbs_tpu_torch.perf.bench",
+    "pbs_tpu_torch.perf.report",
+)
+
+
+def test_observer_modules_are_covered():
+    names = set(_module_names())
+    missing = [m for m in OBSERVER_MODULES if m not in names]
+    assert not missing, missing
+    for m in OBSERVER_MODULES:
+        path = PORT.joinpath(*m.split(".")[1:])
+        path = path / "__init__.py" if path.is_dir() else \
+            path.with_suffix(".py")
+        assert _native_dir_refs(path) == [], m
+        assert not [t for _, t in _imported_tops(path) if t in FORBIDDEN]
+
+
+def test_job_docstring_names_no_missing_foreign():
+    """``Job.foreign`` is ported: the module no longer lists it as
+    missing, and the obs package no longer waits for item 12."""
+    job = ast.get_docstring(ast.parse(
+        (PORT / "runtime" / "job.py").read_text()))
+    assert "Not ported yet" not in job and "Job.foreign" in job
+    obs = ast.get_docstring(ast.parse(
+        (PORT / "obs" / "__init__.py").read_text()))
+    assert "wait for" not in obs and "item 12" not in obs
+
+
 def test_analysis_plane_names_no_native_dir():
     """The checker's copies say ``runtime/csrc/`` where the reference's
     say ``native/``, and look for the C core there: the parametrised rule
@@ -218,7 +251,10 @@ def test_device_free_planes_import_no_torch():
     frontier are device-free too (``runtime.memory`` loads torch only
     when asked for a card's numbers), so their spawn workers pay no
     torch import. So is the static checker with the command line around
-    it: ``pbst-torch check`` runs on a host with no device runtime."""
+    it: ``pbst-torch check`` runs on a host with no device runtime. So
+    are the observers (``mon``, ``oprofile``), the self-test, the obs
+    dump and the perf harness: an observer process attached to a card
+    partition's files imports no torch."""
     mods = ["pbs_tpu_torch.gateway.procfed", "pbs_tpu_torch.dist",
             "pbs_tpu_torch.dist.rpc", "pbs_tpu_torch.store",
             "pbs_tpu_torch.gateway.gateway", "pbs_tpu_torch.gateway.journal",
@@ -228,7 +264,9 @@ def test_device_free_planes_import_no_torch():
             "pbs_tpu_torch.sim", "pbs_tpu_torch.sched.tune",
             "pbs_tpu_torch.gateway.chaos", "pbs_tpu_torch.autopilot",
             "pbs_tpu_torch.scenarios", "pbs_tpu_torch.analysis",
-            "pbs_tpu_torch.cli.pbst"]
+            "pbs_tpu_torch.cli.pbst", "pbs_tpu_torch.obs.mon",
+            "pbs_tpu_torch.obs.oprofile", "pbs_tpu_torch.obs.selftest",
+            "pbs_tpu_torch.obs.dumpfile", "pbs_tpu_torch.perf"]
     code = (
         "import sys, importlib\n"
         f"for name in {mods!r}:\n"

@@ -4,9 +4,10 @@ Every case of ``tests/test_lockdep.py`` is written as a function of a
 lockdep module: it runs on both packages with their ``lockdep`` boot
 param on, makes the reference test's own assertions on each, and the
 two runs' observables (violations, the order graph, ``export_graph``'s
-JSON, strict-mode errors) must be equal. The reference's CLI case reads
-an obs dump file, which the port does not have yet (ROADMAP): its twin
-compares ``export_graph`` documents instead.
+JSON, strict-mode errors) must be equal. The CLI case writes an obs dump
+with each package's ``write_obs_dump`` and reads it with each package's
+``lockdep`` command: the verdicts and the ``--dump-graph`` documents of
+all four pairings are equal.
 """
 
 from __future__ import annotations
@@ -187,9 +188,11 @@ def c_gating_off_means_no_bookkeeping(L):
     assert L.dump()["edges"] == {}
 
 
-def c_export_graph_reports_violation(L):
-    """The CLI case's twin: an inversion appears in ``export_graph``'s
-    stable document, and a reset clears it."""
+def c_export_graph_reports_violation(L, tmp):
+    """The twin of the reference's ``test_cli_lockdep_reports_violation``
+    (the dump-file case): an inversion makes ``lockdep`` exit 1 on the
+    dump and shows in its ``--dump-graph`` export, a reset dump exits 0. Each package's dump is
+    read by both packages' command, with equal verdicts and graphs."""
     a, b = L.OrderedLock("A"), L.OrderedLock("B")
     with a:
         with b:
@@ -197,13 +200,25 @@ def c_export_graph_reports_violation(L):
     with b:
         with a:
             pass
-    doc = L.export_graph()
-    assert doc["violations"] == [{"holding": "B", "taking": "A",
-                                  "count": 1}]
-    assert json.dumps(L.export_graph()) == json.dumps(doc)
+    pkg = L.__name__.rsplit(".obs.", 1)[0]
+    dumpfile = importlib.import_module(f"{pkg}.obs.dumpfile")
+    dump_path = str(tmp / f"{pkg}.obs.json")
+    dumpfile.write_obs_dump(dump_path)
+    out = []
+    for main in MAINS:
+        assert main(["lockdep", dump_path]) == 1  # violations -> rc 1
+        out.append(_graph_of(main, dump_path))
     L.reset()
-    assert L.export_graph()["violations"] == []
-    return doc
+    clean_path = str(tmp / f"{pkg}.clean.json")
+    dumpfile.write_obs_dump(clean_path)
+    for main in MAINS:
+        assert main(["lockdep", clean_path]) == 0
+        out.append(_graph_of(main, clean_path))
+    assert out[0] == out[1] and out[2] == out[3]
+    assert json.loads(out[0])["violations"] == [
+        {"holding": "B", "taking": "A", "count": 1}]
+    assert json.loads(out[2])["violations"] == []
+    return out
 
 
 CASES = [c_consistent_order_no_violation,
@@ -218,12 +233,29 @@ CASES = [c_consistent_order_no_violation,
          c_export_graph_reports_violation]
 
 
+MAINS = (importlib.import_module("pbs_tpu.cli.pbst").main,
+         importlib.import_module("pbs_tpu_torch.cli.pbst").main)
+
+
+def _graph_of(main, dump_path: str) -> str:
+    """``lockdep DUMP --dump-graph``'s document, read off stdout."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert main(["lockdep", dump_path, "--dump-graph"]) == 0
+    return buf.getvalue()
+
+
 @pytest.mark.parametrize("case", CASES, ids=lambda c: c.__name__)
-def test_lockdep_case_twin(case):
+def test_lockdep_case_twin(case, tmp_path, capsys):
     got = []
     for L in (REF, PORT):
-        ret = case(L)
+        args = (tmp_path,) if case.__code__.co_argcount == 2 else ()
+        ret = case(L, *args)
         got.append((repr(ret), _observe(L)))
+    capsys.readouterr()
     assert got[1] == got[0]
 
 

@@ -556,3 +556,57 @@ def test_profiler_keeps_traces_when_asked(tmp_path):
     doc = json.loads((tmp_path / kept[0]).read_text())
     st = port_prof.parse_trace_events(doc["traceEvents"])
     assert st.source == "host" and st.n_ops > 0
+
+
+def _launch(corr, ts, name="cudaLaunchKernel"):
+    return {"ph": "X", "cat": "cuda_runtime", "name": name, "ts": ts,
+            "dur": 1, "args": {"correlation": corr}}
+
+
+def _kernel(corr, ts, name, dur=10.0):
+    return {"ph": "X", "cat": "kernel", "name": name, "ts": ts, "dur": dur,
+            "args": {"correlation": corr}}
+
+
+def test_session_pads_absorb_the_head_and_tail_loss():
+    """A CUDA session's first ``HEAD_PAD`` and last ``TAIL_PAD``
+    launches are its pads: their device records never count, the pads
+    that lost theirs are the session's loss on them, and a launch of the
+    quantum without a device record is a lost record."""
+    head, tail = port_prof.HEAD_PAD, port_prof.TAIL_PAD
+    t = float(head + tail)  # past every pad's launch
+    events = [_launch(c, float(c)) for c in range(head)]
+    events += [_kernel(c, t + c, "spin_kernel") for c in range(5, head)]
+    events += [_launch(head, 2 * t, "cuLaunchKernelEx"),
+               _launch(head + 1, 2 * t + 1, "cudaMemsetAsync"),
+               _launch(head + 2, 2 * t + 2),
+               {"ph": "X", "cat": "cuda_runtime",
+                "name": "cudaStreamSynchronize", "ts": 2 * t + 3, "dur": 1,
+                "args": {"correlation": head + 3}}]
+    events += [_kernel(head, 3 * t + 10, "nvjet_tst_256x128_NNT", 40.0),
+               {"ph": "X", "cat": "gpu_memset", "name": "Memset (Device)",
+                "ts": 3 * t, "dur": 2.0, "args": {"correlation": head + 1}}]
+    first_tail = head + 4
+    events += [_launch(first_tail + c, 4 * t + c) for c in range(tail)]
+    events += [_kernel(first_tail + c, 5 * t + c, "spin_kernel")
+               for c in range(tail - 3)]
+    got = port_prof.parse_trace_events(events, skip_head=head,
+                                       skip_tail=tail)
+    assert (got.launches, got.lost_records, got.pad_lost) == (3, 1, 5 + 3)
+    assert got.n_ops == 2 and got.source == "device"
+    assert got.compute_ns == 40_000 and got.memory_ns == 2_000
+    # Unpadded, the same trace bills the pads and reports no loss.
+    plain = port_prof.parse_trace_events(events)
+    assert plain.n_ops == 2 + head - 5 + tail - 3
+    assert plain.lost_records == 0
+
+
+def test_host_sessions_carry_no_pads():
+    """Off the card a session launches no pad and reports no loss."""
+    prof = port_prof.TorchQuantumProfiler(device="cpu")
+    assert prof._pad(port_prof.HEAD_PAD) == 0
+    x = torch.ones(16, 16)
+    out, stats = prof.profile(lambda: x @ x)
+    assert stats is not None and stats.source == "host"
+    assert (stats.launches, stats.lost_records, stats.pad_lost) == (0, 0, 0)
+    assert (prof.launches, prof.records_lost, prof.samples) == (0, 0, 1)
