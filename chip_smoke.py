@@ -286,6 +286,22 @@ Phases, each fatal on failure:
              counts recorded as a stamped baseline (``--baseline-out
              PATH`` keeps it), ``perf --check --quick`` against it, each
              bench's ns/op printed beside 3n(d)'s tier costs.
+3x. parallel — the parallel schedules (``pbs_tpu_torch.parallel``) on
+             two rank processes that share the card, their exchanges
+             over gloo staged through pinned host memory: (a) the
+             flagship (bf16, remat "dots", flash attention) takes two
+             AdamW steps on seeded (2, 1024) tokens in this process, at
+             full depth and at the reduced depth of (b)'s other
+             schedules, and the MoE family likewise; (b) the sp2 ring
+             with flash blocks at full width and depth, sp2 Ulysses, tp2
+             with sequence parallelism, pp2 over 2 microbatches and MoE
+             ep2 at 3e's widths, each holding (a)'s two losses within
+             5e-3 x max(1, |loss|) on both ranks, and the ring's every
+             launch of 2.1-2.3 on the tensor-core route; (c) a one-rank
+             NCCL world training over {"dp": 1}. Prints per schedule and
+             rank the ms per step, the kernels' launches by route, the
+             bytes staged through the host per step and the peak device
+             memory, beside the reckoned memory of a replica.
 4. numerics — the scoring forward through the flash kernel against the dense
              attention path on the same weights, the KV-cache prefill
              against the full forward, one micro-batch's training loss
@@ -400,6 +416,33 @@ PAGING_AFTER_STEPS = 2
 # moe-serve: dropless, 3s's script and settings.
 MOE = dict(FLAGSHIP, d_ff=FLAGSHIP["d_ff"] // 4, n_experts=4, top_k=2)
 MOE_SEED, MOE_TRAIN_STEPS = 9, 3
+# Phase 3x, the parallel schedules: two AdamW steps of each schedule on
+# seeded (2, 1024) tokens from one seed's weights, the ring at the
+# flagship's full depth, the others at PARALLEL_DEPTH layers; a
+# schedule's losses within PARALLEL_TOL x max(1, |loss|) of the
+# single-process run's (dryrun_multichip's contract); a rank that has
+# not answered within PARALLEL_RANK_TIMEOUT_S fails the phase.
+PARALLEL_SEED, PARALLEL_STEPS, PARALLEL_DEPTH = 11, 2, 4
+PARALLEL_TOL = 5e-3
+# The first step's summed gradients, per layer of each stacked leaf (one
+# norm for the others), against the single-process run's at relative
+# PARALLEL_GRAD_TOL: a gradient summed n times over an axis, or any
+# scale of a leaf, is off by 0.5 or more, while AdamW's first step
+# (elementwise g / (|g| + eps)) and so the losses would not show it. On
+# an H100 the bf16 schedules came within 8.7e-4 (the ring's, 12
+# layers); 1e-2 keeps room for other seeds.
+PARALLEL_GRAD_TOL = 1e-2
+PARALLEL_RANK_TIMEOUT_S = 600
+# Phase 3x's flash calls (B, S, H, Hkv, hd, dtype, causal), held against
+# the plain versions in phase 2: the sp2 ring's (2, 512) chunks, its
+# diagonal block causal and its full blocks not; Ulysses' and tp2's full
+# sequence on 8 of the 16 query heads; pp2's microbatch of one row.
+PARALLEL_FLASH_SHAPES = (
+    (TRAIN_BATCH, TRAIN_SEQ // 2, 16, 8, 128, "bfloat16", True),
+    (TRAIN_BATCH, TRAIN_SEQ // 2, 16, 8, 128, "bfloat16", False),
+    (TRAIN_BATCH, TRAIN_SEQ, 8, 4, 128, "bfloat16", True),
+    (1, TRAIN_SEQ - 1, 16, 8, 128, "bfloat16", True),
+)
 # A routing decision (a token's top-2 experts in a layer) that differs
 # between two fp32 runs passes only at a near-tie: the reference run's
 # 2nd and 3rd router probabilities within MOE_ROUTE_TIE of each other.
@@ -629,27 +672,33 @@ def flash_against_plain(torch, q, k, v, causal, out_f32=False):
 # inputs: |g - ref| <= BWD_REL[dtype] * max|ref| + r * |ref|, r = 2^-8
 # for a bf16 gradient (half a bf16 ulp) and 0 for an fp32 one. Beside
 # each check the smallest BWD_REL that would have passed is printed. On an
-# H100 that was <= 1.1e-7 (bf16, where the 2^-8 term carries the rounding)
-# and <= 1.7e-6 (fp32, summation order over up to 2048 keys); 1e-5 keeps
+# H100 that was <= 1.7e-6 (bf16, where the 2^-8 term carries most of the
+# rounding; the ring's full (2, 512) blocks) and <= 1.7e-6 (fp32,
+# summation order over up to 2048 keys); 1e-5 keeps
 # room for other seeds and lengths and is 100x tighter than a wrong
 # kernel's error.
 BWD_REL = {"bfloat16": 1e-5, "float32": 1e-5}
 
 
-def bwd_against_plain(torch, gen, q, k, v, causal, with_dlse):
+def bwd_against_plain(torch, gen, q, k, v, causal, with_dlse,
+                      out_f32=None):
     """Run kernels 2.2 and 2.3 through the backward wrapper on q, k, v,
-    the forward kernel's (o, lse) and a random do (and dlse when
-    ``with_dlse``: the lse variant's fp32 o, fp32 do, random lse
-    cotangent), and the plain backward in fp32 on the same inputs.
-    Returns (ok, max abs err, the smallest BWD_REL that passes, the
-    limit, the routes of the dq and the dk/dv launch)."""
+    the forward kernel's (o, lse) and a random do (and a random fp32 lse
+    cotangent when ``with_dlse``), and the plain backward in fp32 on the
+    same inputs. o and do are fp32 with ``out_f32`` (by default
+    ``with_dlse``: the reference's ``flash_attention_lse``), else in the
+    inputs' dtype (the ring's flash blocks: a bf16 do beside the fp32
+    dlse). Returns (ok, max abs err, the smallest BWD_REL that passes,
+    the limit, the routes of the dq and the dk/dv launch)."""
     from pbs_tpu_torch.ops.attention import (flash_attention_bwd,
                                              flash_attention_bwd_dkv_cuda,
                                              flash_attention_bwd_dq_cuda,
                                              flash_attention_bwd_plain,
                                              flash_attention_cuda)
 
-    o, lse = flash_attention_cuda(q, k, v, causal, out_f32=with_dlse)
+    if out_f32 is None:
+        out_f32 = with_dlse
+    o, lse = flash_attention_cuda(q, k, v, causal, out_f32=out_f32)
     do = torch.randn(o.shape, device="cuda", generator=gen).to(o.dtype)
     dlse = (torch.randn(lse.shape, device="cuda", generator=gen)
             if with_dlse else None)
@@ -672,6 +721,12 @@ def bwd_against_plain(torch, gen, q, k, v, causal, with_dlse):
         need = max(need, float((diff - r * want.abs()).clamp_min(0).max())
                    / scale)
     return ok, err, need, f"{BWD_REL[name]:g} max|ref| + {r:g}|ref|", routes
+
+
+def parallel_flash_shapes(torch) -> tuple:
+    """:data:`PARALLEL_FLASH_SHAPES` with each dtype named by torch."""
+    return tuple((*shape[:5], getattr(torch, shape[5]), shape[6])
+                 for shape in PARALLEL_FLASH_SHAPES)
 
 
 def route_taken(wrapper, before: dict) -> str:
@@ -731,7 +786,8 @@ def check_kernels(torch, gen) -> None:
             (1, 2048, 8, 4, 128, torch.bfloat16, True),
             (2, 384, 8, 2, 64, torch.float32, True),
             # the training path's call: S - 1 = 1023 after the shift
-            (TRAIN_BATCH, TRAIN_SEQ - 1, 16, 8, 128, torch.bfloat16, True)):
+            (TRAIN_BATCH, TRAIN_SEQ - 1, 16, 8, 128, torch.bfloat16, True),
+            *parallel_flash_shapes(torch)):
         for out_f32 in (False, True):
             before = dict(flash_attention_cuda.launches_by_route)
             ok, err_o, err_l, limit = flash_against_plain(
@@ -754,16 +810,22 @@ def check_kernels(torch, gen) -> None:
             (1, 200, 4, 4, 16, torch.bfloat16, True),
             (2, 384, 8, 2, 64, torch.float32, True),
             # the training path's call: S - 1 = 1023 after the shift
-            (TRAIN_BATCH, TRAIN_SEQ - 1, 16, 8, 128, torch.bfloat16, True)):
-        for with_dlse in (False, True):
+            (TRAIN_BATCH, TRAIN_SEQ - 1, 16, 8, 128, torch.bfloat16, True),
+            *parallel_flash_shapes(torch)):
+        # (dlse, o and do fp32): no lse cotangent; the reference's lse
+        # variant; the ring's flash blocks (bf16 o and do, fp32 dlse)
+        for with_dlse, out_f32 in ((False, False), (True, True),
+                                   (True, False)):
             ok, err, need, limit, routes = bwd_against_plain(
-                torch, gen, *qkv(B, S, H, Hkv, hd, dtype), causal, with_dlse)
-            # the lse variant's do is fp32: the CUDA-core route
-            want = ("wgmma" if dtype == torch.bfloat16 and not with_dlse
+                torch, gen, *qkv(B, S, H, Hkv, hd, dtype), causal, with_dlse,
+                out_f32)
+            # an fp32 do takes the CUDA-core route
+            want = ("wgmma" if dtype == torch.bfloat16 and not out_f32
                     else "simt")
             check(ok and routes == (want, want),
                   f"flash bwd {str(dtype)[6:]} B{B} S{S} H{H}/{Hkv} hd{hd} "
                   f"causal={causal} dlse={'rand' if with_dlse else 0} "
+                  f"do {'fp32' if out_f32 else str(dtype)[6:]} "
                   f"[{'/'.join(routes)}]: dq/dk/dv |g-ref| max {err:.2e} <= "
                   f"{limit} (passes down to {need:.1e} max|ref|)")
 
@@ -7164,6 +7226,406 @@ def run_observer_path(torch, gen, cfg, params, card, native_costs: dict,
     return launches, routes
 
 
+# -- phase 3x ----------------------------------------------------------------
+
+
+def parallel_config(torch, family: str, fields: dict):
+    """The config of a phase-3x run: ``fields`` with ``dtype`` named."""
+    from pbs_tpu_torch.models import MoEConfig, TransformerConfig
+
+    fields = dict(fields, dtype=getattr(torch, fields["dtype"]))
+    return (MoEConfig if family == "moe" else TransformerConfig)(**fields)
+
+
+def parallel_tokens(torch, seed: int, batch: int, seq: int, vocab: int):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, vocab, (batch, seq)))
+
+
+def parallel_schedules(dense: dict, moe: dict, depth: int) -> list:
+    """Phase 3x (b)'s schedules: the sp2 flash ring at ``dense``'s full
+    depth, the rest at ``depth`` layers; "base" names the single-process
+    run of (a) each is held to."""
+    shallow = dict(dense, n_layers=depth)
+    return [
+        dict(name="sp2 ring, flash blocks", family="dense", axes={"sp": 2},
+             cfg=dict(dense, attn_impl="ring", ring_block="flash"),
+             base="dense"),
+        dict(name="sp2 Ulysses, flash", family="dense", axes={"sp": 2},
+             cfg=dict(shallow, attn_impl="ulysses", ring_block="flash"),
+             base="shallow"),
+        dict(name="tp2, sequence parallel", family="dense", axes={"tp": 2},
+             cfg=shallow, base="shallow"),
+        dict(name="pp2, 2 microbatches", family="pipe", axes={"pp": 2},
+             cfg=shallow, base="shallow"),
+        dict(name="MoE ep2", family="moe", axes={"ep": 2},
+             cfg=dict(moe, n_layers=depth), base="moe"),
+    ]
+
+
+def grad_norms(tree, mesh=None, specs=None, prefix="") -> dict:
+    """{leaf name: [norm]}, a norm per layer for the leaves stacked over
+    layers. With ``mesh`` and ``specs`` the tree is this rank's block of
+    the summed gradients: the squares are summed (and the layer rows
+    gathered) over the axes that shard each leaf, so every rank returns
+    the global tree's norms."""
+    from pbs_tpu_torch.parallel import comm
+    from pbs_tpu_torch.parallel.sharding import _mesh_spec
+
+    out = {}
+    for key in sorted(tree):
+        name, val = prefix + key, tree[key]
+        spec = None if specs is None else specs[key]
+        if isinstance(val, dict):
+            out.update(grad_norms(val, mesh, spec, name + "/"))
+            continue
+        g = val.detach().float()
+        layered = name.startswith("layers/")
+        sq = (g * g).flatten(1).sum(1) if layered else (g * g).sum()[None]
+        for dim, entry in enumerate(() if mesh is None
+                                    else _mesh_spec(mesh, spec)):
+            for axis in entry if isinstance(entry, tuple) else (entry,):
+                if axis is None or mesh.size(axis) == 1:
+                    continue
+                if layered and dim == 0:
+                    sq = comm._all_gather(sq, mesh.group(axis), 0)
+                else:
+                    comm.all_reduce_(sq, mesh.group(axis))
+        out[name] = sq.sqrt().tolist()
+    return out
+
+
+def grad_norm_diff(want: dict, got: dict) -> tuple[float, str]:
+    """The largest relative difference of two :func:`grad_norms` and
+    where it is."""
+    worst, where = 0.0, ""
+    for name, w in want.items():
+        g = got[name]
+        if len(g) != len(w):
+            return math.inf, f"{name}: {len(g)} norms, not {len(w)}"
+        for i, (a, b) in enumerate(zip(w, g)):
+            d = abs(b - a) / max(abs(a), 1e-12)
+            if not d <= worst:  # a NaN counts as the worst
+                worst, where = d, f"{name}[{i}]"
+    return worst, where
+
+
+def parallel_baseline(torch, family: str, fields: dict, device: str,
+                      seed: int, batch: int, seq: int, steps: int,
+                      lr: float) -> list:
+    """Phase 3x (a): ``steps`` AdamW steps in this process from the
+    seed's weights on the seed's tokens; (the losses, ms per step on the
+    host clock, closed by the loss's read, the first step's gradients'
+    :func:`grad_norms`)."""
+    import gc
+
+    from pbs_tpu_torch.models import (init_moe_params, init_params,
+                                      make_moe_train_step, make_train_step,
+                                      moe_loss)
+    from pbs_tpu_torch.models.transformer import (loss_and_grads,
+                                                  value_and_grad)
+
+    cfg = parallel_config(torch, family, fields)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tokens = parallel_tokens(torch, seed, batch, seq, cfg.vocab).to(device)
+    if family == "moe":
+        params = init_moe_params(cfg, gen, device=device)
+        init_opt, step = make_moe_train_step(cfg, learning_rate=lr)
+        grads = value_and_grad(lambda p: moe_loss(cfg, p, tokens), params)[1]
+    else:
+        params = init_params(cfg, gen, device=device)
+        init_opt, step = make_train_step(cfg, learning_rate=lr)
+        grads = loss_and_grads(cfg, params, tokens)[1]
+    norms = grad_norms(grads)  # the first step's gradients
+    del grads
+    state = (params, init_opt(params), 0)
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, tokens)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    del state, params
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return losses, ms, norms
+
+
+def staged_exchanges(device: str, seed: int) -> dict:
+    """Phase 3x on one rank process: each exchange of
+    :mod:`pbs_tpu_torch.parallel.comm`, forward and backward, on this
+    rank's tensor on ``device`` (on the card over gloo: staged through
+    pinned host memory) and on its host copy (gloo's own transport).
+    Returns {exchange: max |difference|} of the outputs and gradients."""
+    import torch
+    import torch.distributed as dist
+
+    from pbs_tpu_torch.parallel import comm
+
+    group = dist.group.WORLD
+    n, me = comm.group_size(group), comm.group_index(group)
+    ring = [(i, (i + 1) % n) for i in range(n)]
+    ops = {
+        "psum": lambda t: comm.psum(t, group),
+        "all_gather": lambda t: comm.all_gather(t, group, 1),
+        "reduce_scatter": lambda t: comm.reduce_scatter(t, group, 1),
+        "all_to_all": lambda t: comm.all_to_all(t, group, 1, 0),
+        "ppermute": lambda t: comm.ppermute(t, group, ring),
+    }
+    x = torch.randn(4, 6 * n, 8,
+                    generator=torch.Generator().manual_seed(seed + me))
+    out = {}
+    for name, op in ops.items():
+        got = []
+        for dev in (device, "cpu"):
+            t = x.to(dev, copy=True).requires_grad_()
+            y = op(t)
+            w = torch.randn(y.shape, generator=torch.Generator()
+                            .manual_seed(seed + n + me)).to(dev)
+            (y * w).sum().backward()
+            got.append((y.detach().cpu(), t.grad.cpu()))
+        out[name] = max(float((a - b).abs().max()) for a, b in zip(*got))
+    # a pipeline hand-off, member 0 to member 1, and its cotangent back
+    got = []
+    for dev in (device, "cpu"):
+        t = x.to(dev, copy=True).requires_grad_()
+        if me == 0:
+            comm.send(t, group, 1, tag=3).backward()
+            got.append(t.grad.cpu())
+        elif me == 1:
+            anchor = torch.zeros((), device=dev, requires_grad=True)
+            y = comm.recv(anchor, x.shape, x.dtype, group, 0, tag=3)
+            (y * 2.0).sum().backward()
+            got.append(y.detach().cpu())
+    if len(got) == 2:
+        out["send/recv"] = float((got[0] - got[1]).abs().max())
+    comm.release()
+    return out
+
+
+def parallel_rank_run(sched: dict, device: str, seed: int, batch: int,
+                      seq: int, steps: int, lr: float) -> dict:
+    """Phase 3x (b) on one rank process: the schedule's trainer from the
+    seed's weights (every rank draws the full tree, then keeps its
+    shards), ``steps`` steps on this rank's block of the seed's tokens.
+    Returns the global losses, ms per step (host clock, closed by the
+    loss's read), launches of 2.1-2.3 by route, each step's exchanges
+    (``comm.stats``: count, bytes staged through the host, host
+    seconds), the peak device memory and the first step's global
+    :func:`grad_norms`; then frees the schedule's state and its pinned
+    staging buffers."""
+    import torch
+    import torch.distributed as dist
+
+    from pbs_tpu_torch import parallel
+    from pbs_tpu_torch.models import init_moe_params, init_params
+    from pbs_tpu_torch.parallel import comm, pipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    family = sched["family"]
+    cfg = parallel_config(torch, "moe" if family == "moe" else "dense",
+                          sched["cfg"])
+    mesh = parallel.make_mesh(sched["axes"], device=device)
+    dev = mesh.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    init = init_moe_params if family == "moe" else init_params
+    params = init(cfg, gen, device=dev)
+    if family == "pipe":
+        state, step = pipeline.make_pipelined_train(
+            cfg, mesh, n_micro=2, learning_rate=lr, params=params)
+        sharding = pipeline.pipeline_batch_sharding(mesh)
+    elif family == "moe":
+        state, step = parallel.make_sharded_moe_train(cfg, mesh, lr,
+                                                      params=params)
+        sharding = parallel.moe_batch_sharding(mesh)
+    else:
+        state, step = parallel.make_sharded_train(cfg, mesh, lr,
+                                                  params=params)
+        sharding = parallel.batch_sharding(mesh)
+    del params
+    trainer, norms = step.__self__, {}
+    summed = trainer.loss_and_grads
+
+    def first_grads(p, t):  # the step's own gradients, norms taken once
+        metrics, grads = summed(p, t)
+        if not norms:
+            norms.update(grad_norms(grads, trainer.mesh, trainer.specs))
+        return metrics, grads
+
+    trainer.loss_and_grads = first_grads
+    block = sharding.shard(parallel_tokens(torch, seed, batch, seq,
+                                           cfg.vocab))
+    wrappers = bwd_counts()[:3]
+    reset_counts(wrappers)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, ms, exchanges = [], [], []
+    for _ in range(steps):
+        comm.reset_stats()
+        t0 = time.perf_counter()
+        state, m = step(state, block)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        exchanges.append(comm.stats())
+    out = {"rank": dist.get_rank(), "backend": dist.get_backend(),
+           "device": str(dev), "losses": losses, "ms": ms,
+           "launches": {k: dict(w.launches_by_route)
+                        for k, w in zip(KERNELS, wrappers)},
+           "exchanges": exchanges,
+           "block": tuple(block.shape),
+           "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                          if dev.type == "cuda" else 0),
+           "grad_norms": norms}
+    if dist.get_backend() == "nccl":
+        one = torch.ones(1, device=dev)
+        dist.all_reduce(one)
+        out["nccl_all_reduce"] = float(one)
+    del state, step, trainer
+    comm.release()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def parallel_path(torch, dense: dict, moe: dict, depth: int, device: str,
+                  batch: int, seq: int, card: str) -> dict:
+    """Phase 3x's code at any width: (a) the single-process baselines,
+    (b) each schedule on two rank processes over gloo, (c) a one-rank
+    world over NCCL on the card (gloo on the host). Each schedule's
+    losses and its first step's summed gradients (every rank's
+    :func:`grad_norms`) are held to its baseline's. Fatal on any
+    disagreement; returns the baselines' losses and gradient norms,
+    every run's results and (b)'s launches of 2.1-2.3 by route, summed
+    over schedules and ranks."""
+    import gc
+
+    from pbs_tpu_torch.parallel.launch import RankPool
+
+    common = dict(seed=PARALLEL_SEED, batch=batch, seq=seq,
+                  steps=PARALLEL_STEPS, lr=TRAIN_LR)
+    bases = {"dense": ("dense", dense),
+             "shallow": ("dense", dict(dense, n_layers=depth)),
+             "moe": ("moe", dict(moe, n_layers=depth))}
+    base, base_norms = {}, {}
+    for key, (family, fields) in bases.items():
+        base[key], ms, base_norms[key] = parallel_baseline(
+            torch, family, fields, device, **common)
+        print(f"  (a) {key}: {fields['n_layers']} layers in one process, "
+              f"losses {base[key]}, ms/step {[round(x, 1) for x in ms]} "
+              f"[{card}]", flush=True)
+    cfg = parallel_config(torch, "dense", dense)
+    replica = cfg.num_params() * 16
+    print(f"  a replica of {cfg.num_params() / 1e6:.1f}M params with fp32 "
+          f"masters, gradients and two AdamW moments: "
+          f"{replica / 1e9:.1f} GB; the ring's two replicas "
+          f"{2 * replica / 1e9:.1f} GB plus activations [{card}]",
+          flush=True)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    def holds(name, key, r):
+        for i, (w, g) in enumerate(zip(base[key], r["losses"])):
+            if r["rank"]:  # rank 0's losses, which every rank shares
+                break
+            tol = PARALLEL_TOL * max(1.0, abs(w))
+            check(abs(g - w) <= tol and math.isfinite(g),
+                  f"{name}: step {i} loss {g:.6f} within {tol:.2e} of the "
+                  f"single-process {w:.6f} (|diff| {abs(g - w):.2e})")
+        worst, where = grad_norm_diff(base_norms[key], r["grad_norms"])
+        check(worst <= PARALLEL_GRAD_TOL,
+              f"{name} rank {r['rank']}: the first step's summed "
+              f"gradients, {len(r['grad_norms'])} leaves' norms per layer, "
+              f"within rel {PARALLEL_GRAD_TOL:g} of the single-process "
+              f"run's (worst {worst:.2e} at {where})")
+
+    def report(name, res):
+        for r in res:
+            ex = r["exchanges"][-1]  # the last step: warm
+            print(f"  {name} rank {r['rank']} ({r['backend']}, "
+                  f"{r['device']}, block {r['block']}): ms/step "
+                  f"{[round(x, 1) for x in r['ms']]}; the last step's "
+                  f"{ex['exchanges']} exchanges {ex['seconds'] * 1e3:.1f} "
+                  f"ms ({ex['seconds'] * 1e3 / r['ms'][-1]:.2f} of it), "
+                  f"{ex['staged_bytes'] / 1e6:.1f} MB staged through the "
+                  f"host; peak {r['peak_bytes'] / 2**30:.2f} GiB, launches "
+                  f"{r['launches']} [{card}]", flush=True)
+
+    runs = {}
+    totals = {k: {"wgmma": 0, "simt": 0} for k in list(KERNELS)[:3]}
+    with RankPool(2, backend="gloo", device=device) as pool:
+        for r, diffs in enumerate(pool.run("chip_smoke:staged_exchanges",
+                                           device, PARALLEL_SEED)):
+            check(all(d == 0.0 for d in diffs.values()),
+                  f"(b) rank {r}: each exchange on {device} tensors, "
+                  f"forward and backward, equals gloo's on host copies "
+                  f"(max |diff| {diffs})")
+        for sched in parallel_schedules(dense, moe, depth):
+            t0 = time.monotonic()
+            res = pool.run("chip_smoke:parallel_rank_run", sched, device,
+                           timeout_s=PARALLEL_RANK_TIMEOUT_S, **common)
+            name = f"(b) {sched['name']} ({sched['cfg']['n_layers']} layers)"
+            print(f"  {name}: {time.monotonic() - t0:.1f} s", flush=True)
+            report(name, res)
+            runs[sched["name"]] = res
+            check(res[0]["losses"] == res[1]["losses"],
+                  f"{name}: both ranks report one global loss")
+            for r in res:
+                holds(name, sched["base"], r)
+                for k, by in r["launches"].items():
+                    for route, n in by.items():
+                        totals[k][route] += n
+                if device == "cuda":
+                    by = r["launches"]
+                    check(by["flash_fwd"]["wgmma"] > 0 and all(
+                        v["simt"] == 0 for v in by.values()),
+                          f"{name} rank {r['rank']}: every launch of "
+                          f"2.1-2.3 on the tensor-core route ({by})")
+
+    backend = "nccl" if device == "cuda" else "gloo"
+    one = dict(name=f"one-rank {backend} world", family="dense",
+               axes={"dp": 1}, cfg=dict(dense, n_layers=depth),
+               base="shallow")
+    t0 = time.monotonic()
+    with RankPool(1, backend=backend, device=device) as pool:
+        res = pool.run("chip_smoke:parallel_rank_run", one, device,
+                       timeout_s=PARALLEL_RANK_TIMEOUT_S, **common)
+    name = f"(c) {one['name']} ({depth} layers)"
+    print(f"  {name}: {time.monotonic() - t0:.1f} s", flush=True)
+    report(name, res)
+    check(res[0]["backend"] == backend, f"{name}: backend {backend}")
+    if backend == "nccl":
+        check(res[0].get("nccl_all_reduce") == 1.0,
+              f"{name}: an NCCL all-reduce over the world of one")
+    holds(name, "shallow", res[0])
+    runs[one["name"]] = res
+    return {"base": base, "base_norms": base_norms, "runs": runs,
+            "launches": totals}
+
+
+def run_parallel_path(torch, card: str) -> tuple[dict, dict]:
+    """Phase 3x on the card: :func:`parallel_path` at the flagship's
+    widths (bf16, remat "dots", flash attention) and 3e's MoE widths.
+    Returns (b)'s launches and routes of the four kernels."""
+    t_phase = time.monotonic()
+    dense = dict(FLAGSHIP, dtype="bfloat16", remat=True,
+                 remat_policy="dots", attn_impl="pallas")
+    moe = dict(MOE, dtype="bfloat16", remat=True, attn_impl="pallas")
+    out = parallel_path(torch, dense, moe, PARALLEL_DEPTH, "cuda",
+                        TRAIN_BATCH, TRAIN_SEQ, card)
+    routes = dict(out["launches"], instrumented_matmul={"wgmma": 0,
+                                                        "simt": 0})
+    launches = {k: sum(v.values()) for k, v in routes.items()}
+    print(f"  (b) launches {launches}, by route {routes}", flush=True)
+    print(f"  phase 3x wall {time.monotonic() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return launches, routes
+
+
 # -- phase 4 -----------------------------------------------------------------
 
 
@@ -7832,6 +8294,11 @@ def main() -> int:
     f_launches, f_routes = run_observer_path(
         torch, gen, cfg, params, card_line(), n_costs, args.baseline_out)
 
+    phase("3x parallel schedules: the ring, Ulysses, tp, the pipeline and "
+          "expert parallelism on two rank processes sharing the card, "
+          "their exchanges staged through the host; a one-rank NCCL world")
+    x_launches, x_routes = run_parallel_path(torch, card_line())
+
     phase("4 numerics at width")
     check_numerics(torch, gen, cfg, params)
     del params
@@ -7885,6 +8352,9 @@ def main() -> int:
         # phase 3f (a): fscore (2.1), its counted invocation included
         r["observer_path_launches"] = f_launches[kernel]
         r["observer_path_launches_by_route"] = f_routes[kernel]
+        # phase 3x (b): the five schedules' two steps on both ranks
+        r["parallel_path_launches"] = x_launches[kernel]
+        r["parallel_path_launches_by_route"] = x_routes[kernel]
     profile_micro_step(torch, micro_step, train_state)
     del micro_step, train_state
     profile_micro_step(torch, moe_step, moe_state, what="MoE training step")

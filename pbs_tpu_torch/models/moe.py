@@ -21,11 +21,12 @@ so the top k come from a stable descending sort. ``vmap`` over routing
 groups is a leading batch axis. The reference's plain ``jax.checkpoint``
 of the layer is full recompute (``torch.utils.checkpoint``) whatever
 ``remat_policy`` says, as there. The router product runs in fp32 and
-stays off TF32 (PyTorch's default). The sharding hooks (``constrain``,
-``mesh``) wait for ``parallel/`` (ROADMAP queue 1, item 7):
-``constrain_ec`` stays an identity seam on the expert buffers, and
-``moe_layer_body``'s ``mlp=`` and ``attn=`` seams take the expert- and
-sequence-parallel bodies then.
+stays off TF32 (PyTorch's default). The sharding seams are the
+reference's: ``constrain`` pins the residual, ``constrain_ec`` the
+(E, C, d) expert buffers (``parallel.expert.expert_constrainer``
+exchanges them over ``ep``), ``mesh`` reaches the sequence-parallel
+attention, and ``moe_layer_body``'s ``mlp=`` and ``attn=`` take the
+expert- and sequence-parallel bodies of ``parallel/``.
 """
 
 from __future__ import annotations
@@ -271,11 +272,14 @@ def moe_mlp(cfg: MoEConfig, x: torch.Tensor, lp: dict,
 
 def moe_layer_body(cfg: MoEConfig, x: torch.Tensor, lp: dict,
                    cos: torch.Tensor, sin: torch.Tensor,
+                   constrain: Callable = _identity,
+                   constrain_ec: Callable = _identity, mesh=None,
                    mlp: Callable | None = None, attn: Callable | None = None):
-    """One MoE block. ``mlp`` (default: the full-E :func:`moe_mlp`) is
-    the routed-FFN seam, ``(h, lp) -> (y, aux, drop)``; ``attn`` the
-    attention seam, ``(q, k, v) -> out`` (default: ``causal_attention``
-    under ``cfg.attn_impl``)."""
+    """One MoE block. ``mlp`` (default: the full-E :func:`moe_mlp` with
+    ``constrain_ec``) is the routed-FFN seam, ``(h, lp) -> (y, aux,
+    drop)``; ``attn`` the attention seam, ``(q, k, v) -> out`` (default:
+    ``causal_attention`` under ``cfg.attn_impl`` and ``mesh``);
+    ``constrain`` pins the residual after each sum."""
     B, S, _ = x.shape
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = cfg.dtype
@@ -285,18 +289,26 @@ def moe_layer_body(cfg: MoEConfig, x: torch.Tensor, lp: dict,
     k = (h @ lp["wk"].to(dt)).reshape(B, S, nkv, hd)
     v = (h @ lp["wv"].to(dt)).reshape(B, S, nkv, hd)
     q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-    a = causal_attention(q, k, v, cfg) if attn is None else attn(q, k, v)
-    x = x + a.reshape(B, S, nh * hd) @ lp["wo"].to(dt)
+    if attn is None:
+        a = causal_attention(q, k, v, cfg, mesh)
+    else:
+        a = attn(q, k, v)
+    x = constrain(x + a.reshape(B, S, nh * hd) @ lp["wo"].to(dt))
 
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    y, aux, drop = moe_mlp(cfg, h, lp) if mlp is None else mlp(h, lp)
-    return x + y, aux, drop
+    if mlp is None:
+        y, aux, drop = moe_mlp(cfg, h, lp, constrain_ec)
+    else:
+        y, aux, drop = mlp(h, lp)
+    return constrain(x + y), aux, drop
 
 
-def moe_forward_hidden(cfg: MoEConfig, params: dict, tokens: torch.Tensor):
+def moe_forward_hidden(cfg: MoEConfig, params: dict, tokens: torch.Tensor,
+                       constrain: Callable = _identity,
+                       constrain_ec: Callable = _identity, mesh=None):
     """tokens (B, S) -> (final normed hidden (B, S, d), aux, drop)."""
     B, S = tokens.shape
-    x = embed_rows(params["embed"], tokens, cfg.dtype)
+    x = constrain(embed_rows(params["embed"], tokens, cfg.dtype))
     cos, sin = rope_tables(cfg, S, device=x.device)
     aux = drop = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
@@ -305,18 +317,23 @@ def moe_forward_hidden(cfg: MoEConfig, params: dict, tokens: torch.Tensor):
             # Full recompute, as the reference's plain jax.checkpoint:
             # remat_policy does not apply to the MoE layer.
             x, a, d = checkpoint(moe_layer_body, cfg, x, lp, cos, sin,
+                                 constrain, constrain_ec, mesh,
                                  use_reentrant=False,
                                  preserve_rng_state=False)
         else:
-            x, a, d = moe_layer_body(cfg, x, lp, cos, sin)
+            x, a, d = moe_layer_body(cfg, x, lp, cos, sin, constrain,
+                                     constrain_ec, mesh)
         aux, drop = aux + a, drop + d
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, aux / cfg.n_layers, drop / cfg.n_layers
 
 
-def moe_forward(cfg: MoEConfig, params: dict, tokens: torch.Tensor):
+def moe_forward(cfg: MoEConfig, params: dict, tokens: torch.Tensor,
+                constrain: Callable = _identity,
+                constrain_ec: Callable = _identity, mesh=None):
     """tokens (B, S) -> (logits (B, S, V) fp32, aux_loss, drop_frac)."""
-    x, aux, drop = moe_forward_hidden(cfg, params, tokens)
+    x, aux, drop = moe_forward_hidden(cfg, params, tokens, constrain,
+                                      constrain_ec, mesh)
     logits = (x @ params["head"].to(cfg.dtype)).float()
     return logits, aux, drop
 
@@ -381,6 +398,8 @@ def moe_slot_mlp(cfg: MoEConfig, constrain_ec: Callable = _identity):
 
 
 def moe_loss(cfg: MoEConfig, params: dict, tokens: torch.Tensor,
+             constrain: Callable = _identity,
+             constrain_ec: Callable = _identity, mesh=None,
              full_seq: bool = False):
     """``(lm + aux_loss_weight * aux, (lm, aux, drop))``. ``full_seq``
     forwards all S tokens and drops the last logit (the routing groups
@@ -388,21 +407,26 @@ def moe_loss(cfg: MoEConfig, params: dict, tokens: torch.Tensor,
     chunked loss tail shared with the dense family, so the (B, S, V)
     logits never exist at once."""
     if cfg.loss_chunks > 1:
-        x, aux, drop = moe_forward_hidden(cfg, params, tokens)
+        x, aux, drop = moe_forward_hidden(cfg, params, tokens, constrain,
+                                          constrain_ec, mesh)
         targets, weights = shift_targets_and_weights(tokens)
         lm = chunked_head_xent(cfg, x, params["head"], targets, weights,
                                cfg.loss_chunks)
         return lm + cfg.aux_loss_weight * aux, (lm, aux, drop)
     if full_seq:
-        logits, aux, drop = moe_forward(cfg, params, tokens)
+        logits, aux, drop = moe_forward(cfg, params, tokens, constrain,
+                                        constrain_ec, mesh)
         lm = token_xent(logits[:, :-1], tokens[:, 1:])
     else:
-        logits, aux, drop = moe_forward(cfg, params, tokens[:, :-1])
+        logits, aux, drop = moe_forward(cfg, params, tokens[:, :-1],
+                                        constrain, constrain_ec, mesh)
         lm = token_xent(logits, tokens[:, 1:])
     return lm + cfg.aux_loss_weight * aux, (lm, aux, drop)
 
 
 def make_moe_train_step(cfg: MoEConfig, learning_rate: float = 3e-4,
+                        constrain: Callable = _identity,
+                        constrain_ec: Callable = _identity, mesh=None,
                         full_seq: bool = False):
     """Returns (init_opt_state, train_step), AdamW as
     ``default_optimizer``. ``train_step(state, tokens) -> (state,
@@ -418,7 +442,8 @@ def make_moe_train_step(cfg: MoEConfig, learning_rate: float = 3e-4,
     def train_step(state, tokens):
         params, opt_state, step = state
         (_, (lm, aux, drop)), grads = value_and_grad(
-            lambda p: moe_loss(cfg, p, tokens, full_seq), params)
+            lambda p: moe_loss(cfg, p, tokens, constrain, constrain_ec,
+                               mesh, full_seq), params)
         opt_state = tx.update(grads, opt_state, params)
         ntok = tokens.shape[0] * (tokens.shape[1] - 1)
         metrics = {

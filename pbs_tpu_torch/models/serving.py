@@ -37,7 +37,7 @@ not JAX's stream. The attention is the reference's dense masked einsum
 (no kernel on this path). The ``mlp_fn`` seam swaps the FFN block: MoE
 serving is ``mlp_fn=models.moe.moe_slot_mlp(cfg)``, its drop fraction
 ``stats()["mlp_extra_mean"]``. Tensor-parallel serving (``mesh=``)
-waits for ``parallel/`` (ROADMAP queue 1, items 7-8).
+waits for ``serve/`` (ROADMAP queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -65,7 +65,7 @@ from pbs_tpu_torch.models.transformer import (
 from pbs_tpu_torch.utils.stats import nearest_rank
 
 _MESH_MISSING = ("tensor-parallel serving (mesh=) is not ported yet: it "
-                 "needs parallel/ (ROADMAP queue 1, items 7-8)")
+                 "comes with serve/ (ROADMAP queue 1, item 8)")
 
 
 def _rope_rows(x: torch.Tensor, cos: torch.Tensor,

@@ -13,8 +13,10 @@ XLA-fused einsum path); ``"pallas"`` attends through the flash kernels
 recomputes each layer in the backward (``torch.utils.checkpoint``);
 ``loss_chunks`` scans the head over sequence chunks so the (B, S,
 vocab) logits never exist at once. The sequence-parallel impls ("ring",
-"ulysses") and the sharding hooks (``constrain``, ``mesh``) belong to
-``parallel/``, not ported yet (ROADMAP).
+"ulysses") run on the rank's sequence chunk over a mesh's ``sp`` axis
+(``pbs_tpu_torch.parallel``), reached through the ``mesh`` argument;
+``constrain``, ``reduce``, ``gather`` and ``attn`` are the seams the
+sharded schedules of ``parallel/`` thread their exchanges through.
 
 JAX's steps are pure; here the training step updates the fp32 master
 parameters and the optimizer state in place, so a step costs no second
@@ -53,8 +55,12 @@ class TransformerConfig:
     # it, "dots" saves the weight products' outputs (aten.mm).
     remat: bool = False
     remat_policy: str = "full"
-    # "xla" (dense torch) or "pallas" (the flash kernels).
+    # "xla" (dense torch), "pallas" (the flash kernels), "ring"
+    # (sequence-parallel ring attention) or "ulysses" (head-scattering
+    # all-to-alls; needs H and Hkv divisible by the sp axis).
     attn_impl: str = "xla"
+    # Block computation of the sequence-parallel impls: "dense" or
+    # "flash" (the kernels, so long chunks never materialize scores).
     ring_block: str = "dense"
     # Chunked cross-entropy over n sequence chunks; 0/1 = off.
     loss_chunks: int = 0
@@ -198,18 +204,45 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
+def _identity(a: torch.Tensor) -> torch.Tensor:
+    return a
+
+
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     cfg: TransformerConfig) -> torch.Tensor:
+                     cfg: TransformerConfig, mesh=None) -> torch.Tensor:
     """(B, S, H, hd) GQA attention with a causal mask. "xla" is dense
-    torch; "pallas" is the flash kernels. Unknown or unported
-    impls are rejected loudly — never a silent dense fallback."""
+    torch; "pallas" is the flash kernels; "ring" and "ulysses" are the
+    sequence-parallel impls over ``mesh``'s 'sp' axis, on this rank's
+    sequence chunk. Unknown impls are rejected loudly — never a silent
+    dense fallback."""
     if cfg.attn_impl == "pallas":
         return flash_attention(q, k, v, causal=True)
-    if cfg.attn_impl in ("ring", "ulysses"):
-        raise ValueError(
-            f"attn_impl={cfg.attn_impl!r} needs a mesh with an 'sp' axis; "
-            "the sequence-parallel impls are not ported yet (ROADMAP "
-            "queue 1, parallel/)")
+    if cfg.attn_impl == "ring":
+        if mesh is None or "sp" not in mesh.axis_names:
+            raise ValueError(
+                "attn_impl='ring' needs a mesh with an 'sp' axis threaded "
+                "through forward(..., mesh=...); use "
+                "pbs_tpu_torch.parallel.make_sharded_train with an sp mesh"
+            )
+        from pbs_tpu_torch.parallel.ring_attention import ring_attention
+
+        return ring_attention(
+            q, k, v, mesh, axis="sp", causal=True,
+            batch_axis="dp", head_axis="tp", block_impl=cfg.ring_block,
+        )
+    if cfg.attn_impl == "ulysses":
+        if mesh is None or "sp" not in mesh.axis_names:
+            raise ValueError(
+                "attn_impl='ulysses' needs a mesh with an 'sp' axis "
+                "threaded through forward(..., mesh=...); use "
+                "pbs_tpu_torch.parallel.make_sharded_train with an sp mesh"
+            )
+        from pbs_tpu_torch.parallel.ulysses import ulysses_attention
+
+        return ulysses_attention(
+            q, k, v, mesh, axis="sp", causal=True,
+            batch_axis="dp", block_impl=cfg.ring_block,
+        )
     if cfg.attn_impl != "xla":
         raise ValueError(
             f"unknown attn_impl {cfg.attn_impl!r}; "
@@ -232,24 +265,42 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def layer_body(cfg: TransformerConfig, x: torch.Tensor, lp: dict,
-               cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """One transformer block on one layer's params ``lp``."""
-    B, S, _ = x.shape
+               cos: torch.Tensor, sin: torch.Tensor,
+               constrain: Callable = _identity, mesh=None,
+               reduce: Callable | None = None, attn: Callable | None = None,
+               gather: Callable | None = None) -> torch.Tensor:
+    """One transformer block on one layer's params ``lp``.
+
+    The reference's seams, in its order: ``constrain`` pins the residual
+    after each sum; ``reduce`` (default identity) wraps the two
+    row-parallel products (wo, w2), where Megatron-sharded weights give
+    partial sums; ``attn`` (default :func:`causal_attention` under
+    ``cfg.attn_impl`` and ``mesh``) is ``(q, k, v) -> out``. The port
+    adds ``gather`` (default identity) on the normed input of the
+    column-parallel products: the all-gather of a sequence-parallel
+    residual's chunks, which XLA inserts at the product in the
+    reference. Head reshapes use -1 and the gathered length, so the body
+    runs on tp shards and sequence chunks alike."""
     hd = cfg.head_dim
     dt = cfg.dtype
+    if reduce is None:
+        reduce = _identity
+    if gather is None:
+        gather = _identity
 
-    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    h = gather(rms_norm(x, lp["attn_norm"], cfg.norm_eps))
+    B, S, _ = h.shape
     q = (h @ lp["wq"].to(dt)).reshape(B, S, -1, hd)
     k = (h @ lp["wk"].to(dt)).reshape(B, S, -1, hd)
     v = (h @ lp["wv"].to(dt)).reshape(B, S, -1, hd)
     q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-    a = causal_attention(q, k, v, cfg)
-    x = x + a.reshape(B, S, -1) @ lp["wo"].to(dt)
+    a = causal_attention(q, k, v, cfg, mesh) if attn is None else attn(q, k, v)
+    x = constrain(x + reduce(a.reshape(B, S, -1) @ lp["wo"].to(dt)))
 
-    h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    h = gather(rms_norm(x, lp["mlp_norm"], cfg.norm_eps))
     gate = torch.nn.functional.silu(h @ lp["w1"].to(dt))
     up = h @ lp["w3"].to(dt)
-    return x + (gate * up) @ lp["w2"].to(dt)
+    return constrain(x + reduce((gate * up) @ lp["w2"].to(dt)))
 
 
 def layer_params(params: dict, i: int) -> dict:
@@ -274,9 +325,13 @@ def _save_weight_products(ctx, op, *args, **kwargs) -> CheckpointPolicy:
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _layer_fn(cfg: TransformerConfig) -> Callable:
-    """``layer_body`` bound to ``cfg``, under the configured remat."""
-    body = functools.partial(layer_body, cfg)
+def _layer_fn(cfg: TransformerConfig, constrain: Callable = _identity,
+              mesh=None, **seams) -> Callable:
+    """``layer_body`` bound to ``cfg`` and its seams, under the
+    configured remat: ``body(x, lp, cos, sin)``."""
+    def body(x, lp, cos, sin):
+        return layer_body(cfg, x, lp, cos, sin, constrain, mesh, **seams)
+
     if not cfg.remat:
         return body
     if cfg.remat_policy == "dots":
@@ -298,22 +353,23 @@ def _layer_fn(cfg: TransformerConfig) -> Callable:
 
 
 def forward_hidden(cfg: TransformerConfig, params: dict,
-                   tokens: torch.Tensor) -> torch.Tensor:
+                   tokens: torch.Tensor, constrain: Callable = _identity,
+                   mesh=None) -> torch.Tensor:
     """tokens (B, S) int -> final normed hidden (B, S, d_model). A
     Python loop over layers stands where the reference scans."""
     B, S = tokens.shape
-    x = embed_rows(params["embed"], tokens, cfg.dtype)
+    x = constrain(embed_rows(params["embed"], tokens, cfg.dtype))
     cos, sin = rope_tables(cfg, S, device=x.device)
-    body = _layer_fn(cfg)
+    body = _layer_fn(cfg, constrain, mesh)
     for i in range(cfg.n_layers):
         x = body(x, layer_params(params, i), cos, sin)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
-def forward(cfg: TransformerConfig, params: dict,
-            tokens: torch.Tensor) -> torch.Tensor:
+def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
+            constrain: Callable = _identity, mesh=None) -> torch.Tensor:
     """tokens (B, S) int -> logits (B, S, vocab) fp32."""
-    x = forward_hidden(cfg, params, tokens)
+    x = forward_hidden(cfg, params, tokens, constrain, mesh)
     return (x @ params["head"].to(cfg.dtype)).float()
 
 
@@ -367,8 +423,8 @@ def chunked_head_xent(cfg: TransformerConfig, x: torch.Tensor,
 
 
 def next_token_loss(cfg: TransformerConfig, params: dict,
-                    tokens: torch.Tensor,
-                    full_seq: bool = False) -> torch.Tensor:
+                    tokens: torch.Tensor, constrain: Callable = _identity,
+                    mesh=None, full_seq: bool = False) -> torch.Tensor:
     """Causal LM loss: predict tokens[:, 1:] from tokens[:, :-1].
 
     ``full_seq=True`` runs forward over all S tokens and drops the last
@@ -376,14 +432,14 @@ def next_token_loss(cfg: TransformerConfig, params: dict,
     ``cfg.loss_chunks > 1`` forwards all S tokens to hidden and scans
     the head with the last position masked out."""
     if cfg.loss_chunks > 1:
-        x = forward_hidden(cfg, params, tokens)
+        x = forward_hidden(cfg, params, tokens, constrain, mesh)
         targets, weights = shift_targets_and_weights(tokens)
         return chunked_head_xent(cfg, x, params["head"], targets, weights,
                                  cfg.loss_chunks)
     if full_seq:
-        logits = forward(cfg, params, tokens)
+        logits = forward(cfg, params, tokens, constrain, mesh)
         return token_xent(logits[:, :-1], tokens[:, 1:])
-    logits = forward(cfg, params, tokens[:, :-1])
+    logits = forward(cfg, params, tokens[:, :-1], constrain, mesh)
     return token_xent(logits, tokens[:, 1:])
 
 
@@ -417,12 +473,14 @@ def value_and_grad(fn: Callable, params: dict) -> tuple[tuple, dict]:
 
 
 def loss_and_grads(cfg: TransformerConfig, params: dict,
-                   tokens: torch.Tensor, full_seq: bool = False
+                   tokens: torch.Tensor, full_seq: bool = False,
+                   constrain: Callable = _identity, mesh=None
                    ) -> tuple[torch.Tensor, dict]:
     """``jax.value_and_grad(next_token_loss)``: the detached loss and a
     gradient tree shaped like ``params``."""
     (loss, _), grads = value_and_grad(
-        lambda p: (next_token_loss(cfg, p, tokens, full_seq), None), params)
+        lambda p: (next_token_loss(cfg, p, tokens, constrain, mesh,
+                                   full_seq), None), params)
     return loss, grads
 
 
@@ -494,6 +552,7 @@ def default_optimizer(learning_rate: float,
 
 
 def make_train_step(cfg: TransformerConfig, learning_rate: float = 3e-4,
+                    constrain: Callable = _identity, mesh=None,
                     full_seq: bool = False,
                     mu_dtype: torch.dtype | None = None):
     """Returns (init_opt_state, train_step), AdamW as
@@ -502,7 +561,11 @@ def make_train_step(cfg: TransformerConfig, learning_rate: float = 3e-4,
     ``train_step(state, tokens) -> (state, metrics)`` where state is
     (params, opt_state, step) and metrics ``{"loss", "tokens"}``, tokens
     = B * (S - 1) for the telemetry channel. The params and the moments
-    are updated in place."""
+    are updated in place. ``constrain`` and ``mesh`` reach the layer
+    body and the attention as in :func:`next_token_loss`; on a mesh of
+    several ranks the loss and gradients are this rank's own, and the
+    sharded trainers of ``pbs_tpu_torch.parallel`` hold the global
+    ones."""
     tx = default_optimizer(learning_rate, mu_dtype=mu_dtype)
 
     def init_opt_state(params):
@@ -510,7 +573,8 @@ def make_train_step(cfg: TransformerConfig, learning_rate: float = 3e-4,
 
     def train_step(state, tokens):
         params, opt_state, step = state
-        loss, grads = loss_and_grads(cfg, params, tokens, full_seq)
+        loss, grads = loss_and_grads(cfg, params, tokens, full_seq,
+                                     constrain, mesh)
         opt_state = tx.update(grads, opt_state, params)
         ntok = tokens.shape[0] * (tokens.shape[1] - 1)
         return (params, opt_state, step + 1), {"loss": loss, "tokens": ntok}
@@ -518,9 +582,11 @@ def make_train_step(cfg: TransformerConfig, learning_rate: float = 3e-4,
     return init_opt_state, train_step
 
 
-def make_eval_step(cfg: TransformerConfig, full_seq: bool = False):
+def make_eval_step(cfg: TransformerConfig, constrain: Callable = _identity,
+                   mesh=None, full_seq: bool = False):
     @torch.no_grad()
     def eval_step(params, tokens):
-        return next_token_loss(cfg, params, tokens, full_seq)
+        return next_token_loss(cfg, params, tokens, constrain, mesh,
+                               full_seq)
 
     return eval_step

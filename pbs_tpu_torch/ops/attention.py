@@ -363,11 +363,15 @@ def flash_attention_lse(
     causal: bool = True,
     block_q: int = DEFAULT_BLOCK_Q,
     block_k: int = DEFAULT_BLOCK_K,
+    out_f32: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Like :func:`flash_attention` but also returns the per-row
     logsumexp, shape (B, S, H, 1) fp32 — the combiner state for folding
     independently computed attention partials. o is fp32 so a fold
-    accumulates at full precision whatever the compute dtype. The lse
-    output takes part in autograd: its cotangent enters ds."""
+    accumulates at full precision whatever the compute dtype; with
+    ``out_f32=False`` (port-only) it comes back in the input dtype, and
+    so does its cotangent, which keeps a bf16 backward on the
+    tensor-core route. The lse output takes part in autograd: its
+    cotangent enters ds."""
     _check_shapes(q, k, v, block_q, block_k)
-    return _FlashAttention.apply(q, k, v, causal, True)
+    return _FlashAttention.apply(q, k, v, causal, out_f32)

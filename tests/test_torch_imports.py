@@ -207,6 +207,37 @@ def test_observer_modules_are_covered():
         assert not [t for _, t in _imported_tops(path) if t in FORBIDDEN]
 
 
+#: The parallel schedules: each of the reference's nine modules, and the
+#: port's own collectives and rank launcher, in the module list the
+#: checks above walk (no JAX, nothing of ``pbs_tpu``).
+PARALLEL_MODULES = tuple(
+    f"pbs_tpu_torch.parallel{m}" for m in (
+        "", ".mesh", ".sharding", ".ring_attention", ".ulysses", ".expert",
+        ".pipeline", ".gang", ".multihost", ".comm", ".launch"))
+
+
+def test_parallel_modules_are_covered():
+    names = set(_module_names())
+    missing = [m for m in PARALLEL_MODULES if m not in names]
+    assert not missing, missing
+    for m in PARALLEL_MODULES:
+        path = PORT.joinpath(*m.split(".")[1:])
+        path = path / "__init__.py" if path.is_dir() else \
+            path.with_suffix(".py")
+        assert not [t for _, t in _imported_tops(path) if t in FORBIDDEN], m
+
+
+def test_models_name_no_wait_for_the_parallel_schedules():
+    """``parallel/`` is ported: the models no longer say the
+    sequence-parallel impls and the sharding seams wait for it, and
+    serving's mesh waits for ``serve/`` alone."""
+    for name in ("transformer.py", "moe.py"):
+        text = (PORT / "models" / name).read_text()
+        assert "not ported yet" not in text and "item 7" not in text, name
+    serving = (PORT / "models" / "serving.py").read_text()
+    assert "items 7-8" not in serving and "item 8" in serving
+
+
 def test_job_docstring_names_no_missing_foreign():
     """``Job.foreign`` is ported: the module no longer lists it as
     missing, and the obs package no longer waits for item 12."""

@@ -429,7 +429,7 @@ def test_sampling_is_seeded_and_survives_the_warm_up(model):
 
 def test_device_and_mesh_are_explicit(model):
     _, tcfg, _, tparams = model
-    with pytest.raises(ValueError, match="items 7-8"):
+    with pytest.raises(ValueError, match="item 8"):
         port.ContinuousBatcher(tcfg, tparams, mesh=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
