@@ -302,6 +302,31 @@ Phases, each fatal on failure:
              rank the ms per step, the kernels' launches by route, the
              bytes staged through the host per step and the peak device
              memory, beside the reckoned memory of a replica.
+3v. serve  — the sharded serving tier (``pbs_tpu_torch.serve``) on 3s's
+             script (8 slots, bucket 128, slabs of 512) behind the port's
+             Gateway: (a) ``ShardedServeBackend`` at tp=1, dp=1 over
+             phase 3's bf16 tree, each completion's tokens against 3s
+             (a)'s direct engine (near-ties only), no bypass, one gapless
+             span chain per request, ``gather_params()`` the tree passed
+             in bit for bit, the 1x1 mesh; (b) ``DisaggServeBackend`` on
+             the same script, 2 prefill lanes beside (a)'s 8 decode
+             slots: no decode-pool prefill, a handoff per completion,
+             tokens against (a)'s; (c) two rank processes
+             sharing the card over gloo (exchanges staged through pinned
+             host memory), each a virtual-clock gateway in front of
+             ``ShardedServeBackend(tp=2)``: the dense bf16 engine at
+             full depth, the int8 engine and the dropless MoE engine at
+             3e's widths at 4 layers and the dense one in fp32 at 4; both
+             ranks' completions and probe prefill logits identical, the
+             logits within 0.25 std of one process's engine on the same
+             weights, and the tokens against that engine's (fp32: near-
+             ties only; bf16: divergences the measured logit difference
+             can close); (d) ``pbst-torch serve stats``, ``serve demo`` and
+             ``serve demo --disagg`` in child processes on the card.
+             Prints TTFT p50/p99 and the decode tick of (a) and (b), and
+             per (c) rank the decode tick, a prefill, the exchanges and
+             bytes staged through the host a decode tick and the peak
+             device memory.
 4. numerics — the scoring forward through the flash kernel against the dense
              attention path on the same weights, the KV-cache prefill
              against the full forward, one micro-batch's training loss
@@ -443,6 +468,30 @@ PARALLEL_FLASH_SHAPES = (
     (TRAIN_BATCH, TRAIN_SEQ, 8, 4, 128, "bfloat16", True),
     (1, TRAIN_SEQ - 1, 16, 8, 128, "bfloat16", True),
 )
+# Phase 3v, the serving tier: 3s's script (8 slots, bucket 128, slabs of
+# 512) through serve backends behind the port's gateway; (c)'s tp2
+# engines from SERVE_SEED's weights, the dense one at the flagship's
+# depth, the int8 and MoE ones at PARALLEL_DEPTH; (d)'s demos with
+# SERVE_DEMO_REQUESTS requests, each child given SERVE_CHILD_TIMEOUT_S.
+SERVE_SEED, SERVE_DEMO_REQUESTS, SERVE_CHILD_TIMEOUT_S = 17, 8, 300
+# (b)'s prefill lanes, beside as many decode slots as (a) has: the
+# decode tick then has (a)'s shapes, so the two compute alike and their
+# tokens hold under ENGINE_TIE (bf16 products of another batch size
+# round otherwise).
+SERVE_PREFILL_LANES = 2
+# (c)'s tp2 engines against one process's on the same weights. Each
+# rank's prefill logits of the script's first SERVE_PROBES prompts
+# within SERVE_TP_LOGITS x std of one process's (the row-parallel
+# all-reduces left out, the host twin's fp32 logits moved by 3.1 std;
+# on an H100 the bf16 engines came within 0.074, the MoE one within
+# 0.14). Tokens: an fp32 engine under ENGINE_TIE, as 3s (b). A
+# bf16 one rounds each row-parallel half-sum to bf16 before the
+# all-reduce adds them, once more than one GEMM rounds the whole sum,
+# and its logits resolve 2^-8 of their magnitude: it passes a
+# divergence where the lockstep top-2 gap is under what the measured
+# logit difference can close, twice the probes' max|diff| over their
+# smallest top logit (:func:`tp_tie`).
+SERVE_PROBES, SERVE_TP_LOGITS = 4, 0.25
 # A routing decision (a token's top-2 experts in a layer) that differs
 # between two fp32 runs passes only at a near-tie: the reference run's
 # 2nd and 3rd router probabilities within MOE_ROUTE_TIE of each other.
@@ -1569,12 +1618,12 @@ def lockstep_margin(torch, cfg, params, prompt, toks, j, fwd=None) -> float:
 
 
 def compare_tokens(torch, cfg, params, reqs, got: dict, want: dict,
-                   what: str, fwd=None) -> list:
+                   what: str, fwd=None, tie: float = ENGINE_TIE) -> list:
     """Request by request, ``got`` against ``want`` (token lists). A
     divergence passes only where the lockstep run's top-2 logits at
-    that position are within ENGINE_TIE of each other (a tie two GEMM
-    shapes may break differently); it is printed either way. Returns
-    the divergences as (request, position, margin)."""
+    that position are within ``tie`` (relative to the top one) of each
+    other (a tie two GEMM shapes may break differently); it is printed
+    either way. Returns the divergences as (request, position, margin)."""
     ties = []
     for i, w in want.items():
         g = got[i]
@@ -1587,9 +1636,8 @@ def compare_tokens(torch, cfg, params, reqs, got: dict, want: dict,
         print(f"  {what}: request {i} diverges at token {j} ({g[j]} vs "
               f"{w[j]}); lockstep top-2 gap {margin:.3e} of |top-1|",
               flush=True)
-        check(margin < ENGINE_TIE, f"{what}: request {i}'s divergence is a "
-                                   f"near-tie (gap {margin:.3e} < "
-                                   f"{ENGINE_TIE:g})")
+        check(margin < tie, f"{what}: request {i}'s divergence is a "
+                            f"near-tie (gap {margin:.3e} < {tie:g})")
         ties.append((i, j, margin))
     return ties
 
@@ -7626,6 +7674,468 @@ def run_parallel_path(torch, card: str) -> tuple[dict, dict]:
     return launches, routes
 
 
+# -- phase 3v ----------------------------------------------------------------
+
+
+def serve_weights(torch, family: str, fields: dict, device, seed: int):
+    """(config, full tree) of a phase-3v engine drawn from ``seed`` on
+    ``device``: ``fields`` with ``dtype`` named; "dense" and "moe" the
+    fp32 init cast to it, "int8" the fp32 init quantized (computed in
+    ``dtype``, as 3s(d))."""
+    from pbs_tpu_torch.models import (cast_params, init_moe_params,
+                                      init_params, quantize_weights)
+
+    cfg = parallel_config(torch, "moe" if family == "moe" else "dense",
+                          fields)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    init = init_moe_params if family == "moe" else init_params
+    master = init(cfg, gen, device=device)
+    if family == "int8":
+        return cfg, quantize_weights(master)
+    return cfg, cast_params(master, cfg.dtype)
+
+
+def moe_cached_forward(cfg, params, tokens, cache):
+    """The MoE lockstep forward for :func:`lockstep_margin`."""
+    from pbs_tpu_torch.models.moe import moe_forward_with_cache
+
+    return moe_forward_with_cache(cfg, params, tokens, cache)
+
+
+def serve_gateway_run(be, reqs, arrivals, virtual: bool) -> dict:
+    """The script through a port ``Gateway`` in front of the serve
+    backend ``be``: each gateway tick submits its arrivals (explicit
+    prompts, the budget as the cost, one interactive tenant that sheds
+    nothing), then ticks once; a virtual clock advances 1 ms a tick.
+    Returns the tokens by request index, each rid's index, each tick's
+    host ms with whether it only decoded (an engine step that admitted
+    nothing, no prompt into a prefill pool) and its exchanges
+    (``comm.stats()``), the gateway and the wall seconds."""
+    from pbs_tpu_torch.gateway import Gateway, TenantQuota
+    from pbs_tpu_torch.parallel import comm
+    from pbs_tpu_torch.utils.clock import MS, MonotonicClock, VirtualClock
+
+    clock = VirtualClock() if virtual else MonotonicClock()
+    gw = Gateway([be], clock=clock, trace_capacity=GW_TRACE_CAPACITY,
+                 quotas={"serve": TenantQuota(rate=1e9, burst=1e9,
+                                              slo="interactive",
+                                              max_queued=len(reqs))})
+    eng, pool = be.engine, getattr(be, "prefill_pool", None)
+    index, tokens, stepped = {}, {}, []
+    engine_step = eng.step
+
+    def recording_step():
+        out = engine_step()
+        stepped.append(len(eng._admitted))
+        for c in out:  # poll pops the engine id after step returns
+            rid = be._by_engine_rid[c.request_id].rid
+            tokens[index[rid]] = list(c.tokens)
+        return out
+
+    eng.step = recording_step
+    limit = max(arrivals) + 4 * sum(n for _, n in reqs)
+    ticks, tick = [], 0
+    t0 = time.monotonic()
+    try:
+        while tick <= max(arrivals) or gw.busy():
+            if tick > limit:
+                raise Failed(f"{be.name}: the gateway still busy after "
+                             f"{limit} ticks")
+            for i in arrivals.get(tick, []):
+                prompt, n = reqs[i]
+                r = gw.submit("serve", {"prompt": prompt, "max_new": n},
+                              cost=n)
+                if not r.admitted:
+                    raise Failed(f"{be.name}: request {i} shed "
+                                 f"({r.reason})")
+                index[r.rid] = i
+            ingested = pool.prompts_ingested if pool is not None else 0
+            stepped.clear()
+            comm.reset_stats()
+            t = time.monotonic()
+            gw.tick()
+            ms = (time.monotonic() - t) * 1e3
+            decode = stepped == [0] and (
+                pool is None or pool.prompts_ingested == ingested)
+            ticks.append((ms, decode, comm.stats()))
+            if virtual:
+                clock.advance(MS)
+            tick += 1
+    finally:
+        eng.step = engine_step
+    return dict(tokens=tokens, index=index, ticks=ticks, gw=gw,
+                wall=time.monotonic() - t0)
+
+
+def serve_spans_check(what: str, run: dict) -> None:
+    """One gapless span chain per admitted request, none lost."""
+    from pbs_tpu_torch.obs import SpanAssembler
+
+    gw = run["gw"]
+    recs = gw.trace.consume(GW_TRACE_CAPACITY)
+    asm = SpanAssembler(recs, gw.spans.rid_table(), gw.spans.member_table(),
+                        gw.spans.tenant_table())
+    problems = asm.validate(sorted(run["index"]))
+    summary = asm.summary()
+    check(gw.trace.lost == 0 and not problems
+          and summary["chains"] == len(run["index"]),
+          f"{what}: one gapless span chain per request "
+          f"({summary['chains']} of {len(run['index'])}, trace records "
+          f"lost {gw.trace.lost}); problems {problems[:3]}")
+
+
+def decode_ticks(run: dict) -> list:
+    return [(ms, ex) for ms, decode, ex in run["ticks"] if decode]
+
+
+def serve_line(what: str, st: dict, run: dict, card: str,
+               extra: str = "") -> str:
+    """One serve backend's numbers: TTFT and latency p50/p99 from its
+    engine's stats (host clock), the median decode tick (a gateway tick
+    in which the engine only decoded), tokens/s over the run."""
+    dec = [ms for ms, _ in decode_ticks(run)]
+    tok_s = st["tokens_emitted"] / run["wall"]
+    return (f"  {what}: completed {st['completed']}, prefix hits "
+            f"{st['prefix_hits']}; TTFT p50 {st['ttft_p50_s'] * 1e3:.2f} / "
+            f"p99 {st['ttft_p99_s'] * 1e3:.2f} ms, latency p50 "
+            f"{st['latency_p50_s'] * 1e3:.2f} / p99 "
+            f"{st['latency_p99_s'] * 1e3:.2f} ms; decode tick "
+            f"{statistics.median(dec):.2f} ms (median of {len(dec)} of "
+            f"{len(run['ticks'])} gateway ticks); {tok_s:.1f} tok/s over "
+            f"{run['wall']:.2f} s{extra} [{card}]")
+
+
+def bitwise_equal_trees(a, b) -> bool:
+    """Two param trees with the same leaves, dtypes, shapes and bytes."""
+    import torch
+
+    from pbs_tpu_torch.models.transformer import tree_leaves
+
+    def raw(t):
+        return t.contiguous().reshape(-1).view(torch.uint8)
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(raw(x), raw(y)) for x, y in zip(la, lb))
+
+
+def probe_logits(torch, eng, reqs):
+    """The fp32 last-position logits of prefills of the script's first
+    SERVE_PROBES prompts into slot 0 of an idle engine, which is left
+    free (numpy, one row a prompt)."""
+    import numpy as np
+
+    out = []
+    for prompt, _ in reqs[:SERVE_PROBES]:
+        padded = np.zeros(eng.bucket, np.int32)
+        padded[:len(prompt)] = prompt
+        out.append(eng._prefill(0, padded, len(prompt))[1].float().cpu()
+                   .numpy())
+        eng.cache["pos"][0] = 0
+    return np.stack(out)
+
+
+def tp_tie(got, want) -> float:
+    """The relative top-2 gap two engines' probe logits (``got`` against
+    ``want``, one row a prompt) can close: twice their largest
+    difference over the smallest top logit."""
+    import numpy as np
+
+    return float(2 * np.abs(got - want).max()
+                 / np.abs(want.max(axis=1)).min())
+
+
+def serve_rank_run(family: str, fields: dict, device: str, seed: int,
+                   reqs, arrivals) -> dict:
+    """Phase 3v (c) on one rank process: the seed's full tree, kept as
+    this rank's blocks by ``ShardedServeBackend`` at tp over the whole
+    world behind a virtual-clock gateway, 3s's script. Returns the
+    probe prompts' prefill logits (:func:`probe_logits`, on the fresh
+    engine), the tokens, the backend's stats, the median decode tick and its
+    exchanges (``comm.stats()``: count, bytes staged through the host,
+    host seconds), a prefill's ms, the peak device memory while serving
+    and the kernels' launches; then frees the engine and the pinned
+    staging buffers."""
+    import torch
+    import torch.distributed as dist
+
+    from pbs_tpu_torch.parallel import comm
+    from pbs_tpu_torch.parallel.mesh import rank_device
+    from pbs_tpu_torch.serve import ShardedServeBackend
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = rank_device(device)
+    cfg, params = serve_weights(torch, family, fields, dev, seed)
+    wrappers = bwd_counts()
+    reset_counts(wrappers)
+    t = time.monotonic()
+    be = ShardedServeBackend(
+        f"tp-{family}", cfg, params, tp=dist.get_world_size(),
+        n_slots=ENGINE_SLOTS, prompt_bucket=ENGINE_BUCKET,
+        max_len=ENGINE_MAX_LEN, prefix_cache_size=ENGINE_PREFIX,
+        seed=seed, clock="virtual", device=device)
+    del params
+    built_s = time.monotonic() - t
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    logits = probe_logits(torch, be.engine, reqs)
+    run = serve_gateway_run(be, reqs, arrivals, virtual=True)
+    dec = decode_ticks(run)
+    out = dict(rank=dist.get_rank(), device=str(dev), tokens=run["tokens"],
+               logits=logits,
+               stats=be.stats(), built_s=built_s, wall=run["wall"],
+               ticks=len(run["ticks"]), decode_ticks=len(dec),
+               decode_ms=statistics.median(ms for ms, _ in dec),
+               exchanges=statistics.median(ex["exchanges"] for _, ex in dec),
+               staged_bytes=statistics.median(ex["staged_bytes"]
+                                              for _, ex in dec),
+               exchange_ms=statistics.median(ex["seconds"] * 1e3
+                                             for _, ex in dec),
+               prefill_ms=time_prefill(torch, be.engine, reqs[0][0]),
+               local_kv_heads=int(be.engine.cache["k"].shape[3]),
+               peak_bytes=(torch.cuda.max_memory_allocated(dev)
+                           if dev.type == "cuda" else 0),
+               launches=control_launches(wrappers))
+    del be, run
+    comm.release()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_children(demo_device: str | None) -> dict:
+    """Phase 3v (d): ``pbst-torch serve stats``, ``serve demo`` and
+    ``serve demo --disagg`` in three child interpreters at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    dev = ["--device", demo_device] if demo_device else []
+    demo = ["serve", "demo", "--requests", str(SERVE_DEMO_REQUESTS), *dev]
+    args = {"stats": ["serve", "stats"], "demo": demo,
+            "disagg": [*demo, "--disagg"]}
+    with ThreadPoolExecutor(len(args)) as ex:
+        futs = {k: ex.submit(pbst_child, a, timeout=SERVE_CHILD_TIMEOUT_S)
+                for k, a in args.items()}
+        return {k: f.result() for k, f in futs.items()}
+
+
+def serve_path(torch, cfg, params, a_tokens: dict, reqs, arrivals,
+               dense: dict, moe: dict, depth: int, device: str, card: str,
+               demo_device: str | None = None) -> dict:
+    """Phase 3v's code at any width: (a) ``ShardedServeBackend`` at 1x1
+    over ``cfg``/``params`` behind the gateway, its tokens against
+    ``a_tokens`` (a direct engine's on the same weights); (b)
+    ``DisaggServeBackend`` on the same script against (a); (c) the tp
+    engines on two rank processes over gloo, ``dense`` at its depth and
+    its int8 twin and ``moe`` (dropless) at ``depth`` layers, each
+    against one process's engine on the same weights; (d) the serve
+    command in child processes. Fatal on any disagreement. Returns
+    (a)+(b)'s launches of the four kernels and (c)'s (both ranks), by
+    route, and the numbers printed."""
+    import gc
+
+    from pbs_tpu_torch.models import ContinuousBatcher
+    from pbs_tpu_torch.models.moe import moe_slot_mlp
+    from pbs_tpu_torch.parallel.launch import RankPool
+    from pbs_tpu_torch.serve import DisaggServeBackend, ShardedServeBackend
+
+    kw = dict(n_slots=ENGINE_SLOTS, prompt_bucket=ENGINE_BUCKET,
+              max_len=ENGINE_MAX_LEN)
+    n = len(reqs)
+
+    def budgets_ok(toks: dict) -> bool:  # every request, its budget
+        return sorted(toks) == list(range(n)) and all(
+            len(toks[i]) == reqs[i][1] for i in toks)
+
+    wrappers = bwd_counts()
+    reset_counts(wrappers)
+    lines = {}
+
+    # (a) the rule-partitioned backend at 1x1
+    be = ShardedServeBackend("serve-a", cfg, params, tp=1, dp=1,
+                             prefix_cache_size=ENGINE_PREFIX, device=device,
+                             **kw)
+    a = serve_gateway_run(be, reqs, arrivals, virtual=False)
+    st, gst = be.stats(), a["gw"].stats()
+    check(st["mesh"] == {"dp": 1, "tp": 1},
+          f"(a) stats()['mesh'] == {st['mesh']}")
+    check(st["completed"] == gst["completed"] == n and budgets_ok(a["tokens"])
+          and st["bypass_submits"] == gst["bypass_submits"] == 0,
+          f"(a) all {n} requests completed through the gateway with their "
+          f"budgets; bypass submits {st['bypass_submits']}")
+    serve_spans_check("(a)", a)
+    ties = compare_tokens(torch, cfg, params, reqs, a["tokens"], a_tokens,
+                          "(a) vs the direct engine")
+    check(bitwise_equal_trees(params, be.gather_params()),
+          f"(a) gather_params() is the tree passed in, bit for bit "
+          f"({st['param_leaves']} leaves, {st['param_bytes']} bytes)")
+    lines["a"] = serve_line(
+        "(a) ShardedServeBackend 1x1", st, a, card,
+        f"; prefill {time_prefill(torch, be.engine, reqs[0][0]):.2f} ms; "
+        f"near-ties {ties}")
+    print(lines["a"], flush=True)
+    del be
+    a_toks = a["tokens"]
+
+    # (b) prefill/decode disaggregation on the same script, with (a)'s
+    # decode slots
+    lanes = ENGINE_SLOTS + SERVE_PREFILL_LANES
+    be = DisaggServeBackend("serve-b", cfg, params, n_slots=lanes,
+                            split=SERVE_PREFILL_LANES / lanes,
+                            prompt_bucket=ENGINE_BUCKET,
+                            max_len=ENGINE_MAX_LEN, device=device)
+    b = serve_gateway_run(be, reqs, arrivals, virtual=False)
+    st = be.stats()
+    check(st["completed"] == n and budgets_ok(b["tokens"])
+          and st["decode_pool_prefills"] == 0
+          and st["handoffs"] == st["completed"]
+          and st["bypass_submits"] == 0
+          and st["pools"] == {"prefill_lanes": SERVE_PREFILL_LANES,
+                              "decode_slots": ENGINE_SLOTS},
+          f"(b) all {n} requests completed, decode_pool_prefills "
+          f"{st['decode_pool_prefills']} == 0, handoffs {st['handoffs']} "
+          f"== completed {st['completed']} ({st['pools']})")
+    serve_spans_check("(b)", b)
+    ties = compare_tokens(torch, cfg, params, reqs, b["tokens"], a_toks,
+                          "(b) vs (a)")
+    lines["b"] = serve_line(
+        "(b) DisaggServeBackend", st, b, card,
+        f"; {st['prompts_prefilled']} prompts prefilled in its pool, "
+        f"{st['handoffs']} handoffs; near-ties {ties}")
+    print(lines["b"], flush=True)
+    del be, a, b
+    ab_launches = control_launches(wrappers)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # (c) tensor-parallel engines on two rank processes: dense, int8 and
+    # MoE in bf16, then the dense one in fp32, token-exact as 3s (b)
+    engines = [("dense", "dense", dense),
+               ("int8", "int8", dict(dense, n_layers=depth)),
+               ("moe", "moe", dict(moe, n_layers=depth, dropless=True)),
+               ("fp32", "dense", dict(dense, n_layers=depth,
+                                      dtype="float32"))]
+    c_launches = {k: 0 for k in KERNELS}
+    c_routes = {k: {"wgmma": 0, "simt": 0} for k in KERNELS}
+    runs = {}
+    with RankPool(2, backend="gloo", device=device) as pool:
+        for label, family, fields in engines:
+            name = (f"(c) tp2 {label}, {fields['dtype']}, "
+                    f"{fields['n_layers']} layers")
+            t0 = time.monotonic()
+            res = pool.run("chip_smoke:serve_rank_run", family, fields,
+                           device, SERVE_SEED, reqs, arrivals,
+                           timeout_s=PARALLEL_RANK_TIMEOUT_S)
+            wall = time.monotonic() - t0
+            check(res[0]["tokens"] == res[1]["tokens"]
+                  and budgets_ok(res[0]["tokens"])
+                  and (res[0]["logits"] == res[1]["logits"]).all(),
+                  f"{name}: both ranks' {n} completions and probe logits "
+                  f"identical, with their budgets")
+            ccfg, cparams = serve_weights(torch, family, fields, device,
+                                          SERVE_SEED)
+            mlp = {"mlp_fn": moe_slot_mlp(ccfg)} if family == "moe" else {}
+            eng = ContinuousBatcher(ccfg, cparams, device=device,
+                                    prefix_cache_size=ENGINE_PREFIX,
+                                    seed=SERVE_SEED, **kw, **mlp)
+            want = probe_logits(torch, eng, reqs)
+            dev_std = float(abs(res[0]["logits"] - want).max() / want.std())
+            check(dev_std <= SERVE_TP_LOGITS,
+                  f"{name}: the {SERVE_PROBES} probe prefills' logits "
+                  f"against one process's, max|diff| / std = "
+                  f"{dev_std:.3e} <= {SERVE_TP_LOGITS}")
+            one = drive_engine(torch, eng, reqs, arrivals)
+            tie = ENGINE_TIE if fields["dtype"] == "float32" \
+                else tp_tie(res[0]["logits"], want)
+            ties = compare_tokens(
+                torch, ccfg, cparams, reqs, res[0]["tokens"],
+                {i: c.tokens for i, c in one["done"].items()},
+                f"{name} vs one process",
+                moe_cached_forward if family == "moe" else None, tie)
+            one_ms = decode_tick_ms(one["ticks"])
+            one_prefill = time_prefill(torch, eng, reqs[0][0])
+            print(f"  {name}: {wall:.1f} s; one process: decode tick "
+                  f"{one_ms:.2f} ms, prefill {one_prefill:.2f} ms; probe "
+                  f"logits max|diff| / std {dev_std:.3e}; {len(ties)} "
+                  f"divergences, each a near-tie within {tie:g}: {ties} "
+                  f"[{card}]", flush=True)
+            for r in res:
+                print(f"  {name} rank {r['rank']} ({r['device']}, "
+                      f"{r['local_kv_heads']} of {fields['n_kv_heads']} kv "
+                      f"heads): built {r['built_s']:.2f} s; decode tick "
+                      f"{r['decode_ms']:.2f} ms (median of "
+                      f"{r['decode_ticks']} of {r['ticks']}), "
+                      f"{r['exchanges']:.0f} exchanges "
+                      f"{r['exchange_ms']:.2f} ms and "
+                      f"{r['staged_bytes'] / 1e6:.3f} MB staged through "
+                      f"the host a decode tick; prefill "
+                      f"{r['prefill_ms']:.2f} ms; TTFT p50/p99 "
+                      f"{r['stats']['ttft_p50_s'] * 1e3:.1f} / "
+                      f"{r['stats']['ttft_p99_s'] * 1e3:.1f} ms (virtual "
+                      f"clock, 1 ms a tick); peak "
+                      f"{r['peak_bytes'] / 2**30:.2f} GiB [{card}]",
+                      flush=True)
+                launches, routes = r["launches"]
+                for k in KERNELS:
+                    c_launches[k] += launches[k]
+                    for route, m in routes[k].items():
+                        c_routes[k][route] += m
+            runs[label] = dict(ranks=res, one_ms=one_ms,
+                               one_prefill_ms=one_prefill, ties=ties,
+                               logits_dev=dev_std)
+            del eng, cparams, one
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+
+    # (d) the serve command in child processes
+    kids = serve_children(demo_device)
+    outs = {}
+    for k, r in kids.items():
+        check(r["rc"] == 0, f"(d) pbst-torch serve {k}: rc {r['rc']} "
+                            f"({r['wall']:.1f} s) {r['err'][-300:]}")
+        outs[k] = json.loads(r["out"])
+    check(outs["stats"]["audit"] == {"dead": [], "shadowed": [],
+                                     "uncovered": []},
+          f"(d) serve stats: the audit is empty ({outs['stats']['audit']})")
+    for k in ("demo", "disagg"):
+        sv = outs[k]["serve"]
+        check(outs[k]["completions"] == SERVE_DEMO_REQUESTS
+              and sv["bypass_submits"] == 0
+              and sv.get("decode_pool_prefills", 0) == 0,
+              f"(d) serve {k}: {outs[k]['completions']} completions, "
+              f"bypasses {sv['bypass_submits']}, decode-pool prefills "
+              f"{sv.get('decode_pool_prefills', '-')}")
+    print(f"  (d) children: " + ", ".join(
+        f"{k} {r['wall']:.1f} s" for k, r in kids.items()), flush=True)
+    return dict(ab_launches=ab_launches, c_launches=(c_launches, c_routes),
+                runs=runs, lines=lines, children=outs)
+
+
+def run_serve_path(torch, cfg, params, a_tokens: dict, card: str):
+    """Phase 3v on the card: :func:`serve_path` over phase 3's bf16
+    flagship tree and 3s(a)'s tokens, (c) at the flagship's widths
+    (bf16; the MoE at 3e's). Returns the four kernels' launches and
+    routes over (a)-(c)."""
+    t_phase = time.monotonic()
+    reqs, arrivals = engine_script()
+    out = serve_path(torch, cfg, params, a_tokens, reqs, arrivals,
+                     dict(FLAGSHIP, dtype="bfloat16"),
+                     dict(MOE, dtype="bfloat16"), PARALLEL_DEPTH, "cuda",
+                     card)
+    (ab, ab_routes), (c, c_routes) = out["ab_launches"], out["c_launches"]
+    launches = {k: ab[k] + c[k] for k in KERNELS}
+    routes = {k: {r: ab_routes[k][r] + c_routes[k][r] for r in c_routes[k]}
+              for k in KERNELS}
+    print(f"  launches (a)-(c) {launches}, by route {routes}", flush=True)
+    print(f"  phase 3v wall {time.monotonic() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return launches, routes
+
+
 # -- phase 4 -----------------------------------------------------------------
 
 
@@ -8299,6 +8809,12 @@ def main() -> int:
           "their exchanges staged through the host; a one-rank NCCL world")
     x_launches, x_routes = run_parallel_path(torch, card_line())
 
+    phase("3v serving tier: rule-partitioned and disaggregated serve "
+          "backends behind the gateway, tensor-parallel engines on two rank "
+          "processes sharing the card, the serve command")
+    v_launches, v_routes = run_serve_path(torch, cfg, params, a_tokens,
+                                          card_line())
+
     phase("4 numerics at width")
     check_numerics(torch, gen, cfg, params)
     del params
@@ -8355,6 +8871,10 @@ def main() -> int:
         # phase 3x (b): the five schedules' two steps on both ranks
         r["parallel_path_launches"] = x_launches[kernel]
         r["parallel_path_launches_by_route"] = x_routes[kernel]
+        # phase 3v (a)-(c): the serve backends and both ranks' tp
+        # engines, which launch none of the four
+        r["serve_path_launches"] = v_launches[kernel]
+        r["serve_path_launches_by_route"] = v_routes[kernel]
     profile_micro_step(torch, micro_step, train_state)
     del micro_step, train_state
     profile_micro_step(torch, moe_step, moe_state, what="MoE training step")

@@ -2,6 +2,11 @@
 
     pbst-torch serve-demo   continuous-batching serving demo behind the
                             gateway front door, on the card by default
+    pbst-torch serve        the sharded serving tier: 'demo' runs a
+                            rule-partitioned backend (--disagg: the
+                            prefill/decode pools) behind the gateway,
+                            on the card by default; 'stats' prints the
+                            partition table and its audit
     pbst-torch demo         the two-tenant sim demo end to end
     pbst-torch dump|top     one-shot counter dump / live telemetry from
                             a partition's ledger file (the 'z' key,
@@ -56,17 +61,18 @@
                             clean, 1 findings, 2 usage error
 
 The port of ``pbs_tpu.cli.pbst``: the same flags (plus ``--device`` for
-``serve-demo``), the same output text and JSON shapes; error lines start
-``pbst-torch:``. ``check`` defaults to the path ``pbs_tpu_torch`` (the
-reference's to ``pbs_tpu`` and ``native``); ``perf`` gates against
-``pbs_tpu_torch/perf/baseline.json``. The ``native`` stamp of ``sim``
-and ``tune`` names the tier of the port's native sim core (built at
-first use), or why it is off. ``scenarios promote`` writes into the
-port's own corpus (``pbs_tpu_torch/scenarios/corpus/``) by default. The
-reference's ``serve`` (the sharded serving tier) waits for ROADMAP
-queue 1 item 8.
+``serve-demo`` and ``serve``), the same output text and JSON shapes;
+error lines start ``pbst-torch:``. ``check`` defaults to the path
+``pbs_tpu_torch`` (the reference's to ``pbs_tpu`` and ``native``);
+``perf`` gates against ``pbs_tpu_torch/perf/baseline.json``. The
+``native`` stamp of ``sim`` and ``tune`` names the tier of the port's
+native sim core (built at first use), or why it is off. ``scenarios promote`` writes into the
+port's own corpus (``pbs_tpu_torch/scenarios/corpus/``) by default.
+``serve stats`` builds its tree on the host and needs no card.
 
     python -m pbs_tpu_torch.cli.pbst serve-demo --device cpu
+    python -m pbs_tpu_torch.cli.pbst serve demo --disagg --device cpu
+    python -m pbs_tpu_torch.cli.pbst serve stats
     python -m pbs_tpu_torch.cli.pbst demo --ledger /tmp/p.ledger
     python -m pbs_tpu_torch.cli.pbst top --ledger /tmp/p.ledger
     python -m pbs_tpu_torch.cli.pbst oprofile --ledger /tmp/p.ledger
@@ -141,6 +147,119 @@ def cmd_serve_demo(args) -> int:
         **eng.stats(),
     }, indent=1))
     return 0
+
+
+def _serve_tiny_cfg():
+    """The serve command's tiny model: small enough that construction
+    plus a full demo stays inside the tier-1 smoke budget on the host,
+    big enough that every partition rule family (embed / norms /
+    attention / mlp / head) has a leaf to place."""
+    import torch
+
+    from pbs_tpu_torch.models import TransformerConfig
+
+    return TransformerConfig(
+        vocab=64, d_model=16, n_layers=1, n_heads=2, n_kv_heads=1,
+        d_ff=32, max_seq=64, dtype=torch.float32)
+
+
+def cmd_serve(args) -> int:
+    """The sharded serving tier, hands-on:
+
+    - ``pbst-torch serve demo`` — a rule-partitioned 1x1-mesh backend
+      (or, with ``--disagg``, the prefill/decode disaggregated pair)
+      behind the REAL gateway front door; requests carry no prompt and
+      the backend synthesizes deterministic ones from the rid (the
+      chaos path). Prints one JSON object: completions + gateway stats
+      + the serve backend's stats. ``--device`` defaults to the card
+      and raises without one.
+    - ``pbst-torch serve stats`` — the partition table's static story
+      with no engine built: every template path with the rule that
+      claims it and the resolved positional spec, plus the audit (dead
+      / shadowed / uncovered — all must be empty; the serve-discipline
+      pass gates the same facts). Its tree is drawn on the host.
+    """
+    import torch
+
+    cfg = _serve_tiny_cfg()
+    if args.action == "stats":
+        import re
+
+        from pbs_tpu_torch.models import init_params
+        from pbs_tpu_torch.serve.partition import (
+            PARTITION_RULES,
+            audit_rules,
+            iter_leaf_paths,
+            match_partition_rules,
+        )
+
+        params = init_params(cfg, torch.Generator().manual_seed(args.seed),
+                             device="cpu")
+        specs = match_partition_rules(PARTITION_RULES, params)
+        spec_by_path = dict(iter_leaf_paths(specs))
+        placed = {
+            path: {"rule": next(pat for pat, _ in PARTITION_RULES
+                                if re.search(pat, path)),
+                   "spec": list(spec_by_path[path])}
+            for path, _leaf in iter_leaf_paths(params)
+        }
+        print(json.dumps({
+            "rules": [{"pattern": pat, "spec": list(spec)}
+                      for pat, spec in PARTITION_RULES],
+            "audit": audit_rules(PARTITION_RULES),
+            "leaves": placed,
+        }, indent=1))
+        return 0
+
+    from pbs_tpu_torch.gateway import Gateway, TenantQuota
+
+    if args.disagg:
+        from pbs_tpu_torch.serve import DisaggServeBackend
+
+        backend = DisaggServeBackend(
+            "serve0", cfg, n_slots=args.slots, prompt_bucket=8,
+            max_len=32, seed=args.seed, device=args.device)
+    else:
+        from pbs_tpu_torch.serve import ShardedServeBackend
+
+        backend = ShardedServeBackend(
+            "serve0", cfg, n_slots=args.slots, prompt_bucket=8,
+            max_len=32, seed=args.seed, device=args.device)
+    hw_source = None
+    if args.hw:
+        from pbs_tpu_torch.hwtelem import HwCounterSource
+
+        hw_source = HwCounterSource(probe=True)
+    gw = Gateway(
+        [backend],
+        quotas={"demo": TenantQuota(rate=1000.0, burst=256.0,
+                                    slo="interactive",
+                                    max_queued=max(64, args.requests))},
+        hw_source=hw_source)
+    shed = 0
+    for i in range(args.requests):
+        # No prompt on purpose: the backend synthesizes one from the
+        # rid, the same path chaos requests take.
+        r = gw.submit("demo", {"req": i}, cost=1 + i % 4)
+        if not r.admitted:
+            shed += 1
+    done = []
+    while gw.busy():
+        done += gw.tick()
+    print(json.dumps({
+        "completions": len(done),
+        "shed": shed,
+        "sample_completion": done[0][1] if done else {},
+        "gateway": gw.stats(),
+        "serve": backend.stats(),
+    }, indent=1))
+    return 0
+
+
+def serve_entry() -> None:
+    """Console entry ``pbst-torch-serve``: exactly ``pbst-torch serve
+    ...`` without the subcommand word."""
+    sys.exit(main(["serve", *sys.argv[1:]]))
 
 
 def cmd_sim(args) -> int:
@@ -2270,6 +2389,27 @@ def main(argv=None) -> int:
                     help="torch device; default: the card (raises without "
                          "one). 'cpu' runs the plain versions on the host")
     sp.set_defaults(fn=cmd_serve_demo)
+
+    sp = sub.add_parser(
+        "serve",
+        help="sharded serving tier: 'demo' runs a rule-partitioned "
+             "backend (--disagg: prefill/decode pools) behind the "
+             "gateway; 'stats' prints the partition table + audit")
+    sp.add_argument("action", choices=["demo", "stats"])
+    sp.add_argument("--requests", type=int, default=6)
+    sp.add_argument("--slots", type=int, default=2)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--disagg", action="store_true",
+                    help="demo the prefill/decode disaggregated "
+                         "backend instead of the single-pool one")
+    sp.add_argument("--hw", action="store_true",
+                    help="demo: arm the live hardware-counter plane "
+                         "on the gateway (stats gain the active tier "
+                         "+ sampled totals)")
+    sp.add_argument("--device", default=None,
+                    help="demo: torch device; default: the card (raises "
+                         "without one). 'cpu' runs on the host")
+    sp.set_defaults(fn=cmd_serve)
 
     sp = sub.add_parser(
         "chaos", help="seeded fault-injection run (pbs_tpu_torch.faults)")

@@ -36,8 +36,20 @@ against the reference; sampled output follows the same distribution,
 not JAX's stream. The attention is the reference's dense masked einsum
 (no kernel on this path). The ``mlp_fn`` seam swaps the FFN block: MoE
 serving is ``mlp_fn=models.moe.moe_slot_mlp(cfg)``, its drop fraction
-``stats()["mlp_extra_mean"]``. Tensor-parallel serving (``mesh=``)
-waits for ``serve/`` (ROADMAP queue 1, item 8).
+``stats()["mlp_extra_mean"]``.
+
+Tensor-parallel serving (``mesh=``, a mesh with a ``tp`` axis) is SPMD
+by rank, as ``parallel/`` is: every rank process builds the same engine
+from the full tree, keeps its Megatron blocks of the weights (all four
+forms: dense or MoE, fp or int8) and its kv heads of the slabs, and is
+given the same submissions in the same order. Where the reference only
+places arrays and lets XLA insert the exchanges, the forward takes its
+head counts from the shards and runs four written-out exchanges
+(``parallel.sharding.ServingSeams``): the vocab-sharded lookup's
+all-reduce, one after ``wo``, one after ``w2`` (or the MoE combine), and
+an all-gather of the logits, so every rank samples the same token from
+the same seeded generator. Each tick starts by checking that the ranks
+agree on it (``agree_tick``).
 """
 
 from __future__ import annotations
@@ -46,6 +58,7 @@ import dataclasses
 import itertools
 import math
 import time
+import zlib
 from collections import OrderedDict, deque
 from typing import Any
 
@@ -53,7 +66,7 @@ import numpy as np
 import torch
 
 from pbs_tpu_torch.models.generate import _sample
-from pbs_tpu_torch.models.quant import embed_rows, wload
+from pbs_tpu_torch.models.quant import wload
 from pbs_tpu_torch.models.transformer import (
     TransformerConfig,
     layer_params,
@@ -62,10 +75,11 @@ from pbs_tpu_torch.models.transformer import (
     rope_tables,
     tree_leaves,
 )
+from pbs_tpu_torch.parallel.sharding import ServingSeams
 from pbs_tpu_torch.utils.stats import nearest_rank
 
-_MESH_MISSING = ("tensor-parallel serving (mesh=) is not ported yet: it "
-                 "comes with serve/ (ROADMAP queue 1, item 8)")
+#: The seams of an engine without a mesh: each one the identity.
+_NO_TP = ServingSeams()
 
 
 def _rope_rows(x: torch.Tensor, cos: torch.Tensor,
@@ -94,7 +108,8 @@ def init_slot_cache(cfg: TransformerConfig, n_slots: int, max_len: int,
 @torch.no_grad()
 def _slot_forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
                   cache: dict, row_pos: torch.Tensor,
-                  mlp_fn=None) -> tuple[torch.Tensor, dict, Any]:
+                  mlp_fn=None, tp: ServingSeams = _NO_TP
+                  ) -> tuple[torch.Tensor, dict, Any]:
     """Forward (B, S) tokens where row b sits at absolute position
     ``row_pos[b]`` (per-row cursors). Writes K/V at ``row_pos[b] + s``
     into the cache slabs, in place; row b's query s attends cols <=
@@ -108,15 +123,21 @@ def _slot_forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
     ``mlp_fn(lp, h) -> (y, extra)`` swaps the FFN block; ``extra`` is
     summed over layers (callers divide by ``cfg.n_layers``). Without
     ``mlp_fn`` the sum is the Python float 0.0, so reading it costs no
-    device synchronise."""
+    device synchronise.
+
+    ``tp`` carries the tensor-parallel exchanges; the params and slabs
+    are then this rank's blocks, and the head counts are the slab's
+    kv heads and their query groups."""
     B, S = tokens.shape
     T = cache["k"].shape[2]
     dt = cfg.dtype
-    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    group = nh // nkv
+    hd = cfg.head_dim
+    group = cfg.n_heads // cfg.n_kv_heads
+    nkv = cache["k"].shape[3]
+    nh = nkv * group
     dev = tokens.device
 
-    x = embed_rows(params["embed"], tokens, dt)
+    x = tp.embed(params["embed"], tokens, dt)
     cos_full, sin_full = rope_tables(cfg, T, device=dev)
     offs = torch.arange(S, dtype=torch.int32, device=dev)
     # absolute position of every (row, s) element: (B, S)
@@ -151,7 +172,7 @@ def _slot_forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
         probs = torch.softmax(scores.float(), dim=-1).to(dt)
         attn = torch.einsum("bngqk,bnkh->bngqh", probs, vt)
         attn = attn.permute(0, 3, 1, 2, 4).reshape(B, S, nh * hd)
-        x = x + attn @ wload(lp["wo"], dt)
+        x = x + tp.reduce(attn @ wload(lp["wo"], dt))
         h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
         if mlp_fn is None:
             gate = torch.nn.functional.silu(h @ wload(lp["w1"], dt))
@@ -160,16 +181,16 @@ def _slot_forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
         else:
             y, e = mlp_fn(lp, h)
             extra = extra + e
-        x = x + y
+        x = x + tp.reduce(y)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x @ wload(params["head"], dt)).float()
+    logits = tp.logits((x @ wload(params["head"], dt)).float())
     return logits, cache, extra
 
 
 @torch.no_grad()
 def ingest_slot_prompt(cfg: TransformerConfig, params: dict, cache: dict,
                        slot: int, prompt: torch.Tensor, plen: int,
-                       mlp_fn=None):
+                       mlp_fn=None, tp: ServingSeams = _NO_TP):
     """The ONE copy of slot-prompt ingestion: forward the padded prompt
     (bucket,) from position 0 through the slot's slabs (a B=1 view, so
     the K/V land in place), and set the slot cursor to ``plen``.
@@ -182,9 +203,56 @@ def ingest_slot_prompt(cfg: TransformerConfig, params: dict, cache: dict,
     }
     zero = torch.zeros((1,), dtype=torch.int32, device=prompt.device)
     logits, _, extra = _slot_forward(cfg, params, prompt[None, :], sub, zero,
-                                     mlp_fn=mlp_fn)
+                                     mlp_fn=mlp_fn, tp=tp)
     cache["pos"][slot] = plen
     return logits[0, plen - 1], cache, extra
+
+
+def is_moe_tree(params: dict) -> bool:
+    """A serving tree of the MoE family (its layers hold a router)."""
+    return isinstance(params.get("layers"), dict) and \
+        "router" in params["layers"]
+
+
+def serving_shardings(cfg: TransformerConfig, params: dict, mesh) -> dict:
+    """The engine's placement of a serving tree on a tp mesh, a
+    ``NamedSharding`` per leaf (an int8 ``{"q", "s"}`` leaf a pair): the
+    Megatron table, or the MoE serving table for a tree with a router
+    (``parallel.expert.moe_serving_param_specs``), through the
+    quant-aware walk."""
+    from pbs_tpu_torch.parallel.sharding import (param_specs,
+                                                 quant_aware_shardings)
+
+    if is_moe_tree(params):
+        from pbs_tpu_torch.parallel.expert import moe_serving_param_specs
+
+        specs = moe_serving_param_specs(cfg)
+    else:
+        specs = param_specs(cfg)
+    return quant_aware_shardings(specs, params, mesh)
+
+
+def _shard_serving_params(cfg: TransformerConfig, params: dict,
+                          mesh) -> dict:
+    """This rank's blocks of the full serving tree ``params`` on a tp
+    mesh, on the mesh's device (copies). One quant-aware walk covers all
+    four weight forms: dense fp, dense int8, MoE fp, MoE int8."""
+    from pbs_tpu_torch.parallel.sharding import place_tree
+
+    if cfg.n_kv_heads % mesh.shape["tp"]:
+        raise ValueError(
+            f"n_kv_heads={cfg.n_kv_heads} not divisible by "
+            f"tp={mesh.shape['tp']}")
+    return place_tree(params, serving_shardings(cfg, params, mesh))
+
+
+def _shard_slot_cache(cache: dict, mesh) -> dict:
+    """KV slabs sharded over the kv heads on tp; cursors replicated."""
+    from pbs_tpu_torch.parallel.sharding import slot_cache_kv_sharding
+
+    kv = slot_cache_kv_sharding(mesh)
+    return {"k": kv.shard(cache["k"]), "v": kv.shard(cache["v"]),
+            "pos": cache["pos"].to(mesh.device, copy=True)}
 
 
 def _engine_device(device: Any) -> torch.device:
@@ -222,7 +290,9 @@ class ContinuousBatcher:
     :class:`Completion`s. All shapes static: ``n_slots`` lanes,
     prompts padded to ``prompt_bucket``, caches sized ``max_len``.
     ``device=None`` means the card (and raises without one); the params
-    must already live there.
+    must already live there. With ``mesh=`` (a mesh with a ``tp`` axis)
+    every rank passes the full tree, the engine keeps this rank's blocks
+    on the mesh's device, and ``device`` defaults to it.
     """
 
     def __init__(self, cfg: TransformerConfig, params: dict,
@@ -232,8 +302,6 @@ class ContinuousBatcher:
                  mesh=None, prefix_cache_size: int = 0,
                  clock=None, mlp_fn=None, submit_hook=None,
                  device: Any = None):
-        if mesh is not None:
-            raise ValueError(_MESH_MISSING)
         self.cfg = cfg
         # Front-door seam: called as ``submit_hook(rid, prompt_len,
         # max_new)`` on EVERY accepted submit — through a gateway or
@@ -254,9 +322,21 @@ class ContinuousBatcher:
         self.temperature = temperature
         self.eos_id = eos_id
         self.mesh = mesh
+        self._tp = _NO_TP
+        if mesh is not None:
+            if "tp" not in mesh.axis_names:
+                raise ValueError(
+                    f"serving mesh needs a 'tp' axis; got "
+                    f"{mesh.axis_names}")
+            device = mesh.device if device is None else device
+            params = _shard_serving_params(cfg, params, mesh)
+            self._tp = ServingSeams(mesh)
         self.device = _engine_device(device)
         _check_on(params, self.device, "params")
         self.params = params
+        # Every submit folds into this digest: tp ranks compare it each
+        # tick (agree_tick).
+        self._submit_digest = 0
         self._init_device_state()
         self.seed = seed
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -303,9 +383,12 @@ class ContinuousBatcher:
     # -- the device functions ---------------------------------------------
 
     def _init_device_state(self) -> None:
-        """Allocate the KV slabs and cursors on the engine's device."""
+        """Allocate the KV slabs and cursors on the engine's device
+        (under a mesh, this rank's kv heads of them)."""
         self.cache = init_slot_cache(self.cfg, self.n_slots, self.max_len,
                                      self.device)
+        if self.mesh is not None:
+            self.cache = _shard_slot_cache(self.cache, self.mesh)
 
     def _device_prompt(self, padded: np.ndarray) -> torch.Tensor:
         return torch.tensor(padded, dtype=torch.int32, device=self.device)
@@ -316,7 +399,8 @@ class ContinuousBatcher:
         extra)."""
         last_logits, self.cache, extra = ingest_slot_prompt(
             self.cfg, self.params, self.cache, slot,
-            self._device_prompt(padded), plen, mlp_fn=self.mlp_fn)
+            self._device_prompt(padded), plen, mlp_fn=self.mlp_fn,
+            tp=self._tp)
         first = _sample(last_logits[None, :], self._gen, self.temperature)[0]
         return first, last_logits, extra
 
@@ -336,7 +420,7 @@ class ContinuousBatcher:
         act = torch.tensor(active, dtype=torch.bool, device=self.device)
         logits, self.cache, extra = _slot_forward(
             self.cfg, self.params, tok[:, None], self.cache,
-            self.cache["pos"], mlp_fn=self.mlp_fn)
+            self.cache["pos"], mlp_fn=self.mlp_fn, tp=self._tp)
         nxt = _sample(logits[:, 0, :], self._gen, self.temperature)
         nxt = torch.where(act, nxt, 0)
         self.cache["pos"] += act.to(torch.int32)
@@ -380,6 +464,9 @@ class ContinuousBatcher:
         if len(prompt) + max_new_tokens > self.max_len:
             raise ValueError("prompt + max_new_tokens exceeds max_len")
         rid = next(self._ids)
+        self._submit_digest = zlib.crc32(
+            np.int32(max_new_tokens).tobytes(),
+            zlib.crc32(prompt.tobytes(), self._submit_digest))
         self.queue.append((rid, prompt, int(max_new_tokens)))
         self._submitted_step[rid] = self.steps
         self._submitted_t[rid] = self._now()
@@ -464,11 +551,23 @@ class ContinuousBatcher:
         self.active[slot] = False
         return comp
 
+    def agree_tick(self) -> None:
+        """Under a tp mesh, raise unless every rank's engine is at the
+        same tick, has taken the same submissions and holds the same
+        queue; one small exchange, nothing without a mesh. Each
+        ``step()`` starts with it. A gateway backend calls it on the
+        ticks it does not step, so a rank that idles while another
+        steps fails the check instead of leaving the other waiting in
+        an exchange."""
+        self._tp.agree([self.steps, self._submit_digest, len(self.queue)],
+                       f"engine tick {self.steps}")
+
     def _pre_decode(self) -> tuple[list[Completion], bool]:
         """The tick prologue every engine shares: admit waiting
         requests, retire already-finished slots (prefill-only budgets,
         EOS sampled at admission). Returns (completions, any_active);
         when nothing is active the tick is already accounted."""
+        self.agree_tick()
         self._admit()
         done: list[Completion] = []
         for slot in range(self.n_slots):
@@ -591,9 +690,15 @@ class SpeculativeBatcher(ContinuousBatcher):
 
     def _init_device_state(self) -> None:
         super()._init_device_state()
+        if self.mesh is not None:
+            # The draft tree and its slab take the target's placement.
+            self.draft_params = _shard_serving_params(
+                self.draft_cfg, self.draft_params, self.mesh)
         _check_on(self.draft_params, self.device, "draft_params")
         self.dcache = init_slot_cache(self.draft_cfg, self.n_slots,
                                       self.max_len, self.device)
+        if self.mesh is not None:
+            self.dcache = _shard_slot_cache(self.dcache, self.mesh)
 
     def _warm_decode(self) -> None:
         n = self.n_slots
@@ -610,7 +715,8 @@ class SpeculativeBatcher(ContinuousBatcher):
         ingest, logits discarded (the target picks tokens)."""
         _, self.dcache, extra = ingest_slot_prompt(
             self.draft_cfg, self.draft_params, self.dcache, slot,
-            self._device_prompt(padded), plen, mlp_fn=self.draft_mlp_fn)
+            self._device_prompt(padded), plen, mlp_fn=self.draft_mlp_fn,
+            tp=self._tp)
         return extra
 
     def _spec_decode(self, last_tok: np.ndarray, active: np.ndarray):
@@ -626,7 +732,7 @@ class SpeculativeBatcher(ContinuousBatcher):
         for _ in range(self.k):
             logits, self.dcache, e = _slot_forward(
                 self.draft_cfg, self.draft_params, tok[:, None], self.dcache,
-                dp, mlp_fn=self.draft_mlp_fn)
+                dp, mlp_fn=self.draft_mlp_fn, tp=self._tp)
             tok = logits[:, -1].argmax(dim=-1).to(torch.int32)
             dp = dp + 1
             d_extra = d_extra + e
@@ -635,11 +741,12 @@ class SpeculativeBatcher(ContinuousBatcher):
         # Ingest t_k so draft KV reaches pos+k whatever acceptance.
         _, self.dcache, e2 = _slot_forward(
             self.draft_cfg, self.draft_params, tok[:, None], self.dcache, dp,
-            mlp_fn=self.draft_mlp_fn)
+            mlp_fn=self.draft_mlp_fn, tp=self._tp)
         d_extra = d_extra + e2
         x = torch.cat([cur[:, None], t], dim=1)  # (B, k+1)
         logits, self.cache, extra = _slot_forward(
-            self.cfg, self.params, x, self.cache, pos, mlp_fn=self.mlp_fn)
+            self.cfg, self.params, x, self.cache, pos, mlp_fn=self.mlp_fn,
+            tp=self._tp)
         g = logits.argmax(dim=-1).to(torch.int32)
         toks, m_row, _bonus = greedy_accept_window(t, g)
         adv = torch.where(act, m_row + 1, 0).to(torch.int32)

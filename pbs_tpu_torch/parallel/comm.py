@@ -72,11 +72,13 @@ def _timed(t: torch.Tensor, group):
 
 
 def group_size(group) -> int:
-    return dist.get_world_size(group)
+    """Members of ``group``; None is a group of one (the axes of a
+    world-free one-rank mesh, :func:`pbs_tpu_torch.parallel.mesh.one_rank_mesh`)."""
+    return 1 if group is None else dist.get_world_size(group)
 
 
 def group_index(group) -> int:
-    return dist.get_rank(group)
+    return 0 if group is None else dist.get_rank(group)
 
 
 def _stages(t: torch.Tensor, group) -> bool:

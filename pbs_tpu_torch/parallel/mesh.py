@@ -19,7 +19,9 @@ world (``init_device_mesh`` over the default group, row-major over
 ranks), and each axis's process group carries that axis's exchanges
 (:mod:`pbs_tpu_torch.parallel.comm`). :class:`PartitionSpec` and
 :class:`NamedSharding` keep the reference's spec vocabulary; a sharding
-here cuts a full array down to this rank's block.
+here cuts a full array down to this rank's block. A mesh of this
+process alone, every axis of size 1 (:func:`one_rank_mesh`, the serving
+tier's 1x1 mesh), needs no world.
 """
 
 from __future__ import annotations
@@ -84,6 +86,42 @@ class Mesh:
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, device={self.device})"
+
+
+class _OneRankMesh(Mesh):
+    """A mesh of this process alone, every axis of size 1: it needs no
+    ``torch.distributed`` world. Each axis's group is None, which
+    :mod:`pbs_tpu_torch.parallel.comm` takes for a group of one member,
+    so every exchange over it is skipped."""
+
+    def __init__(self, axis_names: tuple, device: torch.device):
+        self.axis_names = tuple(axis_names)
+        self.devices = np.zeros((1,) * len(self.axis_names), dtype=int)
+        self.shape = dict.fromkeys(self.axis_names, 1)
+        self.device = device
+        self.device_mesh = None
+        self._index = dict.fromkeys(self.axis_names, 0)
+
+    def group(self, axis: str):
+        return None
+
+
+def one_rank_mesh(axis_names: Sequence[str], device: Any = None) -> Mesh:
+    """A mesh of this process alone whose axes all have size 1, built
+    with or without an initialised world (a departure: the reference
+    takes one of its process's devices, and the port's :func:`make_mesh`
+    spans every rank of a world). ``device`` as for :func:`make_mesh`;
+    "cuda" without an index means the current card."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' "
+                "explicitly to run on the host")
+        device = "cuda"
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return _OneRankMesh(tuple(axis_names), dev)
 
 
 def rank_device(device: Any = None) -> torch.device:

@@ -113,6 +113,20 @@ def shard_params(params: dict, mesh: Mesh, cfg: TransformerConfig) -> dict:
     return shard_tree(params, mesh, param_specs(cfg))
 
 
+def place_tree(params: dict, shardings: dict) -> dict:
+    """This rank's block of every leaf of the full tree ``params`` under
+    its ``NamedSharding`` in ``shardings`` (a tree shaped like
+    ``params``, as :func:`quant_aware_shardings` gives), on the mesh's
+    device."""
+    return _spec_map(lambda s, x: s.shard(x), shardings, params)
+
+
+def sharding_specs(shardings: dict) -> dict:
+    """The ``PartitionSpec`` tree of a ``NamedSharding`` tree (what
+    :func:`gather_tree` takes)."""
+    return _spec_map(lambda s, _: s.spec, shardings, shardings)
+
+
 def _spec_axes(spec: P) -> set:
     out = set()
     for entry in spec:
@@ -212,6 +226,63 @@ def slot_cache_kv_sharding(mesh: Mesh) -> NamedSharding:
     ``serve-raw-mesh-axis`` rule, docs/ANALYSIS.md)."""
     return NamedSharding(mesh, _mesh_spec(mesh, P(None, None, None, "tp",
                                                   None)))
+
+
+class ServingSeams:
+    """The tp exchanges of the serving forward (``models/serving.py``'s
+    ``_slot_forward``), which the reference leaves to XLA: the
+    vocab-sharded embed lookup (rows outside this rank's range are zero,
+    then an all-reduce), an all-reduce after each row-parallel product
+    (``wo``; ``w2`` or the MoE combine) and an all-gather of the
+    vocab-sharded logits, so every rank samples from the same logits.
+    The residual stays whole on every rank (a decode tick has one
+    position a row). Without a mesh, or with a tp axis of one, every
+    seam is the identity and exchanges nothing.
+
+    :meth:`agree` is the serving engines' guard against ranks that drift
+    apart: every rank must drive the same submissions at the same tick,
+    or the next exchanges pair up wrongly and wait forever."""
+
+    def __init__(self, mesh: Mesh | None = None):
+        self.group = None if mesh is None else _axis_group(mesh, "tp")
+        self.n = _size(self.group)
+        self.device = None if mesh is None else mesh.device
+
+    def embed(self, w, tokens: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+        from pbs_tpu_torch.models.quant import embed_rows
+
+        if self.n == 1:
+            return embed_rows(w, tokens, dt)
+        Vl = (w["q"] if isinstance(w, dict) else w).shape[0]
+        local = tokens.long() - comm.group_index(self.group) * Vl
+        inr = ((local >= 0) & (local < Vl))[..., None]
+        rows = embed_rows(w, local.clamp(0, Vl - 1), dt) * inr.to(dt)
+        return comm.all_reduce_(rows, self.group)
+
+    def reduce(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.n == 1 else comm.all_reduce_(t, self.group)
+
+    def logits(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.n == 1 else comm._all_gather(t, self.group,
+                                                      t.dim() - 1)
+
+    def agree(self, values: list[int], where: str) -> None:
+        """Raise unless every tp rank holds the same ``values`` (small
+        ints: the engine's tick and a digest of what it was given). One
+        all-gather of a host tensor when the group is gloo's (nothing
+        staged), of a device tensor over NCCL."""
+        if self.n == 1:
+            return
+        dev = "cpu" if torch.distributed.get_backend(self.group) == "gloo" \
+            else self.device
+        mine = torch.tensor([values], dtype=torch.int64, device=dev)
+        got = comm._all_gather(mine, self.group, 0)
+        if not bool((got == mine).all()):
+            raise RuntimeError(
+                f"tp ranks diverged at {where}: each rank's {len(values)} "
+                f"values, in rank order, {got.tolist()}; every rank must "
+                f"submit the same requests in the same order at the same "
+                f"tick")
 
 
 def activation_constrainer(mesh: Mesh | None):

@@ -216,6 +216,24 @@ PARALLEL_MODULES = tuple(
         ".pipeline", ".gang", ".multihost", ".comm", ".launch"))
 
 
+#: The serving tier: the reference's four modules, in the module list the
+#: checks above walk (no JAX, nothing of ``pbs_tpu``).
+SERVE_MODULES = tuple(
+    f"pbs_tpu_torch.serve{m}" for m in ("", ".partition", ".backend",
+                                        ".disagg"))
+
+
+def test_serve_modules_are_covered():
+    names = set(_module_names())
+    missing = [m for m in SERVE_MODULES if m not in names]
+    assert not missing, missing
+    for m in SERVE_MODULES:
+        path = PORT.joinpath(*m.split(".")[1:])
+        path = path / "__init__.py" if path.is_dir() else \
+            path.with_suffix(".py")
+        assert not [t for _, t in _imported_tops(path) if t in FORBIDDEN], m
+
+
 def test_parallel_modules_are_covered():
     names = set(_module_names())
     missing = [m for m in PARALLEL_MODULES if m not in names]
@@ -228,14 +246,15 @@ def test_parallel_modules_are_covered():
 
 
 def test_models_name_no_wait_for_the_parallel_schedules():
-    """``parallel/`` is ported: the models no longer say the
-    sequence-parallel impls and the sharding seams wait for it, and
-    serving's mesh waits for ``serve/`` alone."""
+    """``parallel/`` and ``serve/`` are ported: the models no longer say
+    the sequence-parallel impls and the sharding seams wait for them,
+    and serving's mesh is served (``_MESH_MISSING`` is gone)."""
     for name in ("transformer.py", "moe.py"):
         text = (PORT / "models" / name).read_text()
         assert "not ported yet" not in text and "item 7" not in text, name
     serving = (PORT / "models" / "serving.py").read_text()
-    assert "items 7-8" not in serving and "item 8" in serving
+    assert "item 8" not in serving and "_MESH_MISSING" not in serving
+    assert "ServingSeams" in serving
 
 
 def test_job_docstring_names_no_missing_foreign():
@@ -285,7 +304,9 @@ def test_device_free_planes_import_no_torch():
     it: ``pbst-torch check`` runs on a host with no device runtime. So
     are the observers (``mon``, ``oprofile``), the self-test, the obs
     dump and the perf harness: an observer process attached to a card
-    partition's files imports no torch."""
+    partition's files imports no torch. So does the serving tier's
+    package (its backends load torch when built), as the reference's
+    loads JAX."""
     mods = ["pbs_tpu_torch.gateway.procfed", "pbs_tpu_torch.dist",
             "pbs_tpu_torch.dist.rpc", "pbs_tpu_torch.store",
             "pbs_tpu_torch.gateway.gateway", "pbs_tpu_torch.gateway.journal",
@@ -297,7 +318,8 @@ def test_device_free_planes_import_no_torch():
             "pbs_tpu_torch.scenarios", "pbs_tpu_torch.analysis",
             "pbs_tpu_torch.cli.pbst", "pbs_tpu_torch.obs.mon",
             "pbs_tpu_torch.obs.oprofile", "pbs_tpu_torch.obs.selftest",
-            "pbs_tpu_torch.obs.dumpfile", "pbs_tpu_torch.perf"]
+            "pbs_tpu_torch.obs.dumpfile", "pbs_tpu_torch.perf",
+            "pbs_tpu_torch.serve"]
     code = (
         "import sys, importlib\n"
         f"for name in {mods!r}:\n"

@@ -428,9 +428,21 @@ def test_sampling_is_seeded_and_survives_the_warm_up(model):
 
 
 def test_device_and_mesh_are_explicit(model):
-    _, tcfg, _, tparams = model
-    with pytest.raises(ValueError, match="item 8"):
-        port.ContinuousBatcher(tcfg, tparams, mesh=object(), device="cpu")
+    """A mesh without a 'tp' axis is refused with the reference's
+    message (``test_serving.py::test_tp_mesh_validation``)."""
+    from pbs_tpu.parallel import make_mesh as ref_make_mesh
+    from pbs_tpu_torch.parallel.mesh import one_rank_mesh
+
+    rcfg, tcfg, rparams, tparams = model
+    with pytest.raises(ValueError, match="'tp' axis") as e:
+        port.ContinuousBatcher(tcfg, tparams, mesh=one_rank_mesh(("dp",),
+                                                                 "cpu"),
+                               device="cpu")
+    with pytest.raises(ValueError, match="'tp' axis") as r:
+        ref.ContinuousBatcher(rcfg, rparams, n_slots=1, prompt_bucket=8,
+                              mesh=ref_make_mesh({"dp": 1},
+                                                 devices=jax.devices()[:1]))
+    assert str(e.value) == str(r.value)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             port.ContinuousBatcher(tcfg, tparams)  # the card by default
