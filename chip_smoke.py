@@ -327,6 +327,23 @@ Phases, each fatal on failure:
              per (c) rank the decode tick, a prefill, the exchanges and
              bytes staged through the host a decode tick and the peak
              device memory.
+3b. drivers — the root scripts' twins (``pbs_tpu_torch.drivers``, ``.examples``):
+             (a) ``graft_entry.entry()``'s flagship forward on zero tokens
+             (4, 256): logits (4, 256, 32768), finite; (b) the
+             long-context training path through ``bench_longctx``'s
+             ``measure_point`` (remat "dots", AdamW): the "pallas" column at
+             (4096, 2) and (8192, 1) and the "xla" column at (4096, 2), 2
+             steps a chunk, 1 warm and 1 timed chunk, the flash kernels
+             launched 24 / 12 / 12 a step (forward and recompute, dq, dk/dv),
+             all on the tensor cores, finite losses, the first step's loss
+             of "pallas" at 4096 within LONGCTX_LOSS_REL of "xla"'s on the
+             same params and tokens, peak memory per point; (c)
+             ``bench_serving``'s prefill and decode rows and its
+             ``continuous_bf16`` and ``continuous_moe_dropless`` engines;
+             (d) ``graft_entry.dryrun_multichip(8)``: the eleven parallel
+             schedules on eight gloo rank processes on the card host's CPU
+             (or the budget's notice); (e) the three walkthroughs in child
+             processes on the card, each rc 0, beside (d). Prints its wall.
 4. numerics — the scoring forward through the flash kernel against the dense
              attention path on the same weights, the KV-cache prefill
              against the full forward, one micro-batch's training loss
@@ -336,7 +353,8 @@ Phases, each fatal on failure:
              between the two (a flip passes only at a near-tie).
 5. times   — each kernel, its plain version and one PyTorch library call
              computing the same function, at the main paths' shapes (2.1 at
-             the serving and at the training shape), with achieved TFLOP/s
+             the serving and at the training shape; 2.1-2.3 at 3b's
+             long-context shapes (2, 4095) and (1, 8191)), with achieved TFLOP/s
              and the fraction of the bound each kernel reaches; 2.2 and 2.3
              also on their CUDA-core route and beside the row-delta
              reduction they read; one profiled training micro-step and
@@ -468,6 +486,20 @@ PARALLEL_FLASH_SHAPES = (
     (TRAIN_BATCH, TRAIN_SEQ, 8, 4, 128, "bfloat16", True),
     (1, TRAIN_SEQ - 1, 16, 8, 128, "bfloat16", True),
 )
+# The long-context training path's flash calls (S - 1 after the shift),
+# held to the plain versions in phase 2 and timed in phase 5: the
+# flagship's heads at (2, 4095) and (1, 8191), bf16, causal.
+LONGCTX_FLASH_SHAPES = ((2, 4095, 16, 8, 128), (1, 8191, 16, 8, 128))
+# Phase 3b, the root scripts' twins. (b)'s long-context points (seq, batch,
+# attn), each LONGCTX_STEPS steps a chunk, one warm and one timed chunk;
+# the first step's loss of "pallas" within LONGCTX_LOSS_REL of "xla"'s
+# at the same length (check_train_numerics' bound for the same pair at
+# S = 1024). (d) runs under DRYRUN_BUDGET_S; (e)'s children each get
+# EXAMPLE_TIMEOUT_S.
+LONGCTX_POINTS = ((4096, 2, "pallas"), (4096, 2, "xla"), (8192, 1, "pallas"))
+LONGCTX_STEPS, LONGCTX_LOSS_REL = 2, 1e-2
+DRYRUN_BUDGET_S, EXAMPLE_TIMEOUT_S = 90, 300
+EXAMPLES = ("train_from_text", "serving_stack", "multi_tenant")
 # Phase 3v, the serving tier: 3s's script (8 slots, bucket 128, slabs of
 # 512) through serve backends behind the port's gateway; (c)'s tp2
 # engines from SERVE_SEED's weights, the dense one at the flagship's
@@ -626,10 +658,14 @@ CHECK_STEPS = {"score": 6, "mm": 8}
 CHECK_WEIGHTS = {"score": 256, "mm": 512}
 CHECK_ROUND_LIMIT = 64
 CHECK_CHILD_TIMEOUT_S = 300
-# The checker's verdict on the port's tree: no finding, and the four
-# justified suppressions the reference's own tree carries, in its order.
-CHECK_SUPPRESSED = ("rollout-push", "perf-dispatch-alloc",
-                    "perf-dispatch-alloc", "perf-emit-in-loop")
+# The checker's verdict on the port's tree: no finding, and its justified
+# suppressions in path order: the serving walkthrough's three direct
+# engine submits (``examples/serving_stack.py``; the reference's copy lies
+# outside its package's scan), then the four the reference's own tree
+# carries.
+CHECK_SUPPRESSED = ("gw-direct-submit",) * 3 + (
+    "rollout-push", "perf-dispatch-alloc", "perf-dispatch-alloc",
+    "perf-emit-in-loop")
 # Phase 3f, the foreign tenants and their observers: three tenants adopted
 # through Job.foreign (profile_every=1, a first slice of OBSERVER_TSLICE_US)
 # in one credit Partition under a FeedbackPolicy ticking every round:
@@ -723,9 +759,10 @@ def flash_against_plain(torch, q, k, v, causal, out_f32=False):
 # each check the smallest BWD_REL that would have passed is printed. On an
 # H100 that was <= 1.7e-6 (bf16, where the 2^-8 term carries most of the
 # rounding; the ring's full (2, 512) blocks) and <= 1.7e-6 (fp32,
-# summation order over up to 2048 keys); 1e-5 keeps
-# room for other seeds and lengths and is 100x tighter than a wrong
-# kernel's error.
+# summation order over up to 2048 keys); at the long-context shapes bf16
+# needed 2.0e-6 at (2, 4095) and 4.3e-6 at (1, 8191), whose gradient
+# sums run over up to 8191 terms. 1e-5 keeps room for other
+# seeds and is 100x tighter than a wrong kernel's error.
 BWD_REL = {"bfloat16": 1e-5, "float32": 1e-5}
 
 
@@ -836,7 +873,9 @@ def check_kernels(torch, gen) -> None:
             (2, 384, 8, 2, 64, torch.float32, True),
             # the training path's call: S - 1 = 1023 after the shift
             (TRAIN_BATCH, TRAIN_SEQ - 1, 16, 8, 128, torch.bfloat16, True),
-            *parallel_flash_shapes(torch)):
+            *parallel_flash_shapes(torch),
+            *((*shape, torch.bfloat16, True)
+              for shape in LONGCTX_FLASH_SHAPES)):
         for out_f32 in (False, True):
             before = dict(flash_attention_cuda.launches_by_route)
             ok, err_o, err_l, limit = flash_against_plain(
@@ -860,11 +899,17 @@ def check_kernels(torch, gen) -> None:
             (2, 384, 8, 2, 64, torch.float32, True),
             # the training path's call: S - 1 = 1023 after the shift
             (TRAIN_BATCH, TRAIN_SEQ - 1, 16, 8, 128, torch.bfloat16, True),
-            *parallel_flash_shapes(torch)):
+            *parallel_flash_shapes(torch),
+            *((*shape, torch.bfloat16, True)
+              for shape in LONGCTX_FLASH_SHAPES)):
         # (dlse, o and do fp32): no lse cotangent; the reference's lse
-        # variant; the ring's flash blocks (bf16 o and do, fp32 dlse)
-        for with_dlse, out_f32 in ((False, False), (True, True),
-                                   (True, False)):
+        # variant; the ring's flash blocks (bf16 o and do, fp32 dlse).
+        # The long-context shapes take the two tensor-core variants (a
+        # bf16 do), the ones their training path launches and the ring's.
+        variants = (((False, False), (True, False))
+                    if (B, S, H, Hkv, hd) in LONGCTX_FLASH_SHAPES else
+                    ((False, False), (True, True), (True, False)))
+        for with_dlse, out_f32 in variants:
             ok, err, need, limit, routes = bwd_against_plain(
                 torch, gen, *qkv(B, S, H, Hkv, hd, dtype), causal, with_dlse,
                 out_f32)
@@ -6817,13 +6862,14 @@ def foreign_tenants(torch, gen, cfg, params, device, score_shape: tuple,
 
 
 def pbst_child(args: list, cwd: str | None = None,
-               timeout: float = CHECK_CHILD_TIMEOUT_S) -> dict:
-    """``pbst-torch ARGS`` in a child interpreter: its exit code, stdout,
-    stderr and wall seconds."""
+               timeout: float = CHECK_CHILD_TIMEOUT_S,
+               module: str = "pbs_tpu_torch.cli.pbst") -> dict:
+    """``pbst-torch ARGS`` (or ``python -m MODULE ARGS``) in a child
+    interpreter: its exit code, stdout, stderr and wall seconds."""
     repo = os.path.dirname(os.path.abspath(__file__))
     t = time.monotonic()
     proc = subprocess.run(
-        [sys.executable, "-m", "pbs_tpu_torch.cli.pbst", *args],
+        [sys.executable, "-m", module, *args],
         cwd=cwd or repo, env=dict(os.environ, PYTHONPATH=repo),
         capture_output=True, text=True, timeout=timeout)
     return dict(rc=proc.returncode, out=proc.stdout, err=proc.stderr,
@@ -8136,6 +8182,155 @@ def run_serve_path(torch, cfg, params, a_tokens: dict, card: str):
     return launches, routes
 
 
+# -- phase 3b ----------------------------------------------------------------
+
+
+def longctx_points(torch, card: str) -> dict:
+    """Phase 3b (b): :data:`LONGCTX_POINTS` through ``bench_longctx``'s
+    ``measure_point`` on the card, the flash kernels' launches counted
+    per point from 0. Returns, per (seq, attn), the row, the raw
+    measurement and the launches by kernel and route."""
+    from pbs_tpu_torch.drivers import bench_longctx
+    from pbs_tpu_torch.drivers.bench_common import release
+    from pbs_tpu_torch.drivers.graft_entry import _flagship_cfg
+
+    wrappers = bwd_counts()
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+             "instrumented_matmul")
+    cfg = _flagship_cfg()
+    out = {}
+    for seq, batch, attn in LONGCTX_POINTS:
+        release("cuda")
+        reset_counts(wrappers)
+        row, m = bench_longctx.measure_point(
+            cfg, seq, batch, attn, warm_chunks=1, timed_chunks=1,
+            device="cuda", steps=LONGCTX_STEPS)
+        torch.cuda.synchronize()
+        counts = {n: w.launches for n, w in zip(names, wrappers)}
+        routes = {n: dict(w.launches_by_route)
+                  for n, w in zip(names, wrappers)}
+        steps = 2 * LONGCTX_STEPS
+        per_step = (24, 12, 12, 0) if attn == "pallas" else (0, 0, 0, 0)
+        want = {n: k * steps for n, k in zip(names, per_step)}
+        on_tc = all(routes[n]["simt"] == 0 for n in names)
+        check(counts == want and on_tc and math.isfinite(m["loss"])
+              and math.isfinite(m["first_loss"]),
+              f"longctx {attn} ({seq}, {batch}): {steps} steps, launches "
+              f"{counts} == {want} (24 / 12 / 12 a step for the flash "
+              f"column), all \"wgmma\" {on_tc}, losses {m['first_loss']:.4f}"
+              f" -> {m['loss']:.4f} finite")
+        print(f"    {json.dumps(row)}; peak {m['peak_gib']:.2f} GiB "
+              f"allocated [{card}]", flush=True)
+        out[(seq, attn)] = dict(row=row, m=m, launches=counts,
+                                routes=routes)
+    release("cuda")
+    for seq in sorted({s for s, _ in out}):
+        cols = {a: out[(s, a)] for s, a in out if s == seq}
+        if {"xla", "pallas"} <= set(cols):
+            fl, dl = (cols[a]["m"]["first_loss"] for a in ("pallas", "xla"))
+            rel = abs(fl - dl) / abs(dl)
+            check(rel < LONGCTX_LOSS_REL,
+                  f"longctx ({seq}): first-step loss, flash {fl:.5f} vs "
+                  f"dense {dl:.5f} on the same params and tokens, rel "
+                  f"{rel:.2e} < {LONGCTX_LOSS_REL:g}")
+            print(f"    pallas_speedup at {seq}: "
+                  f"{cols['pallas']['m']['tokens_per_s'] / cols['xla']['m']['tokens_per_s']:.3f}"
+                  f" (tokens/s {cols['pallas']['m']['tokens_per_s']:.1f} vs "
+                  f"{cols['xla']['m']['tokens_per_s']:.1f})", flush=True)
+    return out
+
+
+def run_drivers_path(torch, card: str):
+    """Phase 3b on the card: (a)-(e) of the module docstring. Returns the
+    four kernels' launches and routes over the phase (all of them (b)'s
+    flash column), and (b)'s launches per long-context shape."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pbs_tpu_torch.drivers import bench_serving, graft_entry
+    from pbs_tpu_torch.drivers.bench_common import release
+
+    t_phase = time.monotonic()
+    reset_counts(bwd_counts())
+    fn, (params, tokens) = graft_entry.entry()
+    t0 = time.monotonic()
+    logits = fn(params, tokens)
+    torch.cuda.synchronize()
+    ms = (time.monotonic() - t0) * 1e3
+    check(tuple(logits.shape) == (4, 256, 32768)
+          and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()),
+          f"(a) entry(): flagship forward on zeros (4, 256) -> logits "
+          f"{tuple(logits.shape)} {str(logits.dtype)[6:]}, finite, "
+          f"{ms:.1f} ms with its first call [{card}]")
+    del fn, params, tokens, logits
+    release("cuda")
+
+    print("  (b) long-context training path", flush=True)
+    points = longctx_points(torch, card)
+
+    print("  (c) bench_serving rows", flush=True)
+    sz = bench_serving.sizes(False)
+    cfg, params, prompt = bench_serving.setup(False, "cuda")
+    row, prefill_ms = bench_serving.prefill_row(cfg, params, prompt,
+                                                sz["new_tokens"], "cuda",
+                                                reps=5)
+    print(f"    {json.dumps(row)}", flush=True)
+    drow = bench_serving.decode_row(cfg, params, prompt, sz["new_tokens"],
+                                    "cuda", prefill_ms, iters=1)
+    print(f"    {json.dumps(drow)}", flush=True)
+    check(row["value"] > 0 and drow["value"] > 0,
+          f"(c) prefill {row['value']} ms at ({sz['batch']}, "
+          f"{sz['prompt_len']}), decode {drow['value']} tokens/s over "
+          f"{sz['new_tokens']} new tokens")
+    names = ("continuous_bf16", "continuous_moe_dropless")
+    rows, _ = bench_serving.run_engines(
+        bench_serving.engine_factories(cfg, params, "cuda", sz), names,
+        bench_serving.engine_prompts(sz["n_slots"]), sz["eng_new"], "cuda")
+    check(all("error" not in r and r["requests"] == 2 * sz["n_slots"]
+              for r in rows),
+          f"(c) engines {list(names)}: every request completed, no error "
+          f"row [{card}]")
+    del cfg, params, prompt
+    release("cuda")
+
+    print("  (d) dryrun_multichip(8) on the host's CPU, (e) the "
+          "walkthroughs on the card beside it", flush=True)
+    tmp, _ = paging_dir("3b")
+    try:
+        with ThreadPoolExecutor(len(EXAMPLES)) as ex:
+            kids = {n: ex.submit(
+                pbst_child, ["--workdir", tmp] if n == "train_from_text"
+                else [], timeout=EXAMPLE_TIMEOUT_S,
+                module=f"pbs_tpu_torch.examples.{n}") for n in EXAMPLES}
+            dry = graft_entry.dryrun_multichip(8, budget_s=DRYRUN_BUDGET_S)
+            kids = {n: f.result() for n, f in kids.items()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    n_run = len(dry["losses"])
+    check(n_run + len(dry["skipped"]) == 11 and n_run >= 4,
+          f"(d) dryrun_multichip(8): {n_run} of 11 schedules ran, skipped "
+          f"{dry['skipped'] or 'none'} (budget {DRYRUN_BUDGET_S} s)")
+    for n, k in kids.items():
+        tail = " | ".join(k["out"].strip().splitlines()[-2:])
+        check(k["rc"] == 0,
+              f"(e) examples.{n}: rc {k['rc']} in {k['wall']:.1f} s: "
+              f"{tail[:200]}" + (f"\n{k['err'][-1500:]}" if k["rc"] else ""))
+
+    per_shape = {}
+    for shape in LONGCTX_FLASH_SHAPES:
+        p = points[(shape[1] + 1, "pallas")]
+        per_shape[shape[:2]] = (p["launches"], p["routes"])
+    launches = {k: sum(p["launches"][k] for p in points.values())
+                for k in KERNELS}
+    routes = {k: {r: sum(p["routes"][k][r] for p in points.values())
+                  for r in ("wgmma", "simt")} for k in KERNELS}
+    print(f"  launches (a)-(e) {launches}, by route {routes}", flush=True)
+    print(f"  phase 3b wall {time.monotonic() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return launches, routes, per_shape
+
+
 # -- phase 4 -----------------------------------------------------------------
 
 
@@ -8333,17 +8528,18 @@ def unaligned_copy(torch, t):
     return out
 
 
-def time_bwd_kernels(torch, gen, launches, routes) -> list:
-    """Kernels 2.2 and 2.3 at the training path's shape (bf16 o and do,
-    no lse cotangent, as the model calls them), beside their CUDA-core
-    route on the same values (through an unaligned copy of q), the
-    row-delta reduction they read, the plain backward and one library
-    call, SDPA's backward, each of the last two computing dq, dk and dv
-    together."""
+def time_bwd_kernels(torch, gen, launches, routes, B=TRAIN_BATCH,
+                     S=TRAIN_SEQ - 1, path="training", suffix="",
+                     simt=True, iters=20) -> list:
+    """Kernels 2.2 and 2.3 at a training path's shape (bf16 o and do,
+    no lse cotangent, as the model calls them; the rows named with
+    ``suffix``), beside (``simt``) their CUDA-core route on the same
+    values (through an unaligned copy of q), the row-delta reduction
+    they read, the plain backward and one library call, SDPA's backward,
+    each of the last two computing dq, dk and dv together."""
     from pbs_tpu_torch.ops import attention as A
 
-    B, S, H, Hkv = TRAIN_BATCH, TRAIN_SEQ - 1, FLAGSHIP["n_heads"], \
-        FLAGSHIP["n_kv_heads"]
+    H, Hkv = FLAGSHIP["n_heads"], FLAGSHIP["n_kv_heads"]
     hd = FLAGSHIP["d_model"] // H
     q = torch.randn(B, S, H, hd, device="cuda", generator=gen).bfloat16()
     k = torch.randn(B, S, Hkv, hd, device="cuda", generator=gen).bfloat16()
@@ -8351,16 +8547,18 @@ def time_bwd_kernels(torch, gen, launches, routes) -> list:
     o, lse = A.flash_attention_cuda(q, k, v, True)
     do = torch.randn(o.shape, device="cuda", generator=gen).bfloat16()
     row = A._row_delta(o, do, None)
-    qu = unaligned_copy(torch, q)
+    qu = unaligned_copy(torch, q) if simt else None
     check(A.backward_route(q, k, v, do) == "wgmma"
-          and A.backward_route(qu, k, v, do) == "simt",
-          "backward routes at the training path's shape: wgmma, and simt "
-          "for an unaligned copy of q")
+          and (qu is None or A.backward_route(qu, k, v, do) == "simt"),
+          f"backward routes at the {path} path's shape: wgmma"
+          + (", and simt for an unaligned copy of q" if simt else ""))
     ref = A.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o,
                                       lse, do.float(), None, True)
     limit = BWD_REL["bfloat16"]
     errs = {}
     for route, qq in (("wgmma", q), ("simt", qu)):
+        if qq is None:
+            continue
         dq = A.flash_attention_bwd_dq_cuda(qq, k, v, do, lse, row, True)
         dk, dv = A.flash_attention_bwd_dkv_cuda(qq, k, v, do, lse, row, True)
         oks, err = [], []
@@ -8370,9 +8568,9 @@ def time_bwd_kernels(torch, gen, launches, routes) -> list:
                              + BF16_HALF_ULP * want.abs()).all()))
             err.append(float(diff.max()))
         errs[route] = (oks, err)
-        check(all(oks), f"flash bwd ({route}) at the training path's shape: "
-                        f"dq/dk/dv |g-ref| max {err} <= {limit:g} max|ref| "
-                        f"+ {BF16_HALF_ULP:g}|ref|")
+        check(all(oks), f"flash bwd ({route}) at the {path} path's shape "
+                        f"({B}, {S}): dq/dk/dv |g-ref| max {err} <= "
+                        f"{limit:g} max|ref| + {BF16_HALF_ULP:g}|ref|")
 
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
@@ -8383,15 +8581,11 @@ def time_bwd_kernels(torch, gen, launches, routes) -> list:
     lib_rel = rel_err(lib_dq, ref[0])
     check(lib_rel < 0.05, f"library SDPA backward ({backend}): dq rel err "
                           f"{lib_rel:.2e} < 0.05 against the plain fp32 dq")
-    t = timed_in_turns(torch, {
+    fns = {
         "dq": lambda: A.flash_attention_bwd_dq_cuda(q, k, v, do, lse, row,
                                                      True),
         "dkv": lambda: A.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, row,
                                                        True),
-        "dq_simt": lambda: A.flash_attention_bwd_dq_cuda(qu, k, v, do, lse,
-                                                          row, True),
-        "dkv_simt": lambda: A.flash_attention_bwd_dkv_cuda(qu, k, v, do, lse,
-                                                            row, True),
         "row_delta": lambda: A._row_delta(o, do, None),
         "plain": lambda: A.flash_attention_bwd_plain(q, k, v, o, lse, do,
                                                      None, True),
@@ -8399,7 +8593,13 @@ def time_bwd_kernels(torch, gen, launches, routes) -> list:
         "library": lambda: [torch.autograd.grad(out, (qt, kt, vt), dot,
                                                 retain_graph=True)
                             for _ in range(5)],
-    }, iters=20)
+    }
+    if simt:
+        fns["dq_simt"] = lambda: A.flash_attention_bwd_dq_cuda(
+            qu, k, v, do, lse, row, True)
+        fns["dkv_simt"] = lambda: A.flash_attention_bwd_dkv_cuda(
+            qu, k, v, do, lse, row, True)
+    t = timed_in_turns(torch, fns, iters=iters)
     t["library"] /= 5
     pairs = S * (S + 1) // 2  # causal (query, key) pairs per (b, h)
     shape = (f"q ({B},{S},{H},{hd}) k/v ({B},{S},{Hkv},{hd}) bf16 causal, "
@@ -8415,11 +8615,11 @@ def time_bwd_kernels(torch, gen, launches, routes) -> list:
              2 * 2 * B * S * Hkv * hd, max(err[1:]), all(oks[1:]))):
         bms, by = bound(flops, in_bytes + out_bytes)
         entry = dict(
-            name=name, route="cuda", kernel_route=route_of(routes[name]),
-            **KERNELS[name], launches=launches[name],
-            launches_by_route=routes[name],
-            path="training", max_abs_err=e, ms=t[key],
-            simt_ms=t[f"{key}_simt"], row_delta_ms=t["row_delta"],
+            name=name + suffix, route="cuda",
+            kernel_route=route_of(routes[name]), **KERNELS[name],
+            launches=launches[name], launches_by_route=routes[name],
+            path=path, max_abs_err=e, ms=t[key],
+            simt_ms=t.get(f"{key}_simt"), row_delta_ms=t["row_delta"],
             plain_ms=t["plain"], library_ms=t["library"],
             library_backend=backend, bound_ms=bms, bound_by=by, ok=ok,
             tolerance=f"|g-ref| <= {limit:g} max|ref| + {BF16_HALF_ULP:g}"
@@ -8519,7 +8719,8 @@ def redesign_rates(row: dict, flops: float) -> dict:
                 bound_fraction=row["bound_ms"] / row["ms"])
 
 
-def time_flash_fwd(torch, gen, B, S, launches, routes, path) -> dict:
+def time_flash_fwd(torch, gen, B, S, launches, routes, path,
+                   name=None, iters=10) -> dict:
     """Kernel 2.1 at one main path's shape (bf16, causal, bf16 o), held
     against its plain version, timed beside it and beside SDPA."""
     import torch.nn.functional as F
@@ -8541,13 +8742,13 @@ def time_flash_fwd(torch, gen, B, S, launches, routes, path) -> dict:
         "plain_ms": lambda: flash_attention_plain(q, k, v, True),
         "library_ms": lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True),
-    }, iters=10)
+    }, iters=iters)
     pairs = S * (S + 1) // 2  # causal (query, key) pairs per (b, h)
     flops = 4 * B * H * hd * pairs
     nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * Hkv * hd) + 4 * B * S * H
     bms, by = bound(flops, nbytes)
-    row = dict(name="flash_fwd" if path == "serving"
-               else "flash_fwd_training_shape", route="cuda",
+    row = dict(name=name or ("flash_fwd" if path == "serving"
+                             else "flash_fwd_training_shape"), route="cuda",
                kernel_route=route_of(routes), **KERNELS["flash_fwd"],
                launches=launches, launches_by_route=routes, path=path,
                max_abs_err=err, **t, bound_ms=bms, bound_by=by, ok=ok,
@@ -8559,7 +8760,7 @@ def time_flash_fwd(torch, gen, B, S, launches, routes, path) -> dict:
 
 
 def time_kernels(torch, gen, launches, routes, train_launches,
-                 train_routes) -> list:
+                 train_routes, long_launches) -> list:
     from pbs_tpu_torch.ops.matmul import (instrumented_matmul_cuda,
                                           instrumented_matmul_plain)
 
@@ -8570,6 +8771,15 @@ def time_kernels(torch, gen, launches, routes, train_launches,
                            train_launches["flash_fwd"],
                            train_routes["flash_fwd"], "training")]
     rows += time_bwd_kernels(torch, gen, train_launches, train_routes)
+    # the long-context path's shapes (phase 3b (b)'s flash column)
+    for (B, S), (l_launches, l_routes) in long_launches.items():
+        suffix = f"_longctx_s{S}"
+        rows.append(time_flash_fwd(torch, gen, B, S, l_launches["flash_fwd"],
+                                   l_routes["flash_fwd"], "long-context",
+                                   name="flash_fwd" + suffix, iters=5))
+        rows += time_bwd_kernels(torch, gen, l_launches, l_routes, B, S,
+                                 "long-context", suffix, simt=False,
+                                 iters=5)
 
     a, b = mm_operands(torch, gen)
     blk = MM_BLOCK
@@ -8603,9 +8813,10 @@ def time_kernels(torch, gen, launches, routes, train_launches,
     for r in rows:
         rates = (f", {r['tflops']:.1f} TFLOP/s, {r['bound_fraction']:.3f} "
                  f"of the bound" if "tflops" in r else "")
-        if "simt_ms" in r:
-            rates += (f"; CUDA-core route {r['simt_ms']:.4f} ms, row delta "
-                      f"{r['row_delta_ms']:.4f} ms; library: "
+        if r.get("simt_ms") is not None:
+            rates += f"; CUDA-core route {r['simt_ms']:.4f} ms"
+        if "row_delta_ms" in r:
+            rates += (f"; row delta {r['row_delta_ms']:.4f} ms; library: "
                       f"{r['library_backend']}")
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, "
               f"library {r['library_ms']}, bound {r['bound_ms']:.4f} "
@@ -8815,6 +9026,12 @@ def main() -> int:
     v_launches, v_routes = run_serve_path(torch, cfg, params, a_tokens,
                                           card_line())
 
+    phase("3b drivers: entry(), the long-context training path through the "
+          "flash kernels at 4K and 8K, bench_serving's rows, "
+          "dryrun_multichip(8) on the host's CPU, the three walkthroughs")
+    b_launches, b_routes, long_launches = run_drivers_path(torch,
+                                                           card_line())
+
     phase("4 numerics at width")
     check_numerics(torch, gen, cfg, params)
     del params
@@ -8824,10 +9041,10 @@ def main() -> int:
 
     phase("5 times at the main paths' shapes")
     rows = time_kernels(torch, gen, launches, routes, train_launches,
-                        train_routes)
+                        train_routes, long_launches)
     for r in rows:  # phase 3m's launches of the same kernel
-        kernel = "flash_fwd" if r["name"].startswith("flash_fwd") \
-            else r["name"]
+        kernel = next(k for k in KERNELS
+                      if r["name"] == k or r["name"].startswith(k + "_"))
         r["measured_path_launches"] = m_launches[kernel]
         r["measured_path_launches_by_route"] = m_routes[kernel]
         # phase 3s's run: 2.1 (score) and 2.4 (mm) beside the engine
@@ -8875,6 +9092,9 @@ def main() -> int:
         # engines, which launch none of the four
         r["serve_path_launches"] = v_launches[kernel]
         r["serve_path_launches_by_route"] = v_routes[kernel]
+        # phase 3b (b): the long-context flash column's steps
+        r["drivers_path_launches"] = b_launches[kernel]
+        r["drivers_path_launches_by_route"] = b_routes[kernel]
     profile_micro_step(torch, micro_step, train_state)
     del micro_step, train_state
     profile_micro_step(torch, moe_step, moe_state, what="MoE training step")

@@ -44,6 +44,15 @@ START_TIMEOUT_S = 120.0
 FAILED_GRACE_S = 3.0
 
 
+def listen(address: str, authkey: bytes, world_size: int) -> Listener:
+    """The pool's AF_UNIX listener, its backlog room for every rank: the
+    ranks connect all at once, and a connect that finds the backlog full
+    fails at once (EAGAIN) where the socket has a timeout, rather than
+    waiting for the accepting thread."""
+    return Listener(address, family="AF_UNIX", authkey=authkey,
+                    backlog=world_size)
+
+
 class RankPool:
     """``world_size`` rank processes in one process group."""
 
@@ -53,8 +62,7 @@ class RankPool:
         self._dir = tempfile.mkdtemp(prefix="pbst-ranks-")
         address = os.path.join(self._dir, "pool.sock")
         authkey = os.urandom(16)
-        self._listener = Listener(address, family="AF_UNIX",
-                                  authkey=authkey)
+        self._listener = listen(address, authkey, world_size)
         child_env = dict(os.environ, **(env or {}))
         child_env["PYTHONPATH"] = os.pathsep.join(
             [str(_ROOT)] + [p for p in child_env.get("PYTHONPATH", "")

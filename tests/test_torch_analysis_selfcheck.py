@@ -33,8 +33,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "pbs_tpu_torch")
 REF_PKG = os.path.join(REPO, "pbs_tpu")
 
-#: The reference's justified suppressions, in its order.
-SUPPRESSED = [
+#: The serving walkthrough's file-level suppression: the port keeps the
+#: walkthroughs inside its package (``pbs_tpu_torch/examples/``), where
+#: the scan reaches them; the reference keeps its copy outside its own.
+WALKTHROUGH = ("pbs_tpu_torch/examples/serving_stack.py",
+               "the walkthrough shows the engine itself, below the gateway "
+               "that fronts it in deployment (the reference's copy lives "
+               "outside its package's scan)")
+#: The port tree's justified suppressions in path order: the
+#: walkthrough's three direct engine submits, then the reference's four
+#: in its order.
+SUPPRESSED = [("gw-direct-submit", WALKTHROUGH[1])] * 3 + [
     ("rollout-push",
      "chaos harness IS the adversary: the knob plan injects raw "
      "mid-run pushes to prove the consumers survive them; "
@@ -64,21 +73,25 @@ def test_repo_tree_is_clean(tree_result):
     assert r.passes_run == pass_ids()
     assert r.findings == [], "\n" + format_human(r)
     assert [(fi.check, j) for fi, j in r.suppressed] == SUPPRESSED
-    assert [fi.path for fi, _ in r.suppressed] == [
+    assert [fi.path for fi, _ in r.suppressed] == [WALKTHROUGH[0]] * 3 + [
         "pbs_tpu_torch/gateway/chaos.py", "pbs_tpu_torch/sim/engine.py",
         "pbs_tpu_torch/sim/engine.py", "pbs_tpu_torch/sim/native_core.py"]
 
 
 def test_suppressions_are_the_reference_s_in_its_order():
     """Rules, scope and justification of each suppression comment equal
-    the reference tree's, one for one, at the same files."""
+    the reference tree's, one for one, at the same files; the port adds
+    only the serving walkthrough's, which the reference keeps outside
+    its package."""
     def view(sups, pkg):
         return [(s["path"].removeprefix(pkg), s["rules"], s["scope"],
                  s["justification"]) for s in sups]
 
     got = view(list_suppressions([PKG], root=REPO), "pbs_tpu_torch/")
     want = view(ref.list_suppressions([REF_PKG], root=REPO), "pbs_tpu/")
-    assert got == want and len(got) == 4
+    assert got[0] == ("examples/serving_stack.py", ["gw-direct-submit"],
+                      "file", WALKTHROUGH[1])
+    assert got[1:] == want and len(want) == 4
 
 
 def test_both_native_sources_are_in_the_scan_set():
@@ -98,24 +111,25 @@ def test_cli_selfcheck_json_exit_zero(capsys):
     d = json.loads(capsys.readouterr().out)
     assert d["findings"] == []
     assert [s["check"] for s in d["suppressed"]] == \
-        ["rollout-push"] + ["perf-dispatch-alloc"] * 2 + \
-        ["perf-emit-in-loop"]
+        ["gw-direct-submit"] * 3 + ["rollout-push"] + \
+        ["perf-dispatch-alloc"] * 2 + ["perf-emit-in-loop"]
 
 
 def test_list_suppressions_pins_the_trees_escape_hatch_count(capsys):
-    """The count is pinned at the reference's 4, at the port's paths."""
+    """The count is pinned at the reference's 4 plus the serving
+    walkthrough's one, at the port's paths."""
     assert main(["check", PKG, "--list-suppressions",
                  "--format", "json"]) == 0
     d = json.loads(capsys.readouterr().out)
-    assert d["count"] == 4
+    assert d["count"] == 5
     assert all(s["justification"] for s in d["suppressions"])
     paths = sorted({s["path"] for s in d["suppressions"]})
-    assert paths == ["pbs_tpu_torch/gateway/chaos.py",
+    assert paths == [WALKTHROUGH[0], "pbs_tpu_torch/gateway/chaos.py",
                      "pbs_tpu_torch/sim/engine.py",
                      "pbs_tpu_torch/sim/native_core.py"]
     assert main(["check", PKG, "--list-suppressions"]) == 0
     out = capsys.readouterr().out
-    assert "4 suppression(s)" in out
+    assert "5 suppression(s)" in out
     assert "NO JUSTIFICATION" not in out
 
 
@@ -131,7 +145,7 @@ def test_default_path_is_the_port_tree(capsys):
     finally:
         os.chdir(cwd)
     d = json.loads(capsys.readouterr().out)
-    assert d["count"] == 4
+    assert d["count"] == 5
     assert all(s["path"].startswith("pbs_tpu_torch/")
                for s in d["suppressions"])
 

@@ -19,6 +19,8 @@ Each test asserts which route its launch took.
 
 from __future__ import annotations
 
+import math
+
 import pytest
 import torch
 
@@ -674,3 +676,143 @@ def test_wall_watchdog_barks_once_at_a_card_hold(gen):
     with wd:
         part.run()
     assert wd.barks == 1 and barks[0] >= 0.3
+
+
+# -- the twins of tpu_tests/test_on_chip.py's remaining five ------------------
+
+
+def _tiny_cfg(**over):
+    import dataclasses
+
+    from pbs_tpu_torch.drivers.graft_entry import _flagship_cfg
+
+    return dataclasses.replace(_flagship_cfg(tiny=True), **over)
+
+
+@pytest.mark.parametrize("B,S,H,Hkv", [(1, 2048, 8, 4), (2, 4095, 16, 8),
+                                       (1, 8191, 16, 8)],
+                         ids=["S2048", "S4095", "S8191"])
+def test_flash_long_context_numerics(gen, B, S, H, Hkv):
+    """``tpu_tests/test_on_chip.py:127``, extended to the long-context
+    training path's shapes (S - 1 after the shift): the forward at
+    bf16 against the plain version as the online softmax folds up to
+    128 key tiles, on the tensor cores. CPU twin:
+    ``tests/test_torch_attention.py::test_flash_matches_reference``."""
+    q, k, v = _qkv(gen, B, S, H, Hkv, 128, torch.bfloat16)
+    routes = _routes(attention.flash_attention_cuda)
+    o, lse = attention.flash_attention_cuda(q, k, v, True)
+    ref_o, ref_lse = attention.flash_attention_plain(q, k, v, True, True)
+    _assert_close_to_fp32(o, ref_o)
+    assert float((lse - ref_lse).abs().max()) <= 2e-4
+    assert _one_more(routes, _routes(attention.flash_attention_cuda),
+                     "wgmma")
+
+
+def test_pallas_train_step_on_the_card(gen):
+    """``tpu_tests/test_on_chip.py:194``: ``attn_impl="pallas"`` through
+    a full forward, backward and AdamW step (the tiny config in bf16),
+    every flash launch on the tensor cores. CPU twin:
+    ``tests/test_torch_train.py::test_loss_and_grads_match_reference``
+    [pallas]."""
+    from pbs_tpu_torch.models import init_params, make_train_step
+
+    cfg = _tiny_cfg(attn_impl="pallas", dtype=torch.bfloat16)
+    params = init_params(cfg, gen)
+    init_opt, step = make_train_step(cfg, learning_rate=1e-3)
+    toks = torch.randint(0, cfg.vocab, (2, 128), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    wrappers = (attention.flash_attention_cuda,
+                attention.flash_attention_bwd_dq_cuda,
+                attention.flash_attention_bwd_dkv_cuda)
+    before = [_routes(w) for w in wrappers]
+    _, m = step((params, init_opt(params), 0), toks)
+    assert torch.isfinite(m["loss"])
+    grew = [{r: n - b[r] for r, n in _routes(w).items()}
+            for w, b in zip(wrappers, before)]
+    assert grew == [{"wgmma": 2, "simt": 0}, {"wgmma": 2, "simt": 0},
+                    {"wgmma": 2, "simt": 0}]
+
+
+def test_bf16_moments_train_step_on_the_card(gen):
+    """``tpu_tests/test_on_chip.py:213``: ``mu_dtype=torch.bfloat16``
+    through three train steps; both moments stay bf16 on the card. CPU
+    twin: ``tests/test_torch_train.py::
+    test_bf16_adam_moments_storage_and_parity``."""
+    from pbs_tpu_torch.models import init_params, make_train_step
+
+    cfg = _tiny_cfg(dtype=torch.bfloat16)
+    params = init_params(cfg, gen)
+    init_opt, step = make_train_step(cfg, learning_rate=1e-3,
+                                     mu_dtype=torch.bfloat16)
+    state = (params, init_opt(params), 0)
+    toks = torch.randint(0, cfg.vocab, (2, 128), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    for _ in range(3):
+        state, m = step(state, toks)
+    assert torch.isfinite(m["loss"])
+    opt = state[1]
+    assert int(opt["count"]) == 3
+    for moment in ("mu", "nu"):
+        leaf = opt[moment]["layers"]["wq"]
+        assert leaf.dtype == torch.bfloat16 and leaf.is_cuda, moment
+
+
+def test_dropless_moe_serving_on_the_card(gen):
+    """``tpu_tests/test_on_chip.py:243``: a small dropless MoE target
+    serves a prompt through the slot engine with zero drops, token for
+    token the lockstep ``make_moe_generate``'s. CPU twins:
+    ``tests/test_torch_serving.py::test_moe_dropless_engine_matches_reference``
+    and ``tests/test_torch_moe.py::
+    test_moe_generate_token_exact_with_the_drop_fraction``."""
+    from pbs_tpu_torch.models import (ContinuousBatcher, MoEConfig,
+                                      init_moe_params, make_moe_generate)
+    from pbs_tpu_torch.models.moe import moe_slot_mlp
+
+    mcfg = MoEConfig(vocab=256, d_model=256, n_layers=2, n_heads=8,
+                     n_kv_heads=4, d_ff=512, max_seq=128,
+                     dtype=torch.bfloat16, n_experts=4, top_k=2,
+                     dropless=True)
+    mparams = init_moe_params(mcfg, gen)
+    prompt = torch.tensor([[5, 6, 7, 8]], dtype=torch.int32, device="cuda")
+    ref, drop = make_moe_generate(mcfg, 8, temperature=0.0)(mparams, prompt)
+    ref_toks = [int(t) for t in ref[0]]
+    assert float(drop) == 0.0
+    eng = ContinuousBatcher(mcfg, mparams, n_slots=2, prompt_bucket=4,
+                            max_len=32, mlp_fn=moe_slot_mlp(mcfg))
+    eng.submit([5, 6, 7, 8], max_new_tokens=8)
+    got = None
+    for _ in range(100):
+        for c in eng.step():
+            got = [int(t) for t in c.tokens]
+        if not eng.has_work():
+            break
+    assert got == ref_toks, (got, ref_toks)
+    assert eng.stats()["mlp_extra_mean"] == 0.0  # provably dropless
+
+
+def test_chunked_ce_train_step_on_the_card(gen):
+    """``tpu_tests/test_on_chip.py:281``: ``loss_chunks=4`` (the logits
+    never materialize at once) through one train step; its loss within
+    the reference's 5e-3 x max(1, |loss|) of the materialized one. CPU
+    twin: ``tests/test_torch_train.py::
+    test_loss_variants_match_materialized`` [chunked]."""
+    import dataclasses
+
+    from pbs_tpu_torch.models import init_params, make_train_step
+    from pbs_tpu_torch.models.transformer import tree_map
+
+    base = _tiny_cfg(dtype=torch.bfloat16)
+    params = init_params(base, gen)
+    toks = torch.randint(0, base.vocab, (2, 128), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    losses = {}
+    for name, cfg in (("mat", base),
+                      ("chunk", dataclasses.replace(base, loss_chunks=4))):
+        init_opt, step = make_train_step(cfg, learning_rate=1e-3,
+                                         full_seq=True)
+        p = tree_map(torch.clone, params)  # the step updates in place
+        _, m = step((p, init_opt(p), 0), toks)
+        losses[name] = float(m["loss"])
+    assert math.isfinite(losses["chunk"])
+    assert abs(losses["chunk"] - losses["mat"]) < 5e-3 * max(
+        1.0, abs(losses["mat"]))

@@ -245,6 +245,29 @@ def test_parallel_modules_are_covered():
         assert not [t for _, t in _imported_tops(path) if t in FORBIDDEN], m
 
 
+#: The twins of the root scripts and of the three
+#: walkthroughs, in the module list the checks above walk (no JAX,
+#: nothing of ``pbs_tpu``).
+DRIVER_MODULES = tuple(
+    f"pbs_tpu_torch.drivers{m}" for m in (
+        "", ".bench_common", ".graft_entry", ".bench_sim", ".bench_serving",
+        ".bench_longctx", ".bench_sweep", ".bench_decompose")) + tuple(
+    f"pbs_tpu_torch.examples{m}" for m in (
+        "", ".train_from_text", ".serving_stack", ".multi_tenant"))
+
+
+def test_driver_modules_are_covered():
+    names = set(_module_names())
+    missing = [m for m in DRIVER_MODULES if m not in names]
+    assert not missing, missing
+    for m in DRIVER_MODULES:
+        path = PORT.joinpath(*m.split(".")[1:])
+        path = path / "__init__.py" if path.is_dir() else \
+            path.with_suffix(".py")
+        assert not [t for _, t in _imported_tops(path) if t in FORBIDDEN], m
+        assert _native_dir_refs(path) == [], m
+
+
 def test_models_name_no_wait_for_the_parallel_schedules():
     """``parallel/`` and ``serve/`` are ported: the models no longer say
     the sequence-parallel impls and the sharding seams wait for them,

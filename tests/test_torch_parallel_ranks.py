@@ -411,6 +411,32 @@ def test_rank_pool_reports_failures_and_kills_a_hung_rank():
         assert p._procs == []
 
 
+def test_rank_pool_listener_has_room_for_every_rank(tmp_path):
+    """Every rank connects at once, before the pool's thread accepts
+    any: with a timeout on the socket (as the ranks' sockets have once
+    torch.distributed is up) a connect that finds the backlog full fails
+    at once with EAGAIN, so the backlog holds the whole world (8 ranks
+    on the card host lost two this way with the default backlog)."""
+    import socket
+
+    from pbs_tpu_torch.parallel.launch import listen
+
+    address = str(tmp_path / "pool.sock")
+    listener = listen(address, b"key", 8)
+    socks = []
+    try:
+        for _ in range(8):
+            s = socket.socket(socket.AF_UNIX)
+            s.settimeout(2.0)
+            s.connect(address)
+            socks.append(s)
+    finally:
+        for s in socks:
+            s.close()
+        listener.close()
+    assert len(socks) == 8
+
+
 def test_rank_bodies_import_no_reference():
     import subprocess
     import sys
