@@ -343,7 +343,20 @@ Phases, each fatal on failure:
              (d) ``graft_entry.dryrun_multichip(8)``: the eleven parallel
              schedules on eight gloo rank processes on the card host's CPU
              (or the budget's notice); (e) the three walkthroughs in child
-             processes on the card, each rc 0, beside (d). Prints its wall.
+             processes on the card, each rc 0, beside (d); (f) the
+             headline bench's twin (``drivers.bench``): (f1) ``python -m
+             pbs_tpu_torch.drivers.bench`` with no knob, as the driver
+             runs it (batch 6, S 1024, 2 warm and 3 timed chunks of 10
+             steps): its one JSON line without an error, tokens/s > 0, 0
+             < mfu <= 1, a finite loss below the first step's, the
+             flagship's n_params, the card's name; (f2) its worker body
+             in this process with attn "pallas", 2.1-2.3 launched 24 / 12
+             / 12 a step, all on the tensor cores, at the shape phase 2
+             held them at (BENCH_FLASH_SHAPE); (f3) ``--serving-fallback``
+             on the card, alone, every request completed; (f4) with no
+             visible card the error row, rc 1 and no serving number, and
+             a stub worker stalled past a 5 s deadline gone, with its
+             child, when the supervisor returns. Prints its wall.
 4. numerics — the scoring forward through the flash kernel against the dense
              attention path on the same weights, the KV-cache prefill
              against the full forward, one micro-batch's training loss
@@ -490,6 +503,10 @@ PARALLEL_FLASH_SHAPES = (
 # held to the plain versions in phase 2 and timed in phase 5: the
 # flagship's heads at (2, 4095) and (1, 8191), bf16, causal.
 LONGCTX_FLASH_SHAPES = ((2, 4095, 16, 8, 128), (1, 8191, 16, 8, 128))
+# The headline bench's flash call (phase 3b (f2): drivers.bench's BATCH
+# x SEQ - 1 at the flagship's heads), held to the plain versions in
+# phase 2 as the long-context shapes are.
+BENCH_FLASH_SHAPE = (6, 1023, 16, 8, 128)
 # Phase 3b, the root scripts' twins. (b)'s long-context points (seq, batch,
 # attn), each LONGCTX_STEPS steps a chunk, one warm and one timed chunk;
 # the first step's loss of "pallas" within LONGCTX_LOSS_REL of "xla"'s
@@ -500,6 +517,9 @@ LONGCTX_POINTS = ((4096, 2, "pallas"), (4096, 2, "xla"), (8192, 1, "pallas"))
 LONGCTX_STEPS, LONGCTX_LOSS_REL = 2, 1e-2
 DRYRUN_BUDGET_S, EXAMPLE_TIMEOUT_S = 90, 300
 EXAMPLES = ("train_from_text", "serving_stack", "multi_tenant")
+# (f): the headline bench's children get BENCH_CHILD_TIMEOUT_S each; (f4)'s
+# stub stalls past a BENCH_STALL_DEADLINE_S deadline.
+BENCH_CHILD_TIMEOUT_S, BENCH_STALL_DEADLINE_S = 600, 5
 # Phase 3v, the serving tier: 3s's script (8 slots, bucket 128, slabs of
 # 512) through serve backends behind the port's gateway; (c)'s tp2
 # engines from SERVE_SEED's weights, the dense one at the flagship's
@@ -875,7 +895,7 @@ def check_kernels(torch, gen) -> None:
             (TRAIN_BATCH, TRAIN_SEQ - 1, 16, 8, 128, torch.bfloat16, True),
             *parallel_flash_shapes(torch),
             *((*shape, torch.bfloat16, True)
-              for shape in LONGCTX_FLASH_SHAPES)):
+              for shape in (*LONGCTX_FLASH_SHAPES, BENCH_FLASH_SHAPE))):
         for out_f32 in (False, True):
             before = dict(flash_attention_cuda.launches_by_route)
             ok, err_o, err_l, limit = flash_against_plain(
@@ -901,13 +921,15 @@ def check_kernels(torch, gen) -> None:
             (TRAIN_BATCH, TRAIN_SEQ - 1, 16, 8, 128, torch.bfloat16, True),
             *parallel_flash_shapes(torch),
             *((*shape, torch.bfloat16, True)
-              for shape in LONGCTX_FLASH_SHAPES)):
+              for shape in (*LONGCTX_FLASH_SHAPES, BENCH_FLASH_SHAPE))):
         # (dlse, o and do fp32): no lse cotangent; the reference's lse
         # variant; the ring's flash blocks (bf16 o and do, fp32 dlse).
-        # The long-context shapes take the two tensor-core variants (a
-        # bf16 do), the ones their training path launches and the ring's.
+        # The long-context and headline shapes take the two tensor-core
+        # variants (a bf16 do), the ones their training path launches
+        # and the ring's.
         variants = (((False, False), (True, False))
-                    if (B, S, H, Hkv, hd) in LONGCTX_FLASH_SHAPES else
+                    if (B, S, H, Hkv, hd) in (*LONGCTX_FLASH_SHAPES,
+                                              BENCH_FLASH_SHAPE) else
                     ((False, False), (True, True), (True, False)))
         for with_dlse, out_f32 in variants:
             ok, err, need, limit, routes = bwd_against_plain(
@@ -8240,6 +8262,184 @@ def longctx_points(torch, card: str) -> dict:
     return out
 
 
+def bench_child(args=(), env=None, timeout: float = BENCH_CHILD_TIMEOUT_S):
+    """``python -m pbs_tpu_torch.drivers.bench ARGS`` as the driver runs
+    it: no ``PBST_BENCH_*`` knob but those in ``env``. Returns its exit
+    code, its last JSON line (None without one), stdout, stderr and wall
+    seconds."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    child_env = {k: v for k, v in os.environ.items()
+                 if not k.startswith("PBST_BENCH_")}
+    child_env.update(PYTHONPATH=repo, **(env or {}))
+    t = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pbs_tpu_torch.drivers.bench", *args],
+        cwd=repo, env=child_env, capture_output=True, text=True,
+        timeout=timeout)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    return dict(rc=proc.returncode, row=json.loads(lines[-1]) if lines
+                else None, out=proc.stdout, err=proc.stderr,
+                wall=time.monotonic() - t)
+
+
+def pid_running(pid: int) -> bool:
+    """Whether ``pid`` runs (a zombie waiting for its reaper does not)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except FileNotFoundError:
+        return False
+
+
+#: (f4)'s stub worker (and the CPU tests'): a child of its own, both
+#: pids written to the file its first argument names, the backend
+#: marker, then a stall past the deadline.
+STALL_WORKER = (
+    "import os, subprocess, sys, time\n"
+    "kid = subprocess.Popen([sys.executable, '-c', "
+    "'import time; time.sleep(120)'])\n"
+    "open(sys.argv[1], 'w').write(f'{os.getpid()} {kid.pid}')\n"
+    "sys.stderr.write('[bench +  1.0s] backend init: stub\\n')\n"
+    "sys.stderr.write('[bench +  1.1s] compiling train chunk\\n')\n"
+    "sys.stderr.flush()\n"
+    "time.sleep(120)\n"
+)
+
+
+def bench_fault_paths(card: str) -> None:
+    """(f4): the supervisor with no visible card, and with a stub worker
+    that stalls past its deadline."""
+    import shutil
+    import tempfile
+
+    from pbs_tpu_torch.drivers.bench import KILL_GRACE_S
+
+    nocard = bench_child(env={"CUDA_VISIBLE_DEVICES": ""})
+    row = nocard["row"] or {}
+    check(nocard["rc"] == 1 and row.get("metric") ==
+          "flagship_train_throughput" and row.get("value") == 0.0
+          and str(row.get("error", "")).startswith("backend unavailable:")
+          and nocard["err"].count("importing torch") == 1
+          and "gateway_serving_throughput" not in nocard["out"],
+          f"(f4) no visible card: rc {nocard['rc']}, the error row "
+          f"{str(row.get('error'))[:110]!r}, one attempt, no serving "
+          f"number, {nocard['wall']:.1f} s [{card}]")
+    tmp = tempfile.mkdtemp(prefix="bench_stall_")
+    try:
+        stub, pids = os.path.join(tmp, "stub.py"), os.path.join(tmp, "pids")
+        with open(stub, "w") as f:
+            f.write(STALL_WORKER)
+        stalled = bench_child(env={
+            "PBST_BENCH_WORKER_CMD": f"{sys.executable} {stub} {pids}",
+            "PBST_BENCH_TIMEOUT_S": str(BENCH_STALL_DEADLINE_S)})
+        with open(pids) as f:
+            procs = [int(p) for p in f.read().split()]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row = stalled["row"] or {}
+    left = [p for p in procs if pid_running(p)]
+    check(stalled["rc"] == 1 and str(row.get("error", "")).startswith(
+              f"deadline after {BENCH_STALL_DEADLINE_S}s; last stage: ")
+          and "compiling train chunk" in row["error"] and not left
+          and stalled["wall"] < BENCH_STALL_DEADLINE_S + KILL_GRACE_S + 15,
+          f"(f4) a stub stalled past a {BENCH_STALL_DEADLINE_S} s deadline: "
+          f"the error names its last stage, worker and child {procs} gone "
+          f"(left {left}) in {stalled['wall']:.1f} s [{card}]")
+
+
+def run_bench_twin(torch, card: str, device: str = "cuda"):
+    """Phase 3b (f) (the module docstring). On ``device="cpu"`` the same
+    code runs the twin's tiny mode on the host (its CPU twin in
+    tier-1), where no kernel launches. Returns (f2)'s launches and
+    routes."""
+    from pbs_tpu_torch.drivers import bench
+    from pbs_tpu_torch.drivers.bench_common import release
+    from pbs_tpu_torch.drivers.graft_entry import _flagship_cfg
+
+    on_card = device == "cuda"
+    tiny = {} if on_card else {"PBST_BENCH_TINY": "1"}
+    # The tiny model's MFU on the host rounds to 0.0.
+    mfu_ok = (lambda m: 0 < m <= 1) if on_card else (lambda m: m == 0.0)
+    name = torch.cuda.get_device_name(0) if on_card else "cpu"
+    cfg = _flagship_cfg(tiny=not on_card)
+    n_params = cfg.num_params()
+    if on_card:
+        # phase 2 held 2.1-2.3 to their plain versions at (f2)'s call
+        check(BENCH_FLASH_SHAPE == (bench.BATCH, bench.SEQ - 1, cfg.n_heads,
+                                    cfg.n_kv_heads,
+                                    cfg.d_model // cfg.n_heads),
+              f"(f2)'s flash call {BENCH_FLASH_SHAPE} is phase 2's "
+              f"BENCH_FLASH_SHAPE")
+    release(device)
+
+    print("  (f1) the headline, as the driver runs it", flush=True)
+    head = bench_child(env=tiny)
+    row = head["row"] or {}
+    check(head["rc"] == 0 and "error" not in row
+          and row.get("metric") == "flagship_train_throughput"
+          and row.get("value", 0) > 0 and mfu_ok(row.get("mfu"))
+          and math.isfinite(row.get("loss", math.nan))
+          and row.get("n_params") == n_params and row.get("device") == name,
+          f"(f1) drivers.bench: rc {head['rc']}, "
+          f"{row.get('metric')} {row.get('value')} tokens/s, step "
+          f"{row.get('step_ms')} ms, mfu {row.get('mfu')}, n_params "
+          f"{row.get('n_params')}, on {row.get('device')!r} in "
+          f"{head['wall']:.1f} s" + ("" if head["rc"] == 0 else
+                                     f"\n{head['err'][-1500:]}"))
+    print(f"    {json.dumps(row)} [{card}]", flush=True)
+
+    print("  (f2) its worker body here, attn \"pallas\"", flush=True)
+    wrappers = bwd_counts()
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+             "instrumented_matmul")
+    knobs = {**bench.parse_knobs(not on_card), "attn": "pallas"}
+    reset_counts(wrappers)
+    flash, first_loss = bench.measure(knobs, tiny=not on_card,
+                                      device=device,
+                                      t_start=time.perf_counter())
+    if on_card:
+        torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in zip(names, wrappers)}
+    routes = {n: dict(w.launches_by_route) for n, w in zip(names, wrappers)}
+    steps = ((bench.WARMUP_CHUNKS + bench.BENCH_CHUNKS)
+             * bench.STEPS_PER_CHUNK if on_card else 0)
+    want = {n: k * steps for n, k in zip(names, (24, 12, 12, 0))}
+    on_tc = all(routes[n]["simt"] == 0 for n in names)
+    check(launches == want and on_tc and flash["value"] > 0
+          and mfu_ok(flash["mfu"]) and flash["attn"] == "pallas"
+          and "degraded_protocol" not in flash
+          and math.isfinite(flash["loss"]) and flash["loss"] < first_loss,
+          f"(f2) attn \"pallas\": {steps} steps, launches {launches} == "
+          f"{want} (24 / 12 / 12 a step), all \"wgmma\" {on_tc}; "
+          f"{flash['value']} tokens/s, step {flash['step_ms']} ms, mfu "
+          f"{flash['mfu']}; loss {first_loss:.4f} -> {flash['loss']}")
+    check(row["loss"] < first_loss,
+          f"(f1) loss {row['loss']} below the first step's, {first_loss:.4f} "
+          f"(f2's: the same seeded params and tokens)")
+    print(f"    tokens/s: (f1) xla {row['value']}, (f2) pallas "
+          f"{flash['value']} [{card}]", flush=True)
+    release(device)
+
+    # (f3) alone: its host-paced ticks are timed with no other child
+    # running
+    print("  (f3) --serving-fallback", flush=True)
+    served = bench_child(["--serving-fallback"]
+                         + ([] if on_card else ["--device", "cpu"]))
+    srow = served["row"] or {}
+    check(served["rc"] == 0
+          and srow.get("metric") == "gateway_serving_throughput"
+          and srow.get("completions") == srow.get("requests") == 32
+          and srow.get("device") == name,
+          f"(f3) serving mode: rc {served['rc']}, {srow.get('completions')}"
+          f" of {srow.get('requests')} requests, {srow.get('value')} "
+          f"tokens/s, p99 {srow.get('p99_latency_ms')} ms on "
+          f"{srow.get('device')!r}" + ("" if served["rc"] == 0 else
+                                       f"\n{served['err'][-1500:]}"))
+    print("  (f4) the fault paths", flush=True)
+    bench_fault_paths(card)
+    return launches, routes
+
+
 def run_drivers_path(torch, card: str):
     """Phase 3b on the card: (a)-(e) of the module docstring. Returns the
     four kernels' launches and routes over the phase (all of them (b)'s
@@ -8317,15 +8517,19 @@ def run_drivers_path(torch, card: str):
               f"(e) examples.{n}: rc {k['rc']} in {k['wall']:.1f} s: "
               f"{tail[:200]}" + (f"\n{k['err'][-1500:]}" if k["rc"] else ""))
 
+    print("  (f) the headline bench's twin", flush=True)
+    f_launches, f_routes = run_bench_twin(torch, card)
+
     per_shape = {}
     for shape in LONGCTX_FLASH_SHAPES:
         p = points[(shape[1] + 1, "pallas")]
         per_shape[shape[:2]] = (p["launches"], p["routes"])
-    launches = {k: sum(p["launches"][k] for p in points.values())
-                for k in KERNELS}
-    routes = {k: {r: sum(p["routes"][k][r] for p in points.values())
+    runs = [(p["launches"], p["routes"]) for p in points.values()]
+    runs.append((f_launches, f_routes))
+    launches = {k: sum(n[k] for n, _ in runs) for k in KERNELS}
+    routes = {k: {r: sum(rt[k][r] for _, rt in runs)
                   for r in ("wgmma", "simt")} for k in KERNELS}
-    print(f"  launches (a)-(e) {launches}, by route {routes}", flush=True)
+    print(f"  launches (a)-(f) {launches}, by route {routes}", flush=True)
     print(f"  phase 3b wall {time.monotonic() - t_phase:.1f} s [{card}]",
           flush=True)
     return launches, routes, per_shape
@@ -9028,7 +9232,8 @@ def main() -> int:
 
     phase("3b drivers: entry(), the long-context training path through the "
           "flash kernels at 4K and 8K, bench_serving's rows, "
-          "dryrun_multichip(8) on the host's CPU, the three walkthroughs")
+          "dryrun_multichip(8) on the host's CPU, the three walkthroughs, "
+          "the headline bench's twin")
     b_launches, b_routes, long_launches = run_drivers_path(torch,
                                                            card_line())
 
@@ -9092,7 +9297,8 @@ def main() -> int:
         # engines, which launch none of the four
         r["serve_path_launches"] = v_launches[kernel]
         r["serve_path_launches_by_route"] = v_routes[kernel]
-        # phase 3b (b): the long-context flash column's steps
+        # phase 3b (b) and (f2): the long-context flash column's steps
+        # and the headline's worker body with attn "pallas"
         r["drivers_path_launches"] = b_launches[kernel]
         r["drivers_path_launches_by_route"] = b_routes[kernel]
     profile_micro_step(torch, micro_step, train_state)

@@ -3,6 +3,8 @@
 Each module keeps the reference script's name, knobs and JSON keys, and
 runs as ``python -m pbs_tpu_torch.drivers.<name>``:
 
+- :mod:`~pbs_tpu_torch.drivers.bench` — the headline: flagship
+  training tokens/s and MFU in a supervised child (``bench.py``);
 - :mod:`~pbs_tpu_torch.drivers.bench_common` — the shared helpers
   (``bench_common.py``);
 - :mod:`~pbs_tpu_torch.drivers.graft_entry` — ``entry()`` and

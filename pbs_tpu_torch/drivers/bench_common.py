@@ -133,16 +133,53 @@ def release(device) -> None:
         torch.cuda.empty_cache()
 
 
+class TrainingChunks:
+    """The flagship-style training chunk the benches share: fp32 master
+    params and seeded tokens (batch, seq) on ``device``, AdamW at 3e-4.
+    The port has no ``lax.scan``: each :meth:`run` is ``steps`` train
+    steps queued back to back with one synchronise, at the read of its
+    last loss."""
+
+    def __init__(self, cfg, batch: int, seq: int, steps: int, device,
+                 mu_dtype=None, seed: int = 0):
+        import torch
+
+        from pbs_tpu_torch.models import init_params, make_train_step
+
+        dev = torch.device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = init_params(cfg, gen, device=dev)
+        init_opt, self._train_step = make_train_step(
+            cfg, learning_rate=3e-4, mu_dtype=mu_dtype)
+        self._state = (params, init_opt(params), 0)
+        del params
+        self._tokens = torch.randint(0, cfg.vocab, (batch, seq),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)
+        self.steps = steps
+        self.n_params = cfg.num_params()
+        self._first = None  # the first step's loss, read at the end
+
+    def run(self) -> float:
+        """One chunk; returns its last step's loss."""
+        for _ in range(self.steps):
+            self._state, m = self._train_step(self._state, self._tokens)
+            if self._first is None:
+                self._first = m["loss"]
+        return float(m["loss"])  # the chunk's one synchronise
+
+    @property
+    def first_loss(self) -> float:
+        return float(self._first)
+
+
 def timed_training(cfg, batch: int, seq: int, steps: int, device,
                    warm_chunks: int = 1, timed_chunks: int = 2,
                    mu_dtype=None, seed: int = 0) -> dict:
-    """The flagship-style training measurement the sweep, long-context
-    and decomposition twins share: fp32 master params and seeded tokens
-    (batch, seq) on ``device``, AdamW at 3e-4, then chunks of ``steps``
-    train steps. The port has no ``lax.scan``: a chunk is ``steps``
-    steps queued back to back with one synchronise, at the read of its
-    last loss. ``warm_chunks`` untimed chunks first (their wall time,
-    kernels built, is ``compile_s``), then ``timed_chunks`` timed ones.
+    """The training measurement the sweep, long-context and
+    decomposition twins share: :class:`TrainingChunks`, then
+    ``warm_chunks`` untimed chunks (their wall time, kernels built, is
+    ``compile_s``), then ``timed_chunks`` timed ones.
 
     Returns ``n_params``, ``tokens_per_s`` (batch x (seq - 1) tokens a
     step), ``step_ms``, ``compile_s``, ``loss`` (the last step's),
@@ -150,44 +187,28 @@ def timed_training(cfg, batch: int, seq: int, steps: int, device,
     memory allocated on the card, None on the host)."""
     import torch
 
-    from pbs_tpu_torch.models import init_params, make_train_step
-
     dev = torch.device(device)
     on_card = dev.type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    params = init_params(cfg, gen, device=dev)
-    init_opt, train_step = make_train_step(cfg, learning_rate=3e-4,
-                                           mu_dtype=mu_dtype)
-    state = (params, init_opt(params), 0)
-    del params
-    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
-                           device=dev, dtype=torch.int32)
-    losses: list = []
-
-    def chunk(st):
-        for _ in range(steps):
-            st, m = train_step(st, tokens)
-            losses.append(m["loss"])
-        return st, float(losses[-1])  # the chunk's one synchronise
-
+    chunks = TrainingChunks(cfg, batch, seq, steps, dev, mu_dtype=mu_dtype,
+                            seed=seed)
     t0 = time.perf_counter()
     for _ in range(warm_chunks):
-        state, _ = chunk(state)
+        chunks.run()
     compile_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     for _ in range(timed_chunks):
-        state, loss = chunk(state)
+        loss = chunks.run()
     dt = time.perf_counter() - t0
     n_steps = timed_chunks * steps
     return {
-        "n_params": cfg.num_params(),
+        "n_params": chunks.n_params,
         "tokens_per_s": batch * (seq - 1) * n_steps / dt,
         "step_ms": 1e3 * dt / n_steps,
         "compile_s": compile_s,
         "loss": loss,
-        "first_loss": float(losses[0]),
+        "first_loss": chunks.first_loss,
         "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
                      if on_card else None),
     }

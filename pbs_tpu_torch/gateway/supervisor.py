@@ -24,13 +24,17 @@ Two layers, deliberately separated (docs/GATEWAY.md "Process mode"):
   finally blocks, no flush — so recovery works from the journal bytes
   that were durable *before* the kill.
 
-The process federation (``procfed``) drives both.
+The process federation (``procfed``) drives both. Port-only:
+:func:`kill_group`, which ends a child started in a session of its own
+together with every process it started; a raw process primitive, so it
+lives here.
 """
 
 from __future__ import annotations
 
 import os
 import signal
+import subprocess
 
 #: Spawn waits, port-file polls and reaps ride the host scheduler;
 #: everything digest-covered consumes now_ns arguments instead.
@@ -187,3 +191,20 @@ class ProcessHandle:
         self._proc.close()
         self._closed = True
         return self.exitcode
+
+
+def kill_group(proc, grace_s: float) -> int:
+    """End the process group that ``proc`` (a ``subprocess.Popen``
+    started with ``start_new_session=True``) leads: SIGTERM, SIGKILL
+    after ``grace_s`` to whatever of the group is left, then the reap.
+    Returns the leader's exit code."""
+    for sig, wait_s in ((signal.SIGTERM, grace_s), (signal.SIGKILL, None)):
+        try:
+            os.killpg(proc.pid, sig)
+        except ProcessLookupError:
+            break  # the whole group is gone
+        try:
+            proc.wait(timeout=wait_s)
+        except subprocess.TimeoutExpired:
+            continue
+    return proc.wait()

@@ -28,6 +28,6 @@ __all__ = [
     "Monitor", "Perfc", "ProfileSession", "ProfiledLock", "ProfilerBusy",
     "SchedHistory", "SpanAssembler", "SpanRecorder", "TraceBuffer",
     "bucket_edges", "format_records", "hist_bucket", "hist_quantile",
-    "load_span_artifacts", "log", "read_system", "run_selftest",
+    "load_span_artifacts", "log", "perfc", "read_system", "run_selftest",
     "selftest_ok", "system_console",
 ]

@@ -33,6 +33,7 @@ import os
 import platform
 import subprocess
 import sys
+import time
 
 from pbs_tpu_torch.perf.bench import CHECK_THRESHOLDS, bench_names, run_bench
 
@@ -278,12 +279,18 @@ def main_check(results: dict, baseline_file: str | None,
                threshold: float) -> int:
     """Shared CLI/CI tail: print regressions, return the exit code.
 
-    A bench over threshold is RE-MEASURED once before it fails the
-    gate: a real regression reproduces, a scheduler/GC spike on a
-    shared CI host does not (observed: a microsecond-scale bench can
-    read 2-5x slow for one invocation under transient interference).
-    Flake probability is thereby squared, and genuine cliffs still
-    fail deterministically — both measurements would have to spike.
+    A bench over threshold is RE-MEASURED before it fails the gate: a
+    real regression reproduces, a scheduler/GC spike on a shared host
+    does not. The re-measure is up to :data:`RECHECK_ROUNDS` runs of the
+    bench, :data:`RECHECK_GAP_S` apart, keeping its best ns/op; the
+    bench fails only if that best is still over threshold. One
+    immediate re-measure is not independent of the first reading on a
+    host whose speed drifts in stretches of seconds: on the H100 card
+    host a quick python bench alone swung up to 2.6x (max/min), above
+    the default 2x, and stayed at 2x its best or more for up to 19.5 s
+    in a 120 s sample (``python -m pbs_tpu_torch.perf.drift``). Runs
+    spread over thirty seconds reach the host's fast state, and a
+    genuine cliff stays over threshold in every one of them.
 
     All diagnostics go to stderr: ``--json --check`` must leave stdout
     holding exactly the JSON document for CI parsers.
@@ -296,11 +303,7 @@ def main_check(results: dict, baseline_file: str | None,
         return 2
     regressions = compare_to_baseline(results, baseline, threshold)
     if regressions:
-        quick = bool(results.get("quick"))
-        retry = run_benches([r["bench"] for r in regressions],
-                            quick=quick,
-                            native=bool(results.get("native")))
-        confirmed = compare_to_baseline(retry, baseline, threshold)
+        confirmed = _remeasure(regressions, results, baseline, threshold)
         recovered = ({r["bench"] for r in regressions}
                      - {r["bench"] for r in confirmed})
         for name in sorted(recovered):
@@ -314,3 +317,35 @@ def main_check(results: dict, baseline_file: str | None,
               f"{r['baseline_ns_per_op']:.1f} "
               f"({r['ratio']}x >= {r['threshold']}x)", file=stream)
     return 1 if regressions else 0
+
+
+#: The gate's re-measure: runs of each regressed bench, this many
+#: seconds apart, until its best ns/op is under threshold (see
+#: :func:`main_check`).
+RECHECK_ROUNDS = 11
+RECHECK_GAP_S = 3.0
+
+
+def _remeasure(regressions: list[dict], results: dict, baseline: dict,
+               threshold: float) -> list[dict]:
+    """The regressions still over threshold at their best ns/op across
+    up to :data:`RECHECK_ROUNDS` runs spaced :data:`RECHECK_GAP_S`."""
+    quick = bool(results.get("quick"))
+    native = bool(results.get("native"))
+    best: dict[str, dict] = {}
+    pending = [r["bench"] for r in regressions]
+    confirmed = regressions
+    for i in range(RECHECK_ROUNDS):
+        if i:
+            time.sleep(RECHECK_GAP_S)
+        retry = run_benches(pending, quick=quick, native=native)
+        for name, cur in retry["benches"].items():
+            if name not in best or cur["ns_per_op"] < best[name]["ns_per_op"]:
+                best[name] = cur
+        confirmed = compare_to_baseline(
+            {**retry, "benches": {n: best[n] for n in pending}}, baseline,
+            threshold)
+        pending = [r["bench"] for r in confirmed]
+        if not pending:
+            break
+    return confirmed

@@ -1,0 +1,3 @@
+from pbs_tpu_torch.utils.clock import Clock, MonotonicClock, VirtualClock
+
+__all__ = ["Clock", "MonotonicClock", "VirtualClock"]

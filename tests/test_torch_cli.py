@@ -19,6 +19,7 @@ import io
 import json
 import re
 import threading
+import time
 import types
 
 import numpy as np
@@ -45,6 +46,10 @@ def _ns(root: str) -> types.SimpleNamespace:
 
 REF = _ns("pbs_tpu")
 PORT = _ns("pbs_tpu_torch")
+#: How long the port's seqlock readers wait for a writer
+#: (``pbs_tpu_torch.utils.seqlock``).
+SNAPSHOT_WAIT_S = importlib.import_module(
+    "pbs_tpu_torch.utils.seqlock").SNAPSHOT_WAIT_S
 
 
 def _run(main, argv) -> tuple[int, str, str]:
@@ -148,17 +153,46 @@ def c_ckpt_info_cli(P, tmp):
 def c_oprofile_passive_ledger(P, tmp):
     ledger = str(tmp / "p.ledger")
     _run(P.main, ["demo", "--seconds", "0.2", "--ledger", ledger])
-    # The live demo prints into the same stdout as the profiler, as in
-    # the reference test.
-    t = threading.Thread(
-        target=P.main,
-        args=(["demo", "--seconds", "1.0", "--ledger", ledger],))
+    # The live demo starts only once the session's first sample_once
+    # has primed its baselines: a demo (0.1-0.2 s of wall time) that
+    # finished before the priming left every counter still from there
+    # on, and the report without its demo/ rows. The live demo prints
+    # into the same stdout as the profiler, as in the reference test.
+    Session = P.obs.ProfileSession
+    sample_once, primed = Session.sample_once, threading.Event()
+
+    def sample_then_release(self, *a, **k):
+        wait_until = time.monotonic() + SNAPSHOT_WAIT_S
+        while True:
+            try:
+                sample_once(self, *a, **k)
+                break
+            except RuntimeError as e:
+                # The reference's seqlock reader gives up after its spin
+                # count where the port's waits (a stated departure): a
+                # demo thread preempted mid-write must not end the
+                # reference's run. Its tick is retried as long as the
+                # port's reader would wait.
+                if (P is PORT or "retries exhausted" not in str(e)
+                        or time.monotonic() > wait_until):
+                    raise
+                time.sleep(1e-3)
+        primed.set()
+
+    def live_demo():
+        primed.wait(timeout=30)
+        P.main(["demo", "--seconds", "1.0", "--ledger", ledger])
+
+    t = threading.Thread(target=live_demo)
     t.start()
+    Session.sample_once = sample_then_release
     try:
         rc, out, _ = _run(P.main, ["oprofile", "--ledger", ledger,
                                    "--name", "demo", "--seconds", "0.5",
                                    "--period", "20"])
     finally:
+        Session.sample_once = sample_once
+        primed.set()
         t.join()
     assert rc == 0
     assert "samples" in out and "device_ms" in out

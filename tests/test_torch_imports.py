@@ -191,7 +191,7 @@ OBSERVER_MODULES = (
     "pbs_tpu_torch.obs.dumpfile", "pbs_tpu_torch.obs.mon",
     "pbs_tpu_torch.obs.oprofile", "pbs_tpu_torch.obs.selftest",
     "pbs_tpu_torch.perf", "pbs_tpu_torch.perf.bench",
-    "pbs_tpu_torch.perf.report",
+    "pbs_tpu_torch.perf.report", "pbs_tpu_torch.perf.drift",
 )
 
 
@@ -251,7 +251,8 @@ def test_parallel_modules_are_covered():
 DRIVER_MODULES = tuple(
     f"pbs_tpu_torch.drivers{m}" for m in (
         "", ".bench_common", ".graft_entry", ".bench_sim", ".bench_serving",
-        ".bench_longctx", ".bench_sweep", ".bench_decompose")) + tuple(
+        ".bench_longctx", ".bench_sweep", ".bench_decompose",
+        ".bench")) + tuple(
     f"pbs_tpu_torch.examples{m}" for m in (
         "", ".train_from_text", ".serving_stack", ".multi_tenant"))
 
@@ -342,7 +343,8 @@ def test_device_free_planes_import_no_torch():
             "pbs_tpu_torch.cli.pbst", "pbs_tpu_torch.obs.mon",
             "pbs_tpu_torch.obs.oprofile", "pbs_tpu_torch.obs.selftest",
             "pbs_tpu_torch.obs.dumpfile", "pbs_tpu_torch.perf",
-            "pbs_tpu_torch.serve"]
+            "pbs_tpu_torch.serve", "pbs_tpu_torch.utils",
+            "pbs_tpu_torch.cli"]
     code = (
         "import sys, importlib\n"
         f"for name in {mods!r}:\n"
@@ -355,6 +357,41 @@ def test_device_free_planes_import_no_torch():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip() == "[]"
+
+
+#: The port's stated renames of the reference's public names.
+EXPORT_RENAMES = {"TpuBackend": "CudaBackend",
+                  "XlaQuantumProfiler": "TorchQuantumProfiler"}
+
+
+def _reference_all(init: Path) -> list[str] | None:
+    """The literal ``__all__`` of a reference package init, read from
+    its source (nothing of the reference is imported)."""
+    for node in ast.parse(init.read_text()).body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets):
+            return list(ast.literal_eval(node.value))
+    return None
+
+
+@pytest.mark.parametrize(
+    "init", [p for p in sorted((REPO / "pbs_tpu").rglob("__init__.py"))
+             if _reference_all(p) is not None],
+    ids=lambda p: ".".join(p.parent.relative_to(REPO).parts))
+def test_port_package_exports_the_reference_all(init):
+    """Every name in a reference package's ``__all__`` is in its port
+    twin's ``__all__`` and resolves there, under the stated renames
+    only (so ``from pbs_tpu_torch.utils import VirtualClock`` works as
+    the reference's import does)."""
+    import importlib
+
+    names = _reference_all(init)
+    rel = init.parent.relative_to(REPO).parts
+    port = importlib.import_module(".".join(("pbs_tpu_torch",) + rel[1:]))
+    want = [EXPORT_RENAMES.get(n, n) for n in names]
+    port_all = getattr(port, "__all__", [])
+    assert [n for n in want if n not in port_all] == []
+    assert [n for n in want if not hasattr(port, n)] == []
 
 
 def test_chip_smoke_top_level_is_stdlib_only():
