@@ -1521,20 +1521,46 @@ def cmd_trace(args) -> int:
     timelines from span artifacts."""
     import numpy as np
 
-    from pbs_tpu_torch.obs.trace import chrome_trace, format_records
+    from pbs_tpu_torch.obs.trace import format_records
 
     if args.file == "spans":
         return _cmd_trace_spans(args)
     recs = np.load(args.file)
     if getattr(args, "chrome", None):
         with open(args.chrome, "w") as f:
-            json.dump(chrome_trace(recs), f)
+            json.dump(_chrome_with_phases(args.file, recs), f)
         print(f"wrote {len(recs)} records to {args.chrome} "
               "(chrome://tracing / Perfetto)")
         return 0
     for line in format_records(recs):
         print(line)
     return 0
+
+
+def _chrome_with_phases(path: str, recs) -> dict:
+    """Chrome JSON of a saved stream: phase records (the port's class
+    0x0Axx, names from the sidecar ``PhaseRecorder.save`` writes) as a
+    duration track per phase under a process of their own, named for
+    the monotonic clock they keep (a ring's records may keep a sim
+    partition's virtual clock); every other record as ``chrome_trace``
+    draws it."""
+    import numpy as np
+
+    from pbs_tpu_torch.obs import phases
+    from pbs_tpu_torch.obs.trace import chrome_trace
+
+    recs = np.asarray(recs).reshape(-1, 8)
+    is_phase = (recs[:, 1] >> 8) == phases.PHASE_CLASS
+    doc = chrome_trace(recs[~is_phase])
+    if is_phase.any():
+        names: list[str] = []
+        side = phases.sidecar_path(path)
+        if os.path.exists(side):
+            with open(side) as f:
+                names = json.load(f)["names"]
+        doc["traceEvents"] += phases.chrome_trace(
+            recs[is_phase], names, pid=1)["traceEvents"]
+    return doc
 
 
 def _load_spans(path: str, rids_path: str | None):
@@ -2729,7 +2755,10 @@ def main(argv=None) -> int:
                     help="with 'spans': stable JSON chains instead of "
                          "the text timelines")
     sp.add_argument("--chrome", metavar="OUT.json",
-                    help="write Chrome trace-event JSON instead")
+                    help="write Chrome trace-event JSON instead (phase "
+                         "records, with their names from the "
+                         "X.phases.json beside X.npy, as a track per "
+                         "phase)")
     sp.set_defaults(fn=cmd_trace)
 
     sp = sub.add_parser(

@@ -27,6 +27,7 @@ from pbs_tpu_torch.models.transformer import (
     tree_leaves,
     tree_map,
 )
+from pbs_tpu_torch.obs import phases
 
 
 def make_micro_train_step(
@@ -64,20 +65,25 @@ def make_micro_train_step(
         }
 
     def micro_step(state):
-        tokens = next_batch(state["micro"])
-        loss, grads = loss_and_grads(cfg, state["params"], tokens)
-        acc = state["acc"]
-        with torch.no_grad():
-            for a, g in zip(tree_leaves(acc), tree_leaves(grads)):
-                a.add_(g)
-        state = dict(state, micro=state["micro"] + 1)
-        if state["micro"] >= n_micro:
-            mean = tree_map(lambda a: a / n_micro, acc)
-            opt = tx.update(mean, state["opt"], state["params"])
-            for a in tree_leaves(acc):
-                a.zero_()
-            state.update(opt=opt, micro=0, step=state["step"] + 1)
-        ntok = tokens.shape[0] * (tokens.shape[1] - 1)
+        with phases.span("train.micro") as sp:
+            with phases.span("train.feed"):
+                tokens = next_batch(state["micro"])
+            ntok = tokens.shape[0] * (tokens.shape[1] - 1)
+            sp.count = ntok
+            loss, grads = loss_and_grads(cfg, state["params"], tokens)
+            acc = state["acc"]
+            with phases.span("train.accumulate"), torch.no_grad():
+                for a, g in zip(tree_leaves(acc), tree_leaves(grads)):
+                    a.add_(g)
+            state = dict(state, micro=state["micro"] + 1)
+            if state["micro"] >= n_micro:
+                with phases.span("train.optimizer",
+                                 count=state["step"] + 1):
+                    mean = tree_map(lambda a: a / n_micro, acc)
+                    opt = tx.update(mean, state["opt"], state["params"])
+                    for a in tree_leaves(acc):
+                        a.zero_()
+                state.update(opt=opt, micro=0, step=state["step"] + 1)
         return state, {"loss": loss, "tokens": ntok}
 
     return init_state, micro_step

@@ -56,6 +56,7 @@ from pbs_tpu_torch.models.transformer import (
     token_xent,
     value_and_grad,
 )
+from pbs_tpu_torch.obs import phases
 
 
 def _identity(a: torch.Tensor) -> torch.Tensor:
@@ -241,14 +242,17 @@ def routed_expert_ffn(xg: torch.Tensor, dispatch: torch.Tensor,
     ``lp`` holds. The expert buffers are (Ne, G·Cg, d)."""
     G, g, Ne, Cg = dispatch.shape
     d = xg.shape[-1]
-    ein = torch.einsum("gtec,gtd->egcd", dispatch.to(dt), xg)
-    ein = constrain_ec(ein.reshape(Ne, G * Cg, d))
-    gate = F.silu(torch.einsum("ecd,edf->ecf", ein, wload(lp["we1"], dt)))
-    up = torch.einsum("ecd,edf->ecf", ein, wload(lp["we3"], dt))
-    eout = torch.einsum("ecf,efd->ecd", constrain_ec(gate * up),
-                        wload(lp["we2"], dt))
-    eout = constrain_ec(eout).reshape(Ne, G, Cg, d)
-    return torch.einsum("gtec,egcd->gtd", combine.to(dt), eout)
+    with phases.span("moe.experts", count=Ne):
+        ein = torch.einsum("gtec,gtd->egcd", dispatch.to(dt), xg)
+        ein = constrain_ec(ein.reshape(Ne, G * Cg, d))
+        gate = F.silu(torch.einsum("ecd,edf->ecf", ein,
+                                   wload(lp["we1"], dt)))
+        up = torch.einsum("ecd,edf->ecf", ein, wload(lp["we3"], dt))
+        eout = torch.einsum("ecf,efd->ecd", constrain_ec(gate * up),
+                            wload(lp["we2"], dt))
+        eout = constrain_ec(eout).reshape(Ne, G, Cg, d)
+    with phases.span("moe.combine", count=Ne):
+        return torch.einsum("gtec,egcd->gtd", combine.to(dt), eout)
 
 
 def moe_mlp(cfg: MoEConfig, x: torch.Tensor, lp: dict,
@@ -262,9 +266,10 @@ def moe_mlp(cfg: MoEConfig, x: torch.Tensor, lp: dict,
     g, G, Cg = routing_groups(cfg, B * S)
     xg = x.reshape(G, g, d)
 
-    logits = xg.float() @ lp["router"].float()
-    probs = torch.softmax(logits, dim=-1)  # (G, g, E)
-    dispatch, combine, aux, drop = top_k_dispatch(probs, cfg.top_k, Cg)
+    with phases.span("moe.route", count=B * S):
+        logits = xg.float() @ lp["router"].float()
+        probs = torch.softmax(logits, dim=-1)  # (G, g, E)
+        dispatch, combine, aux, drop = top_k_dispatch(probs, cfg.top_k, Cg)
 
     y = routed_expert_ffn(xg, dispatch, combine, lp, cfg.dtype, constrain_ec)
     return y.reshape(B, S, d), aux.mean(), drop.mean()

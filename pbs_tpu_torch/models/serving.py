@@ -75,6 +75,7 @@ from pbs_tpu_torch.models.transformer import (
     rope_tables,
     tree_leaves,
 )
+from pbs_tpu_torch.obs import phases
 from pbs_tpu_torch.parallel.sharding import ServingSeams
 from pbs_tpu_torch.utils.stats import nearest_rank
 
@@ -500,10 +501,13 @@ class ContinuousBatcher:
                 first = int(_sample(ent["logits"][None, :], self._gen,
                                     self.temperature)[0])
             else:
-                first, last_logits, extra = self._prefill(
-                    slot, padded, len(prompt))
-                first = int(first)
-                self._mlp_extra_sum += float(extra) / self.cfg.n_layers
+                with phases.span("engine.prefill", owner=rid,
+                                 count=len(prompt)):
+                    first, last_logits, extra = self._prefill(
+                        slot, padded, len(prompt))
+                    first = int(first)
+                    extra = float(extra)
+                self._mlp_extra_sum += extra / self.cfg.n_layers
                 self._mlp_extra_n += 1
                 self.prefill_count += 1
                 if self.prefix_cache_size:
@@ -568,7 +572,8 @@ class ContinuousBatcher:
         EOS sampled at admission). Returns (completions, any_active);
         when nothing is active the tick is already accounted."""
         self.agree_tick()
-        self._admit()
+        with phases.span("engine.admit"):
+            self._admit()
         done: list[Completion] = []
         for slot in range(self.n_slots):
             if self.active[slot] and (
@@ -596,20 +601,26 @@ class ContinuousBatcher:
     def step(self) -> list[Completion]:
         """Admit waiting requests, decode one token for every active
         slot, retire finished requests. Returns completions."""
-        done, any_active = self._pre_decode()
-        if not any_active:
+        with phases.span("engine.tick") as tick:
+            done, any_active = self._pre_decode()
+            if not any_active:
+                return done
+            n = tick.count = int(self.active.sum())
+            with phases.span("engine.decode", count=n):
+                nxt, extra = self._decode(self.last_tok, self.active)
+            with phases.span("engine.read", count=n):
+                nxt = nxt.cpu().numpy()  # the tick's one host read
+                extra = float(extra)
+            self._mlp_extra_sum += extra / self.cfg.n_layers
+            self._mlp_extra_n += 1
+            with phases.span("engine.emit", count=n):
+                for slot in range(self.n_slots):
+                    if not self.active[slot]:
+                        continue
+                    if self._emit(slot, int(nxt[slot])):
+                        done.append(self._retire(slot))
+            self.steps += 1
             return done
-        nxt, extra = self._decode(self.last_tok, self.active)
-        nxt = nxt.cpu().numpy()  # the tick's one host read
-        self._mlp_extra_sum += float(extra) / self.cfg.n_layers
-        self._mlp_extra_n += 1
-        for slot in range(self.n_slots):
-            if not self.active[slot]:
-                continue
-            if self._emit(slot, int(nxt[slot])):
-                done.append(self._retire(slot))
-        self.steps += 1
-        return done
 
     def has_work(self) -> bool:
         return bool(self.queue) or bool(self.active.any())
@@ -765,6 +776,10 @@ class SpeculativeBatcher(ContinuousBatcher):
         return super().submit(prompt, max_new_tokens)
 
     def step(self) -> list[Completion]:
+        with phases.span("engine.tick"):
+            return self._spec_step()
+
+    def _spec_step(self) -> list[Completion]:
         done, any_active = self._pre_decode()
         for slot, padded, plen in self._admitted:
             d_extra = self._draft_prefill(slot, padded, plen)

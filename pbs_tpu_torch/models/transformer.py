@@ -36,6 +36,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from pbs_tpu_torch.models.quant import embed_rows
+from pbs_tpu_torch.obs import phases
 from pbs_tpu_torch.ops.attention import flash_attention
 
 
@@ -467,8 +468,10 @@ def value_and_grad(fn: Callable, params: dict) -> tuple[tuple, dict]:
     like ``params``, fp32 as the master leaves). ``params`` themselves
     are left without ``requires_grad``."""
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
-    loss, aux = fn(live)
-    it = iter(torch.autograd.grad(loss, tree_leaves(live)))
+    with phases.span("train.forward"):
+        loss, aux = fn(live)
+    with phases.span("train.backward"):
+        it = iter(torch.autograd.grad(loss, tree_leaves(live)))
     return (loss.detach(), aux), tree_map(lambda _: next(it), live)
 
 

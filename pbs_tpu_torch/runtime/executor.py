@@ -22,6 +22,7 @@ from typing import TYPE_CHECKING
 import numpy as np
 
 from pbs_tpu_torch import knobs
+from pbs_tpu_torch.obs import phases
 from pbs_tpu_torch.obs.trace import Ev
 from pbs_tpu_torch.runtime.job import ContextState, ExecutionContext
 from pbs_tpu_torch.telemetry.counters import NUM_COUNTERS, Counter
@@ -66,8 +67,10 @@ class Executor:
         """One trip through the scheduler loop. Returns True if work ran."""
         part = self.partition
         now = part.clock.now_ns()
-        part.timers.fire_due(now)
-        decision = part.scheduler.do_schedule(self, now)
+        with phases.span("exec.timers", owner=self.index) as sp:
+            sp.count = part.timers.fire_due(now)
+        with phases.span("exec.pick", owner=self.index):
+            decision = part.scheduler.do_schedule(self, now)
         self.sched_invocations += 1
         ctx = decision.ctx
         if ctx is None:
@@ -119,6 +122,7 @@ class Executor:
                 n_units = max(1, min(n_units, remaining))
             n_steps_equiv = n_units
 
+        phases.own(ctx.ledger_slot)
         try:
             if micro:
                 deltas = part.source.execute_micro(ctx, n_units)
@@ -136,34 +140,38 @@ class Executor:
             return
 
         # -- context switch out: pmu_save_regs --------------------------
-        ran_ns = int(deltas[_I_DEVICE_TIME])
-        deltas[_I_SCHED_COUNT] = 1
-        np.add(ctx.counters, deltas, out=ctx.counters)
-        ctx.observe_step_time(ran_ns, n_steps_equiv)
-        if part.compile_admission is not None:
-            # Measured compile spend tightens the admission projections
-            # (runtime.compile_gate) — the accounting leg of the claim.
-            c_ns = int(deltas[_I_COMPILE_TIME])
-            if c_ns:
-                part.compile_admission.charge(job.name, c_ns)
-        if ctx.ledger_slot >= 0:
-            part.ledger.suspend(ctx.ledger_slot, deltas)
-        self.current = None
-        part.progress_epoch += 1
+        with phases.span("exec.account", owner=ctx.ledger_slot):
+            ran_ns = int(deltas[_I_DEVICE_TIME])
+            deltas[_I_SCHED_COUNT] = 1
+            np.add(ctx.counters, deltas, out=ctx.counters)
+            ctx.observe_step_time(ran_ns, n_steps_equiv)
+            if part.compile_admission is not None:
+                # Measured compile spend tightens the admission
+                # projections (runtime.compile_gate) — the accounting
+                # leg of the claim.
+                c_ns = int(deltas[_I_COMPILE_TIME])
+                if c_ns:
+                    part.compile_admission.charge(job.name, c_ns)
+            if ctx.ledger_slot >= 0:
+                part.ledger.suspend(ctx.ledger_slot, deltas)
+            self.current = None
+            part.progress_epoch += 1
 
-        end = part.clock.now_ns()
-        if part.trace_enabled:
-            part.trace_emit(self.index, Ev.SCHED_DESCHED, ctx.ledger_slot,
-                            ran_ns)
-        if part.recorder is not None:
-            part.recorder.on_quantum(
-                self.index, ctx, quantum_ns, n_units, deltas, now, end)
-        part.timers.fire_due(end)
-        part.scheduler.descheduled(self, ctx, ran_ns, end)
-        # Overflow check at the quantum boundary (pmu_ihandler analog):
-        # counters only advance here, so this is where i-mode thresholds
-        # can cross; the virq is delivered by the run loop between quanta.
-        part.sampler.check(ctx)
+            end = part.clock.now_ns()
+            if part.trace_enabled:
+                part.trace_emit(self.index, Ev.SCHED_DESCHED,
+                                ctx.ledger_slot, ran_ns)
+            if part.recorder is not None:
+                part.recorder.on_quantum(
+                    self.index, ctx, quantum_ns, n_units, deltas, now, end)
+            with phases.span("exec.timers", owner=self.index) as sp:
+                sp.count = part.timers.fire_due(end)
+            part.scheduler.descheduled(self, ctx, ran_ns, end)
+            # Overflow check at the quantum boundary (pmu_ihandler
+            # analog): counters only advance here, so this is where
+            # i-mode thresholds can cross; the virq is delivered by the
+            # run loop between quanta.
+            part.sampler.check(ctx)
 
         if job.finished():
             for c in job.contexts:

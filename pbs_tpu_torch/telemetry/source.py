@@ -30,6 +30,7 @@ from typing import Any, Callable, Protocol
 import numpy as np
 
 from pbs_tpu_torch.faults import injector as _faults
+from pbs_tpu_torch.obs import phases
 from pbs_tpu_torch.telemetry.counters import NUM_COUNTERS, Counter
 from pbs_tpu_torch.utils.clock import Clock, MonotonicClock, VirtualClock
 
@@ -642,7 +643,8 @@ class CudaBackend:
             else:
                 st = out
             if self._sync is not None:
-                self._sync()
+                with phases.span("backend.sync"):
+                    self._sync()
             return st, metrics
 
         t0 = time.monotonic_ns()
