@@ -1927,7 +1927,7 @@ def run_engine_path(torch, gen, cfg, params, serve_ms_per_token, card):
           f"(d) int8 engine: all {len(d['done'])} requests completed with "
           f"their budgets")
     # the engine's own int8 prefill (padded bucket, slot slab, embed_rows
-    # and layer_params on {"q","s"} leaves) against the lockstep one
+    # and unstack_layers on {"q","s"} leaves) against the lockstep one
     padded = np.zeros(eng8.bucket, np.int32)
     padded[:len(reqs[0][0])] = reqs[0][0]
     with torch.no_grad():

@@ -32,10 +32,10 @@ from pbs_tpu_torch.models.quant import embed_rows, wload
 from pbs_tpu_torch.models.transformer import (
     TransformerConfig,
     apply_rope,
-    layer_params,
     resolve_device,
     rms_norm,
     rope_tables,
+    unstack_layers,
 )
 
 
@@ -95,8 +95,7 @@ def _forward_with_cache_impl(cfg: TransformerConfig, params: dict,
     cos_full, sin_full = rope_tables(cfg, T, device=x.device)
     cos, sin = cos_full[start:start + S], sin_full[start:start + S]
     extra = 0.0
-    for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
+    for i, lp in enumerate(unstack_layers(params)):
         ck, cv = cache["k"][i], cache["v"][i]
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
         q = (h @ wload(lp["wq"], dt)).reshape(B, S, nh, hd)

@@ -48,12 +48,12 @@ from pbs_tpu_torch.models.transformer import (
     causal_attention,
     chunked_head_xent,
     default_optimizer,
-    layer_params,
     resolve_device,
     rms_norm,
     rope_tables,
     shift_targets_and_weights,
     token_xent,
+    unstack_layers,
     value_and_grad,
 )
 from pbs_tpu_torch.obs import phases
@@ -316,8 +316,7 @@ def moe_forward_hidden(cfg: MoEConfig, params: dict, tokens: torch.Tensor,
     x = constrain(embed_rows(params["embed"], tokens, cfg.dtype))
     cos, sin = rope_tables(cfg, S, device=x.device)
     aux = drop = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
+    for lp in unstack_layers(params):
         if cfg.remat:
             # Full recompute, as the reference's plain jax.checkpoint:
             # remat_policy does not apply to the MoE layer.

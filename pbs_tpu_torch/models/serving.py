@@ -69,11 +69,11 @@ from pbs_tpu_torch.models.generate import _sample
 from pbs_tpu_torch.models.quant import wload
 from pbs_tpu_torch.models.transformer import (
     TransformerConfig,
-    layer_params,
     resolve_device,
     rms_norm,
     rope_tables,
     tree_leaves,
+    unstack_layers,
 )
 from pbs_tpu_torch.obs import phases
 from pbs_tpu_torch.parallel.sharding import ServingSeams
@@ -154,8 +154,7 @@ def _slot_forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
     hidden = ~reach[:, None, None, :, :]
 
     extra = 0.0
-    for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
+    for i, lp in enumerate(unstack_layers(params)):
         ck, cv = cache["k"][i], cache["v"][i]  # (B, T, nkv, hd) views
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
         q = (h @ wload(lp["wq"], dt)).reshape(B, S, nh, hd)

@@ -304,12 +304,23 @@ def layer_body(cfg: TransformerConfig, x: torch.Tensor, lp: dict,
     return constrain(x + reduce((gate * up) @ lp["w2"].to(dt)))
 
 
-def layer_params(params: dict, i: int) -> dict:
-    """Layer ``i``'s slice of the L-stacked layer params (views); an
-    int8 ``{"q", "s"}`` leaf slices into ``{"q": q[i], "s": s[i]}``."""
-    return {name: ({"q": w["q"][i], "s": w["s"][i]}
-                   if isinstance(w, dict) else w[i])
-            for name, w in params["layers"].items()}
+def unstack_layers(params: dict) -> list[dict]:
+    """The L-stacked layer params as L per-layer dicts of views, every
+    leaf cut by one ``unbind(0)``; an int8 ``{"q", "s"}`` leaf cuts into
+    ``{"q": q[i], "s": s[i]}``.
+
+    One cut per forward, not ``w[i]`` per layer: under autograd a
+    stacked leaf's gradient is then one ``stack`` of its L layer
+    gradients, where L selects cost L zero-filled stack-size tensors
+    and L - 1 stack-size adds. Under ``no_grad`` the views are the
+    same."""
+    def unbind(w):
+        if isinstance(w, dict):
+            return [dict(zip(w, ts))
+                    for ts in zip(*map(unbind, w.values()), strict=True)]
+        return w.unbind(0)
+
+    return unbind(params["layers"])
 
 
 # -- forward / loss ---------------------------------------------------------
@@ -362,8 +373,8 @@ def forward_hidden(cfg: TransformerConfig, params: dict,
     x = constrain(embed_rows(params["embed"], tokens, cfg.dtype))
     cos, sin = rope_tables(cfg, S, device=x.device)
     body = _layer_fn(cfg, constrain, mesh)
-    for i in range(cfg.n_layers):
-        x = body(x, layer_params(params, i), cos, sin)
+    for lp in unstack_layers(params):
+        x = body(x, lp, cos, sin)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 

@@ -33,7 +33,7 @@ from pbs_tpu_torch.models.moe import (
     routing_groups,
     top_k_dispatch,
 )
-from pbs_tpu_torch.models.transformer import layer_params, rms_norm
+from pbs_tpu_torch.models.transformer import rms_norm, unstack_layers
 from pbs_tpu_torch.parallel import comm
 from pbs_tpu_torch.parallel.mesh import Mesh, NamedSharding, PartitionSpec as P
 from pbs_tpu_torch.parallel.sharding import (
@@ -231,8 +231,7 @@ def moe_local_loss(cfg: MoEConfig, mesh: Mesh, params: dict,
     x = params["embed"][tokens.long()].to(cfg.dtype)
     cos, sin = sharded_rope(cfg, tokens.shape[1], mesh, x.device)
     aux = drop = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
+    for lp in unstack_layers(params):
         args = (cfg, x, lp, cos, sin, constrain, constrain_ec, body_mesh,
                 mlp, attn)
         if cfg.remat:

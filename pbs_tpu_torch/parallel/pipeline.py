@@ -49,9 +49,9 @@ from pbs_tpu_torch.models.transformer import (
     TransformerConfig,
     init_params,
     layer_body,
-    layer_params,
     rms_norm,
     shift_targets_and_weights,
+    unstack_layers,
 )
 from pbs_tpu_torch.parallel import comm
 from pbs_tpu_torch.parallel.mesh import Mesh, NamedSharding, PartitionSpec as P
@@ -256,9 +256,8 @@ def _pipe_blocks(cfg: TransformerConfig, mesh: Mesh, n_micro: int):
         return layer_body(cfg, x, lp, cos, sin, reduce=reduce, attn=attn_fn)
 
     def stage(layers, x, cos, sin):
-        for i in range(cfg.n_layers // pp):
-            x = checkpoint(body, x, layer_params({"layers": layers}, i),
-                           cos, sin, use_reentrant=False,
+        for lp in unstack_layers({"layers": layers}):
+            x = checkpoint(body, x, lp, cos, sin, use_reentrant=False,
                            preserve_rng_state=False)
         return x
 
@@ -467,10 +466,9 @@ def _moe_pipe_blocks(cfg, mesh: Mesh, n_micro: int):
 
     def stage(layers, x, cos, sin):
         aux = drop = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i in range(cfg.n_layers // pp):
-            x, a, dr = checkpoint(block, x, layer_params({"layers": layers},
-                                                         i),
-                                  cos, sin, use_reentrant=False,
+        for lp in unstack_layers({"layers": layers}):
+            x, a, dr = checkpoint(block, x, lp, cos, sin,
+                                  use_reentrant=False,
                                   preserve_rng_state=False)
             aux, drop = aux + a, drop + dr
         return x, aux, drop

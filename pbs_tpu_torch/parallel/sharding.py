@@ -46,11 +46,11 @@ from pbs_tpu_torch.models.transformer import (
     _layer_fn,
     default_optimizer,
     init_params,
-    layer_params,
     rms_norm,
     rope_tables,
     tree_leaves,
     tree_map,
+    unstack_layers,
 )
 from pbs_tpu_torch.parallel import comm
 from pbs_tpu_torch.parallel.mesh import (
@@ -468,8 +468,8 @@ def dense_local_loss(cfg: TransformerConfig, mesh: Mesh, params: dict,
     body = _layer_fn(cfg, activation_constrainer(mesh),
                      mesh if seq_par else None, reduce=seams.reduce,
                      attn=attn, gather=seams.gather)
-    for i in range(cfg.n_layers):
-        x = body(x, layer_params(params, i), cos, sin)
+    for lp in unstack_layers(params):
+        x = body(x, lp, cos, sin)
     x = seams.head_input(rms_norm(x, params["final_norm"], cfg.norm_eps))
     nll = vocab_nll_sum(cfg, x, params["head"], targets, weights,
                         seams.group, chunk)

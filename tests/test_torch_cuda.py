@@ -497,8 +497,9 @@ def test_moe_ffn_and_train_step_on_the_card_match_the_host(gen):
     from pbs_tpu_torch.models import MoEConfig, init_moe_params
     from pbs_tpu_torch.models.moe import (make_moe_train_step, moe_loss,
                                           moe_mlp)
-    from pbs_tpu_torch.models.transformer import (layer_params, tree_leaves,
-                                                  tree_map, value_and_grad)
+    from pbs_tpu_torch.models.transformer import (tree_leaves, tree_map,
+                                                  unstack_layers,
+                                                  value_and_grad)
 
     cfg = MoEConfig(vocab=256, d_model=128, n_layers=2, n_heads=4,
                     n_kv_heads=2, d_ff=96, max_seq=128, n_experts=4,
@@ -508,8 +509,8 @@ def test_moe_ffn_and_train_step_on_the_card_match_the_host(gen):
     host = tree_map(lambda t: t.cpu(), params)
     tol = dict(rtol=2e-4, atol=2e-5)
     x = torch.randn(2, 64, 128, device="cuda", generator=gen)
-    got = moe_mlp(cfg, x, layer_params(params, 0))
-    want = moe_mlp(cfg, x.cpu(), layer_params(host, 0))
+    got = moe_mlp(cfg, x, unstack_layers(params)[0])
+    want = moe_mlp(cfg, x.cpu(), unstack_layers(host)[0])
     torch.testing.assert_close(got[0].cpu(), want[0], **tol)
     for g, w in zip(got[1:], want[1:]):
         assert abs(float(g) - float(w)) <= 1e-6

@@ -23,7 +23,7 @@ from pbs_tpu import models as ref  # noqa: E402
 from pbs_tpu.models import quant as ref_quant  # noqa: E402
 from pbs_tpu_torch import models as port  # noqa: E402
 from pbs_tpu_torch.models import quant as port_quant  # noqa: E402
-from pbs_tpu_torch.models.transformer import layer_params  # noqa: E402
+from pbs_tpu_torch.models.transformer import unstack_layers  # noqa: E402
 
 # The suite runs in parallel worker processes: uncapped, torch's intra-op
 # pool takes every core in each of them and oversubscribes the host.
@@ -105,15 +105,15 @@ def test_quant_memory_halves(trees):
 
 def test_quantized_tree_crosses_and_slices(trees):
     """A quantized numpy tree carries across with q kept int8 (a
-    ``dtype=`` cast touches floating leaves only), and ``layer_params``
-    slices a ``{"q", "s"}`` leaf per layer."""
+    ``dtype=`` cast touches floating leaves only), and ``unstack_layers``
+    cuts a ``{"q", "s"}`` leaf per layer."""
     *_, jq, tq = trees
     crossed = port.params_from_numpy(jax.tree.map(np.asarray, jq), "cpu",
                                      dtype=torch.bfloat16)
     assert crossed["layers"]["w1"]["q"].dtype == torch.int8
     assert crossed["layers"]["w1"]["s"].dtype == torch.bfloat16
     assert torch.equal(crossed["head"]["q"], tq["head"]["q"])
-    lp = layer_params(tq, 1)
+    lp = unstack_layers(tq)[1]
     assert torch.equal(lp["wq"]["q"], tq["layers"]["wq"]["q"][1])
     assert torch.equal(lp["wq"]["s"], tq["layers"]["wq"]["s"][1])
     assert torch.equal(lp["attn_norm"], tq["layers"]["attn_norm"][1])
@@ -184,7 +184,7 @@ def test_quant_moe_generate():
     """A quantized MoE tree (tests/test_quant.py:90): the experts int8,
     bitwise the reference's, the router fp32; the lockstep MoE decode
     and the dropless MoE engine serve it token for token with the
-    reference's, and layer_params slices the 4-D {"q","s"} leaves."""
+    reference's, and unstack_layers cuts the 4-D {"q","s"} leaves."""
     from pbs_tpu.models import moe as ref_moe
     from pbs_tpu_torch.models import moe as port_moe
 
@@ -199,7 +199,7 @@ def test_quant_moe_generate():
     assert not isinstance(tq["layers"]["router"], dict)  # router fp32
     assert tq["layers"]["we1"]["q"].dtype == torch.int8
     assert tuple(tq["layers"]["we2"]["s"].shape) == (2, 4, 1, 64)
-    lp = layer_params(tq, 1)
+    lp = unstack_layers(tq)[1]
     assert torch.equal(lp["we1"]["q"], tq["layers"]["we1"]["q"][1])
     assert torch.equal(lp["we1"]["s"], tq["layers"]["we1"]["s"][1])
     requant = port.quantize_weights(port.params_from_numpy(
